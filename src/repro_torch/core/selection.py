@@ -1,0 +1,79 @@
+"""Hidden-sample selection (step B of the paper, Fig. 1).
+
+Port of ``repro/core/selection.py``.  Three interchangeable methods, chosen
+by ``KakurenboConfig.selection``:
+
+1. ``"sort"`` — the paper's: rank every sample by lagging loss (O(N log N))
+   and hide the lowest-loss fraction <= F;
+2. ``"histogram"`` — the histogram-CDF threshold in plain PyTorch (O(N));
+3. ``"histogram_pallas"`` — the same math with the range and histogram
+   passes in the CUDA kernels B2/B3 (the name is the JAX package's, kept so
+   configurations carry over).  Bit-identical masks to ``"histogram"``.
+
+All honour the move-back rule: a candidate stays hidden only if it was
+correct with confidence >= tau at its last observation.  Never-seen samples
+are never hidden.  DropTop (App. D) under the histogram methods mirrors the
+CDF walk from the top bin; under ``"sort"`` it needs the radix rank-select
+kernels of a later slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import planops
+from repro_torch.core.state import SampleState
+
+#: Methods accepted by ``select_hidden`` / ``KakurenboConfig.selection``.
+SELECTION_METHODS = ("sort", "histogram", "histogram_pallas")
+
+
+def _eligible(state: SampleState, tau: float, moveback: bool) -> torch.Tensor:
+    """True where a sample is allowed to stay hidden."""
+    if not moveback:
+        return state.seen >= 0
+    return state.pa & (state.pc >= tau) & (state.seen >= 0)
+
+
+def select_hidden_sort(state: SampleState, max_fraction, tau: float = 0.7,
+                       drop_top_fraction: float = 0.0,
+                       moveback: bool = True) -> torch.Tensor:
+    """Paper-faithful selection: global sort by lagging loss."""
+    if drop_top_fraction > 0.0:
+        raise NotImplementedError(
+            "DropTop under selection='sort' needs the radix rank-select "
+            "kernels (byte_histogram, select_mask), which a later slice of "
+            "the PyTorch port brings; use a histogram method meanwhile")
+    candidate = planops.sort_low_mask(state.loss, max_fraction)
+    return candidate & _eligible(state, tau, moveback)
+
+
+def select_hidden_histogram(state: SampleState, max_fraction,
+                            tau: float = 0.7, bins: int = planops.HIST_BINS,
+                            drop_top_fraction: float = 0.0,
+                            moveback: bool = True,
+                            use_kernel: bool = False) -> torch.Tensor:
+    """Histogram-CDF threshold instead of a sort.  The hidden count is at
+    most ``floor(F * N)`` plus half the boundary bin (see
+    ``planops.histogram_masks``)."""
+    candidate, top = planops.histogram_masks(
+        state.loss, state.seen >= 0, max_fraction, drop_top_fraction,
+        bins=bins, use_kernel=use_kernel)
+    hidden = candidate & _eligible(state, tau, moveback)
+    if top is not None:
+        hidden = hidden | top
+    return hidden
+
+
+def select_hidden(state: SampleState, max_fraction, *, method: str = "sort",
+                  tau: float = 0.7, drop_top_fraction: float = 0.0,
+                  moveback: bool = True) -> torch.Tensor:
+    """(N,) bool hidden mask by ``method``."""
+    if method == "sort":
+        return select_hidden_sort(state, max_fraction, tau, drop_top_fraction,
+                                  moveback)
+    if method in ("histogram", "histogram_pallas"):
+        return select_hidden_histogram(
+            state, max_fraction, tau, drop_top_fraction=drop_top_fraction,
+            moveback=moveback, use_kernel=(method == "histogram_pallas"))
+    raise ValueError(
+        f"unknown selection method {method!r}; known: {SELECTION_METHODS}")

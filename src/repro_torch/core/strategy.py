@@ -1,0 +1,119 @@
+"""Sample-selection strategy protocol and registry.
+
+Port of ``repro/core/strategy.py`` (the registry is this package's own: the
+port registers only the strategies it has ported).  The per-epoch contract
+driven by ``train/trainer.py``:
+
+1. ``plan(epoch) -> EpochPlan`` — the visible index list, LR scaling, the
+   hidden list and the step-D refresh flag;
+2. per batch, the trainer calls ``fused_observe`` on the strategy's device
+   state (``get_device_state``/``set_device_state``) when it has one;
+3. ``on_epoch_end(plan, eval_forward, batch_size) -> int`` — end-of-epoch
+   work (the hidden-list refresh); returns extra forward samples.
+"""
+from __future__ import annotations
+
+import dataclasses
+import inspect
+from typing import Any, Callable
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class EpochPlan:
+    """One epoch's sampling decision; index arrays are host numpy arrays of
+    global sample ids, materialised once per epoch (``host_syncs``)."""
+
+    epoch: int
+    visible_indices: np.ndarray            # shuffled training index list
+    hidden_indices: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
+    max_fraction: float = 0.0              # F_e (ceiling)
+    hidden_fraction: float = 0.0           # F*_e (actual, after move-back)
+    lr_scale: float = 1.0                  # Eq. 8 factor (1.0 = off)
+    needs_refresh: bool = False            # run step-D refresh at epoch end
+    host_syncs: int = 0                    # device->host syncs spent planning
+    #: Samples hidden last epoch that move-back returned to training.
+    moveback_indices: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
+
+
+EvalForward = Callable[[np.ndarray], tuple]   # indices -> (loss, pa, pc)
+
+
+class SampleStrategy:
+    """Base class (and protocol) of the sample-selection strategies."""
+
+    name: str = "?"                        # filled in by @register_strategy
+    config_cls: type | None = None         # dataclass type of the config
+    config_field: str | None = None        # attr name on a composite config
+
+    #: ``(state, indices, loss, pa, pc, epoch) -> state``, run by the
+    #: trainer after every train step on the strategy's device state.
+    fused_observe: Callable | None = None
+
+    def __init__(self, num_samples: int, config: Any = None, seed: int = 0):
+        self.num_samples = num_samples
+        self.config = config
+        self.seed = seed
+
+    def plan(self, epoch: int) -> EpochPlan:
+        raise NotImplementedError
+
+    def get_device_state(self):
+        return None
+
+    def set_device_state(self, state) -> None:
+        raise NotImplementedError(
+            f"{type(self).__name__} declares no device-resident state")
+
+    def on_epoch_end(self, plan: EpochPlan, eval_forward: EvalForward,
+                     batch_size: int) -> int:
+        return 0
+
+
+STRATEGIES: dict[str, type[SampleStrategy]] = {}
+
+
+def register_strategy(name: str):
+    """Class decorator: ``@register_strategy("kakurenbo")``."""
+
+    def deco(cls: type[SampleStrategy]) -> type[SampleStrategy]:
+        if name in STRATEGIES and STRATEGIES[name] is not cls:
+            raise ValueError(f"strategy {name!r} already registered")
+        cls.name = name
+        STRATEGIES[name] = cls
+        return cls
+
+    return deco
+
+
+def available_strategies() -> list[str]:
+    import repro_torch.core  # noqa: F401  (runs the decorators)
+    return sorted(STRATEGIES)
+
+
+def make_strategy(name: str, num_samples: int, cfg: Any = None,
+                  seed: int = 0, **extras: Any) -> SampleStrategy:
+    """Build a registered strategy.  ``cfg`` is the strategy's own config
+    or a composite carrying it as ``cls.config_field``; ``extras`` reach
+    only constructors that declare them."""
+    if name not in available_strategies():
+        raise ValueError(
+            f"unknown strategy {name!r}; known: {available_strategies()}")
+    cls = STRATEGIES[name]
+    if cls.config_cls is None:
+        cfg_obj = None
+    elif cfg is None or isinstance(cfg, cls.config_cls):
+        cfg_obj = cfg
+    else:
+        cfg_obj = getattr(cfg, cls.config_field or "", None)
+        if not isinstance(cfg_obj, cls.config_cls):
+            raise TypeError(
+                f"cfg for strategy {name!r} must be {cls.config_cls.__name__}"
+                f" or carry a .{cls.config_field} of that type; got "
+                f"{type(cfg).__name__}")
+    params = inspect.signature(cls.__init__).parameters
+    kw = {k: v for k, v in extras.items() if k in params}
+    return cls(num_samples, cfg_obj, seed=seed, **kw)

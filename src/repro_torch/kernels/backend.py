@@ -1,0 +1,165 @@
+"""Device resolution and the build of the hand-written CUDA kernels.
+
+The JAX package picks between compiled Mosaic and Pallas interpret mode
+through a probe (``repro/kernels/backend.py``).  The port has no such probe:
+
+- every entry point takes ``device``; ``None`` means ``"cuda"``, and asking
+  for CUDA on a machine without a CUDA device raises instead of carrying on
+  on the CPU (``resolve_device``);
+- a kernel wrapper chooses by the tensor it is given: a tensor on the CPU
+  takes the kernel's plain PyTorch version, a CUDA tensor launches the
+  kernel or raises.  Nothing falls back quietly.
+
+The kernels are CUDA C++ under ``csrc/``, built by ``nvcc`` for ``sm_90a``
+into one shared library with a plain C interface and loaded with ``ctypes``.
+The build runs at first use (never at import), one ``nvcc -c`` per source
+started together, then one link; the ``.so`` lands in ``build/repro_torch/``
+at the repository root, named by a hash of the sources and flags, so an
+unchanged tree reuses it.  No ``--use_fast_math``: the histogram kernel's
+bins must be bit-identical to the PyTorch formula.
+
+Every C entry point returns ``cudaGetLastError()`` after its launches;
+``launch`` turns a non-zero code into an exception.  ``LAUNCHES`` counts the
+kernel launches per wrapper, so a run can show which kernels it went through.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+#: Repository root: src/repro_torch/kernels/backend.py -> four levels up.
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+#: Kernel launches per wrapper name (one per wrapper call that launched).
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """``None`` -> CUDA.  CUDA without a CUDA device raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} asks for CUDA but torch.cuda.is_available() is "
+            "False; pass device='cpu' explicitly to run on the CPU")
+    return dev
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
+    if not Path(found).exists():
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
+            "kernels of repro_torch cannot be built")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
+
+
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> None:
+    failed = []
+    for cmd, p in procs:
+        _, err = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"$ {' '.join(cmd)}\n{err.decode(errors='replace')}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the hashed ``.so`` (no-op when present)."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
+            objs.append(str(obj))
+        _run(procs)
+        so_tmp = Path(tmp) / out.name
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(so_tmp)]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE))])
+        os.replace(so_tmp, out)       # atomic: a reader never sees half a file
+    return out
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: C signatures: every pointer and the stream are c_void_p, sizes and the
+#: device index c_int.  Each entry sets the device, launches on the stream
+#: and returns cudaGetLastError().
+_SIGNATURES = {
+    "lc_forward_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "lc_forward_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ts_minmax": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "ts_histogram": [_P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(entry: str, name: str, device: torch.device, *args) -> None:
+    """Call C entry ``entry`` on ``device``'s current stream; count it under
+    ``name``; raise on a non-zero ``cudaError_t``."""
+    fn = getattr(library(), entry)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    code = fn(*args, device.index if device.index is not None
+              else torch.cuda.current_device(), stream)
+    if code != 0:
+        raise RuntimeError(
+            f"CUDA kernel {name} ({entry}) failed to launch: cudaError {code}")
+    LAUNCHES[name] += 1
+
+
+def check_cuda(name: str, tensors: dict[str, torch.Tensor]) -> torch.device:
+    """The common device/contiguity checks of a kernel wrapper: every tensor
+    on one CUDA device and contiguous.  Returns that device."""
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(
+            f"{name}: inputs must all lie on one CUDA device (or all on the "
+            f"CPU for the plain version); got "
+            f"{ {k: str(t.device) for k, t in tensors.items()} }")
+    for k, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous")
+    return next(iter(devices))

@@ -1,0 +1,71 @@
+"""Public wrappers over the kernels, and the differentiable fused scoring.
+
+Port of ``repro/kernels/ops.py`` for the kernels of this slice.  Each
+wrapper dispatches by the device of its inputs: the plain PyTorch version on
+the CPU, the CUDA kernel on a CUDA tensor.  Unlike the JAX package there is
+no padding to a block grid: the kernels mask their ragged edges.
+
+``fused_loss_metrics`` is the train hot path's entry point: the per-sample
+(ce, PA, PC) triple of paper Sec. 3.4 in one streaming pass, differentiable
+through ``ce`` by an analytic backward (``torch.autograd.Function``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import loss_confidence as _lc
+from repro_torch.kernels import threshold_select as _ts
+
+
+def loss_confidence(logits: torch.Tensor, labels: torch.Tensor):
+    """(..., V) logits + (...) labels -> per-element (ce, correct, pmax)."""
+    shape = labels.shape
+    ce, cor, pmax = _lc.loss_confidence(
+        logits.reshape(-1, logits.shape[-1]).contiguous(),
+        labels.reshape(-1).contiguous())
+    return ce.reshape(shape), (cor != 0).reshape(shape), pmax.reshape(shape)
+
+
+def loss_minmax(loss: torch.Tensor, valid: torch.Tensor):
+    """Raw (lo, hi) 0-d tensors of the valid losses (no degeneracy fold)."""
+    mm = _ts.minmax(loss, valid)
+    return mm[0], mm[1]
+
+
+def loss_histogram(loss: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
+                   hi: torch.Tensor, bins: int = 512) -> torch.Tensor:
+    """(bins,) i32 histogram of the valid losses over ``[lo, hi]``."""
+    return _ts.histogram(loss, valid, torch.stack([lo, hi]).float(), bins)
+
+
+class _FusedLossMetrics(torch.autograd.Function):
+    """Forward: kernel B1 (or its plain version on the CPU).  Backward: the
+    analytic ``(softmax - onehot) * g`` with lse rebuilt as ``ce + gold``
+    from the saved forward result, one elementwise pass over the logits.
+    Only ``ce`` carries gradient; PA/PC are selection bookkeeping."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        ce, cor, pmax = _lc.loss_confidence(logits, labels)
+        correct = cor != 0
+        ctx.save_for_backward(logits, labels, ce)
+        ctx.mark_non_differentiable(correct, pmax)
+        return ce, correct, pmax
+
+    @staticmethod
+    def backward(ctx, g_ce, _g_correct, _g_pmax):
+        logits, labels, ce = ctx.saved_tensors
+        lf = logits.float()
+        lab = labels.long()[:, None]
+        gold = lf.gather(1, lab)[:, 0]
+        lse = ce + gold
+        probs = torch.exp(lf - lse[:, None])
+        onehot = lab == torch.arange(lf.shape[1], device=lf.device)
+        dlogits = ((probs - onehot.float()) * g_ce[:, None]).to(logits.dtype)
+        return dlogits, None
+
+
+def fused_loss_metrics(logits: torch.Tensor, labels: torch.Tensor):
+    """Per-sample ``(ce, pa, pc)`` from (B, V) logits in one fused pass,
+    differentiable through ``ce``."""
+    return _FusedLossMetrics.apply(logits.contiguous(), labels.contiguous())

@@ -1,0 +1,113 @@
+"""PyTorch port, isolation and device rules.
+
+- the port imports ``torch`` and numpy, never ``jax`` and nothing of the
+  JAX package ``repro`` — checked in a fresh interpreter that imports every
+  ``repro_torch`` module (and ``chip_smoke``), and statically over the
+  sources;
+- ``device=None`` means CUDA: without a CUDA device every entry point
+  raises instead of carrying on on the CPU;
+- the kernel build raises, with a reason, when nvcc is missing, and never
+  runs at import.
+"""
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import KakurenboSampler, make_strategy
+from repro_torch.core.baseline import BaselineStrategy
+from repro_torch.data import SyntheticClassification
+from repro_torch.kernels import backend
+from repro_torch.models.cnn import CNN, CNNConfig
+from repro_torch.train import TrainConfig, Trainer
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "print(len(names), bad)\n"
+        "assert not bad, bad\n"
+        "assert len(names) >= 20, names\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_sources_name_no_jax_or_repro():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 20
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert not {"jax", "jaxlib", "repro"} & set(roots), (path, roots)
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+
+
+def test_default_device_is_cuda_and_raises_without_it():
+    _no_cuda()
+    ds = SyntheticClassification(num_samples=64, image_size=8, seed=0)
+    model = CNN(CNNConfig(image_size=8, widths=(8,), hidden=16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(TrainConfig(fused_scoring=True), model, None, ds,
+                logits_fn=lambda m, b: m(b["images"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KakurenboSampler(64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BaselineStrategy(64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_strategy("kakurenbo", 64, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        backend.resolve_device(None)
+    assert backend.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(backend, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(backend.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        backend.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_library_path_names_the_sources():
+    path = backend.library_path()
+    assert path.parent == backend.BUILD_DIR
+    assert path == backend.library_path()           # stable hash
+    assert path.name.startswith("libkernels_") and path.suffix == ".so"
+    assert {p.name for p in backend.CSRC.glob("*.cu")} == {
+        "loss_confidence.cu", "threshold_select.cu"}
+
+
+def test_registry_is_the_ports_own():
+    from repro_torch.core import available_strategies
+    assert available_strategies() == ["baseline", "kakurenbo"]
+    with pytest.raises(ValueError, match="unknown strategy"):
+        make_strategy("forget", 10, device="cpu")
