@@ -8,16 +8,27 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 1. environment: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: the CUDA kernels compiled with nvcc from ``src/repro_torch/kernels/csrc``;
 3. kernel checks: every kernel against its plain PyTorch version on the same
-   inputs, at the main path's shapes and at larger ones, with times;
+   inputs, at the main path's shapes and at larger ones, with times; the
+   radix pair (B4/B5) exactly, also against the stable-sort rank window,
+   at N = 50,000 and 1,281,167 on exponential losses, FORGET-like event
+   counts with +inf, signed zeros, +/-inf and all-equal inputs, for
+   k in {0, 1, N/3, N} both ways; the whole rank-select at N = 1,281,167
+   beside ``torch.kthvalue`` and a stable ``torch.sort`` as yardsticks;
 4. plan: ``_plan_step`` at N = 1,281,167 (ImageNet-1K's train size) with
-   ``"histogram_pallas"`` (the kernels) against ``"histogram"`` (plain):
-   the plans must be equal;
+   ``"histogram_pallas"`` (the kernels) against ``"histogram"`` (plain),
+   and with ``"sort"`` + DropTop 0.02 and FORGET's ``_prune_step`` (the
+   radix kernels) against the same on the CPU (the plain versions): the
+   plans must be equal;
 5. train: the paper CNN at the full width of ``configs/paper_cnn.py`` on
    ``SyntheticClassification(50_000)``, 3 epochs of ``baseline`` then of
    ``kakurenbo`` (``histogram_pallas`` with DropTop 0.02, fused scoring);
-   the launch counts of this phase show the main path went through every
-   kernel;
-6. card vs CPU: the same small run on ``cuda`` and on ``cpu`` from the same
+6. table 2: ``repro_torch.experiments.table2`` at the same width and size,
+   3 epochs of each of its seven strategies, KAKURENBO under ``"sort"`` with
+   DropTop 0.02; FORGET must prune floor(0.3 N) and restart, ISWR must draw
+   repeated indices into a batch, SB must skip backward samples.  The launch
+   counts of phases 5 and 6, each set to 0 just before it, show that the
+   main path went through every kernel;
+7. card vs CPU: the same small run on ``cuda`` and on ``cpu`` from the same
    params and permutations, TF32 off; per-epoch losses within 1e-4.
 
 Then the ``kernels`` line, the card's name and power limit, and last
@@ -27,7 +38,9 @@ result.
 """
 from __future__ import annotations
 
+import collections
 import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -152,6 +165,136 @@ def check_threshold(dev, n: int, invalid: float, kind: str, reps: int,
     return out[0], out[1]
 
 
+def radix_scores(dev, n: int, kind: str, seed: int = 0):
+    import numpy as np
+    import torch
+    r = np.random.default_rng(seed)
+    if kind == "exp":
+        x = r.exponential(1.0, n)
+    elif kind == "events":        # FORGET: small counts, never-correct +inf
+        x = np.where(r.random(n) < 0.1, np.inf, r.integers(0, 4, n))
+    elif kind == "zeros":         # signed zeros must tie
+        x = np.where(r.random(n) < 0.5, -0.0, 0.0)
+    elif kind == "inf":
+        x = np.where(r.random(n) < 0.2, -np.inf,
+                     np.where(r.random(n) < 0.2, np.inf, r.normal(size=n)))
+    else:                         # all equal
+        x = np.full(n, 2.5)
+    return torch.tensor(x, dtype=torch.float32, device=dev)
+
+
+def rank_oracle(scores, k: int, high: bool):
+    """The stable-argsort rank window.  Signed zeros are collapsed first: a
+    radix sort on the card orders -0.0 before +0.0, a stable sort by value
+    treats them as ties."""
+    import torch
+    from repro_torch.core.planops import stable_rank_order
+    rank = stable_rank_order(torch.where(scores == 0, 0.0, scores))
+    n = scores.shape[0]
+    return rank >= n - k if high else rank < k
+
+
+def check_radix(dev, n: int, kind: str) -> int:
+    """B4 at every radix pass and B5 on every window, against their plain
+    versions, for k in {0, 1, N/3, N} both ways; returns the cases run."""
+    import torch
+    from repro_torch.kernels import threshold_select as ts
+    scores = radix_scores(dev, n, kind, seed=n)
+    cases = 0
+    for high in (False, True):
+        keys = ts.order_key_bits(scores, high)
+        for k in (0, 1, n // 3, n):
+            tag = f"N={n} {kind} k={k} high={high}"
+
+            def both(keys, prefix, shift):
+                h = ts.byte_histogram(keys, prefix, shift)
+                require(torch.equal(h, ts.byte_histogram_plain(keys, prefix, shift)),
+                        f"byte_histogram differs at shift {shift} ({tag})")
+                return h
+
+            thresh, needed, total = ts.radix_threshold(keys, k, both)
+            lo, hi = ((total - needed, total) if high
+                      else (torch.zeros_like(needed), needed))
+            mask = ts.select_mask(keys, thresh, lo, hi)
+            require(torch.equal(mask, ts.select_mask_plain(keys, thresh, lo, hi)),
+                    f"select_mask differs ({tag})")
+            require(torch.equal(mask, ts.rank_select_mask(scores, k, high)),
+                    f"rank_select_mask differs from its passes ({tag})")
+            require(torch.equal(mask, rank_oracle(scores, k, high)),
+                    f"rank window differs from the stable sort ({tag})")
+            require(int(mask.sum()) == k, f"mask holds {int(mask.sum())} != k ({tag})")
+            cases += 1
+    return cases
+
+
+def time_radix(dev, n: int, reps: int) -> dict:
+    """One B4 pass and one B5 mask on exponential losses at N, with their
+    plain versions and bounds."""
+    import torch
+    from repro_torch.kernels import threshold_select as ts
+    keys = ts.order_key_bits(radix_scores(dev, n, "exp"), high=True)
+    prefix = torch.zeros((), dtype=torch.int64, device=dev)
+    thresh, needed, total = ts.radix_threshold(keys, n // 50, ts.byte_histogram)
+    lo = total - needed
+    h, hp = ts.byte_histogram(keys, prefix, 24), ts.byte_histogram_plain(keys, prefix, 24)
+    m = ts.select_mask(keys, thresh, lo, total)
+    mp = ts.select_mask_plain(keys, thresh, lo, total)
+    torch.cuda.synchronize()
+    # Integer work, counted against the fp32 rate (no int32 row in the
+    # data sheet's table): B4 matches, shifts and counts a few ops a key,
+    # B5 compares and ranks a few.
+    b4_ms, b4_by = bound(4 * n + 8 + 256 * 4, 4.0 * n)
+    b5_ms, b5_by = bound(4 * n + 8 + 16 + n, 4.0 * n)
+    return {
+        "byte_histogram": {
+            "n": n, "max_abs_err": float((h - hp).abs().max()),
+            "ms": time_ms(lambda: ts.byte_histogram(keys, prefix, 24), reps),
+            "plain_ms": time_ms(lambda: ts.byte_histogram_plain(keys, prefix, 24),
+                                reps),
+            "bound_ms": b4_ms, "bound_by": b4_by},
+        "select_mask": {
+            "n": n, "max_abs_err": float((m.int() - mp.int()).abs().max()),
+            "ms": time_ms(lambda: ts.select_mask(keys, thresh, lo, total), reps),
+            "plain_ms": time_ms(lambda: ts.select_mask_plain(keys, thresh, lo,
+                                                             total), reps),
+            "bound_ms": b5_ms, "bound_by": b5_by}}
+
+
+def time_rank_select(dev, n: int, reps: int) -> dict:
+    """The whole rank-select (DropTop's k = N/50 largest) against its plain
+    version and two one-call yardsticks the port never uses:
+    ``torch.kthvalue`` (the threshold alone) and a stable ``torch.sort``
+    (the rank-window mask)."""
+    import torch
+    from repro_torch.kernels import threshold_select as ts
+    scores = radix_scores(dev, n, "exp")
+    k = n // 50
+    want = rank_oracle(scores, k, True)
+    require(torch.equal(ts.rank_select_mask(scores, k, True), want),
+            "rank_select at the timing shape")
+
+    def sort_mask():
+        order = torch.sort(scores, stable=True).indices
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(n, device=dev)
+        return rank >= n - k
+
+    require(torch.equal(sort_mask(), want), "sort-mask yardstick")
+    b_ms, b_by = bound(4 * n + n, 20.0 * n)
+    return {"phase": "rank_select", "n": n, "k": k, "high": True,
+            "ms": time_ms(lambda: ts.rank_select_mask(scores, k, True), reps),
+            # k copied from host memory on every call, which waits for the
+            # stream to drain: what a fill kernel for k saves.
+            "k_copied_ms": time_ms(lambda: ts.rank_select_mask(
+                scores, torch.as_tensor(k, device=dev), True), reps),
+            "plain_ms": time_ms(lambda: ts.rank_select_mask(
+                scores, k, True, use_kernel=False), reps),
+            "kthvalue_ms": time_ms(lambda: torch.kthvalue(scores, n - k + 1),
+                                   reps),
+            "sort_mask_ms": time_ms(sort_mask, reps),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def phase_kernels(dev) -> dict:
     """Every kernel against its plain version; returns the main-shape rows."""
     import torch
@@ -166,7 +309,14 @@ def phase_kernels(dev) -> dict:
                              (50_000, 0.0, "single"), (50_000, 0.0, "equal"),
                              (50_000, 0.2, "zeros")):
         big.extend(check_threshold(dev, n, invalid, kind, 50))
-    emit({"phase": "kernel_checks", "main": main, "more": big})
+    radix_cases = sum(check_radix(dev, n, kind)
+                      for n in (50_000, 1_281_167)
+                      for kind in ("exp", "events", "zeros", "inf", "equal"))
+    main.update(time_radix(dev, 50_000, 200))
+    big.extend(time_radix(dev, 1_281_167, 50).values())
+    emit({"phase": "kernel_checks", "main": main, "more": big,
+          "radix_cases": radix_cases})
+    emit(time_rank_select(dev, 1_281_167, 20))
     return main
 
 
@@ -227,7 +377,64 @@ def phase_plan(dev, n: int = 1_281_167, reps: int = 5) -> None:
                                    "f_star": float(outs["histogram"][4]),
                                    "kernel_plan_ms": ms["histogram_pallas"],
                                    "plain_plan_ms": ms["histogram"]}
+    row.update(radix_plans(dev, st, perm, reps))
     emit(row)
+
+
+def median_ms(dev, fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def radix_plans(dev, st, perm, reps: int) -> dict:
+    """The plans that run the radix select: ``"sort"`` + DropTop 0.02 and
+    FORGET's prune at 0.3 N, on the card (kernels B4/B5) and on the CPU
+    (their plain versions).  Equal, and the prune equal to the stable-sort
+    rank window."""
+    import numpy as np
+    import torch
+    from repro_torch.core.forget import _prune_step
+    from repro_torch.core.kakurenbo import _plan_step
+    from repro_torch.core.planops import stable_rank_order
+    n = st.num_samples
+    r = np.random.default_rng(2)
+    st.forget_events.copy_(torch.from_numpy(r.integers(0, 4, n).astype(np.int32)))
+    cpu = torch.device("cpu")
+    st_cpu = dataclasses.replace(st, **{f.name: getattr(st, f.name).to(cpu)
+                                        for f in dataclasses.fields(st)})
+
+    def plan(state, p):
+        return _plan_step(state, p, 0.3, method="sort", tau=0.7, drop_top=0.02,
+                          moveback=True, adjust_lr=True)
+
+    card, host = plan(st, perm), plan(st_cpu, perm.cpu())
+    for name, a, b in zip(("hidden", "moved_back", "order", "num_hidden",
+                           "f_star", "lr_scale"), card, host):
+        require(torch.equal(a.cpu(), b), f"sort+DropTop plan: {name} differs "
+                "between the card and the CPU")
+    k = int(math.floor(0.3 * n))
+    prune = _prune_step(st, k)
+    require(torch.equal(prune.cpu(), _prune_step(st_cpu, k)),
+            "FORGET prune differs between the card and the CPU")
+    scores = torch.where(st.pa | (st.forget_events > 0),
+                         st.forget_events.float(), torch.inf)
+    require(torch.equal(prune, stable_rank_order(scores) < k),
+            "FORGET prune differs from the stable-sort rank window")
+    require(int(prune.sum()) == k, "FORGET pruned the wrong count")
+    return {"sort_drop_top=0.02": {
+                "num_hidden": int(card[3]), "f_star": float(card[4]),
+                "kernel_plan_ms": median_ms(dev, lambda: plan(st, perm), reps),
+                "cpu_plain_plan_ms": median_ms(cpu, lambda: plan(st_cpu, perm.cpu()),
+                                               1)},
+            "forget_prune": {
+                "k": k, "kernel_ms": median_ms(dev, lambda: _prune_step(st, k), reps),
+                "cpu_plain_ms": median_ms(cpu, lambda: _prune_step(st_cpu, k), 1)}}
 
 
 # ---------------------------------------------------------------------------
@@ -344,6 +551,83 @@ def phase_train(dev, n: int = 50_000, n_test: int = 10_000, epochs: int = 3):
     return launches
 
 
+def watch_table2(tr, log: dict) -> None:
+    """Record each plan (restart flag, visible count, batches holding a
+    repeated index) and every restore of the initial weights."""
+    import numpy as np
+    from repro_torch.data.pipeline import epoch_index_plan
+    plan, load = tr.strategy.plan, tr.model.load_state_dict
+    log.update(plans=[], reinits=0)
+
+    def planned(epoch):
+        p = plan(epoch)
+        rows = epoch_index_plan(p.visible_indices, tr.cfg.batch_size)
+        log["plans"].append({
+            "epoch": epoch, "visible": len(p.visible_indices),
+            "hidden": len(p.hidden_indices), "reinit_model": p.reinit_model,
+            "batches_with_repeats": int(sum(len(np.unique(r)) < len(r)
+                                            for r in rows))})
+        return p
+
+    def reloaded(*a, **kw):
+        log["reinits"] += 1
+        return load(*a, **kw)
+
+    tr.strategy.plan = planned
+    tr.model.load_state_dict = reloaded
+
+
+def phase_table2(dev, n: int = 50_000, n_test: int = 10_000, epochs: int = 3):
+    """``experiments/table2`` at full width: every strategy, KAKURENBO under
+    ``"sort"`` with DropTop 0.02 (the radix kernels B4/B5)."""
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.experiments import table2
+    from repro_torch.kernels import backend
+    kcfg = dataclasses.replace(table2.kakurenbo_config(epochs),
+                               drop_top_fraction=0.02)
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    hist, logs = {}, {}
+    for strategy in table2.STRATEGIES:
+        tr = table2.make_trainer(strategy, model_cfg=CONFIG, n=n, n_test=n_test,
+                                 epochs=epochs, kakurenbo=kcfg, device=dev)
+        logs[strategy] = {}
+        watch_table2(tr, logs[strategy])
+        hist[strategy] = tr.run()
+        for h in hist[strategy]:
+            emit({"phase": "table2", "strategy": strategy, "epoch": h.epoch,
+                  "train_loss": h.train_loss, "test_acc": h.test_acc,
+                  "hidden_fraction": h.hidden_fraction,
+                  "fwd_samples": h.fwd_samples, "bwd_samples": h.bwd_samples,
+                  "lr": h.lr, "wall_s": h.wall_time})
+    launches = dict(backend.LAUNCHES)
+    for s, hs in hist.items():
+        require(all(math.isfinite(h.train_loss) for h in hs), f"{s}: non-finite loss")
+    warmup = max(epochs // 4, 2)
+    fp = logs["forget"]["plans"]
+    require([p["reinit_model"] for p in fp] == [e == warmup for e in range(epochs)],
+            f"FORGET restart flags {[p['reinit_model'] for p in fp]}")
+    require(fp[warmup]["visible"] == n - math.floor(0.3 * n),
+            f"FORGET kept {fp[warmup]['visible']} of {n} after its prune")
+    require(logs["forget"]["reinits"] == 1, "FORGET did not restore its initial weights")
+    require(sum(p["batches_with_repeats"] for p in logs["iswr"]["plans"]) > 0,
+            "ISWR drew no repeated index into a batch")
+    fwd = {s: sum(h.fwd_samples for h in hs) for s, hs in hist.items()}
+    bwd = {s: sum(h.bwd_samples for h in hs) for s, hs in hist.items()}
+    require(bwd["sb"] < fwd["sb"], "SB skipped no backward samples")
+    require(any(h.hidden_fraction > 0 for h in hist["kakurenbo"]),
+            "kakurenbo hid nothing under sort")
+    for name in ("byte_histogram", "select_mask", "loss_confidence"):
+        require(launches.get(name, 0) > 0, f"kernel {name} never launched")
+    emit({"phase": "table2_summary", "model": CONFIG.name, "n": n,
+          "n_test": n_test, "epochs": epochs, "kakurenbo": dataclasses.asdict(kcfg),
+          "fwd_samples": fwd, "bwd_samples": bwd,
+          "best_test_acc": {s: max(h.test_acc for h in hs) for s, hs in hist.items()},
+          "plans": {s: lg["plans"] for s, lg in logs.items()},
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def phase_card_vs_cpu(dev, n: int = 2048, epochs: int = 2) -> None:
     import torch
     from repro_torch.configs.paper_cnn import CONFIG
@@ -396,6 +680,10 @@ KERNELS = {
                "src/repro/kernels/threshold_select.py:114"),
     "histogram": ("src/repro_torch/kernels/csrc/threshold_select.cu",
                   "src/repro/kernels/threshold_select.py:71"),
+    "byte_histogram": ("src/repro_torch/kernels/csrc/rank_select.cu",
+                       "src/repro/kernels/threshold_select.py:225"),
+    "select_mask": ("src/repro_torch/kernels/csrc/rank_select.cu",
+                    "src/repro/kernels/threshold_select.py:273"),
 }
 
 
@@ -432,7 +720,8 @@ def main() -> int:
     t_start = time.perf_counter()
     main_rows = phase_kernels(dev)
     phase_plan(dev)
-    launches = phase_train(dev)
+    launches = collections.Counter(phase_train(dev))
+    launches.update(phase_table2(dev))
     phase_card_vs_cpu(dev)
 
     rows = []

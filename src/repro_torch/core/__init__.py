@@ -1,4 +1,4 @@
-"""KAKURENBO core: adaptive sample hiding and the uniform baseline.
+"""KAKURENBO core: adaptive sample hiding and the paper's baselines.
 
 Importing the package registers every ported strategy (``make_strategy``).
 """
@@ -20,4 +20,10 @@ from repro_torch.core.strategy import (  # noqa: F401
 from repro_torch.core.kakurenbo import (  # noqa: F401
     KakurenboConfig, KakurenboSampler, KakurenboStrategy,
 )
-from repro_torch.core.baseline import BaselineStrategy  # noqa: F401
+from repro_torch.core.baseline import BaselineStrategy, RandomStrategy  # noqa: F401
+from repro_torch.core.iswr import ISWRConfig, ISWRStrategy  # noqa: F401
+from repro_torch.core.forget import ForgetConfig, ForgetStrategy  # noqa: F401
+from repro_torch.core.selective_backprop import SBConfig, SBStrategy  # noqa: F401
+from repro_torch.core.infobatch import (  # noqa: F401
+    InfoBatchConfig, InfoBatchStrategy,
+)

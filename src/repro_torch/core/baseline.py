@@ -1,15 +1,22 @@
-"""The uniform baseline strategy.
+"""The uniform baseline and random hiding.
 
-Port of ``repro/core/baseline.py::BaselineStrategy`` (``random`` comes in a
-later slice): a uniform without-replacement epoch over every sample, the
-control every paper table is measured against.  The shuffle is drawn on the
-device from a ``torch.Generator`` and crosses to the host once per epoch.
+Port of ``repro/core/baseline.py``.  ``baseline`` is a uniform
+without-replacement epoch over every sample, the control every paper table
+is measured against.  ``random`` is KAKURENBO's machinery driven by
+iid-uniform importance (paper App. C.4): it hides the same *fraction* as
+KAKURENBO but picks the samples at random, isolating how much of the win
+comes from loss-ranked selection.  Both draw on the device from their own
+``torch.Generator`` and cross to the host once per epoch.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.core import planops
+from repro_torch.core.kakurenbo import KakurenboConfig, KakurenboStrategy
+from repro_torch.core.state import SampleState
 from repro_torch.core.strategy import EpochPlan, SampleStrategy, register_strategy
 from repro_torch.kernels.backend import resolve_device
 
@@ -22,11 +29,44 @@ class BaselineStrategy(SampleStrategy):
                  device: str | torch.device | None = None):
         super().__init__(num_samples, config, seed)
         self.device = resolve_device(device)
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(planops.strategy_seed(seed, "baseline"))
+        self._gen = planops.make_generator(seed, "baseline", self.device)
+
+    def draw_permutation(self) -> torch.Tensor:
+        return planops.device_permutation(self._gen, self.num_samples)
 
     def plan(self, epoch: int) -> EpochPlan:
-        order = torch.randperm(self.num_samples, generator=self._gen,
-                               device=self.device)
-        return EpochPlan(epoch=epoch, visible_indices=order.cpu().numpy(),
+        return EpochPlan(epoch=epoch,
+                         visible_indices=self.draw_permutation().cpu().numpy(),
                          host_syncs=1)
+
+
+def randomize_importance(state: SampleState, u: torch.Tensor) -> SampleState:
+    """iid-uniform "losses" ``u``, every sample seen and move-back-eligible:
+    a pure coin flip for the KAKURENBO plan."""
+    n, dev = state.num_samples, state.loss.device
+    return dataclasses.replace(
+        state, loss=u.to(torch.float32),
+        pa=torch.ones(n, dtype=torch.bool, device=dev),
+        pc=torch.ones(n, dtype=torch.float32, device=dev),
+        seen=torch.zeros(n, dtype=torch.int32, device=dev))
+
+
+@register_strategy("random")
+class RandomStrategy(KakurenboStrategy):
+    """Random hiding (App. C.4): KAKURENBO with iid-uniform importance,
+    redrawn every epoch, and the same step-D refresh cost."""
+
+    config_cls, config_field = KakurenboConfig, "kakurenbo"
+
+    def __init__(self, num_samples: int, config: KakurenboConfig | None = None,
+                 seed: int = 0, device: str | torch.device | None = None):
+        super().__init__(num_samples, config, seed, device)
+        self._gen = planops.make_generator(seed, "random", self._inner.device)
+
+    def draw_uniform(self) -> torch.Tensor:
+        return planops.uniform(self._gen, self.num_samples)
+
+    def plan(self, epoch: int) -> EpochPlan:
+        self._inner.state = randomize_importance(self._inner.state,
+                                                 self.draw_uniform())
+        return self._inner.begin_epoch(epoch)

@@ -1,0 +1,92 @@
+"""Online FORGET baseline (paper Sec. 4; Toneva et al. [13]).
+
+Port of ``repro/core/forget.py``.  Train ``warmup_epochs`` on the full
+dataset while counting forgetting events (correct -> incorrect flips, kept
+in ``SampleState`` by the fused observe), then prune the fraction F of the
+least-forgettable samples and restart training from the initial model on
+the pruned set (``EpochPlan.reinit_model``).  The reported cost includes
+the warmup epochs (paper Sec. 4.2).
+
+The prune set is the stable fewest-events-first rank window
+(``planops.topk_hide``: the radix select, kernels B4/B5 on the card);
+never-correct samples score +inf.  The epoch shuffle is ``masked_order``
+over a permutation drawn from the strategy's own ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.core import planops
+from repro_torch.core.state import (SampleState, init_sample_state,
+                                    scatter_observations)
+from repro_torch.core.strategy import EpochPlan, SampleStrategy, register_strategy
+from repro_torch.kernels.backend import resolve_device
+
+
+@dataclasses.dataclass
+class ForgetConfig:
+    fraction: float = 0.3
+    warmup_epochs: int = 20
+
+
+def _prune_step(state: SampleState, k) -> torch.Tensor:
+    """Mask of the ``k`` least-forgettable samples (stable fewest-events
+    rank).  Samples never predicted correctly count as infinitely
+    forgettable: they score +inf and are kept."""
+    events = state.forget_events.to(torch.float32)
+    ever_correct = state.pa | (state.forget_events > 0)
+    scores = torch.where(ever_correct, events, torch.inf)
+    return planops.topk_hide(scores, k)
+
+
+@register_strategy("forget")
+class ForgetStrategy(SampleStrategy):
+    """Warmup -> prune the unforgettables -> restart, as one plan flag."""
+
+    config_cls, config_field = ForgetConfig, "forget"
+    fused_observe = staticmethod(scatter_observations)
+
+    def __init__(self, num_samples: int, config: ForgetConfig | None = None,
+                 seed: int = 0, device: str | torch.device | None = None):
+        super().__init__(num_samples, config or ForgetConfig(), seed)
+        self.device = resolve_device(device)
+        self.state = init_sample_state(num_samples, self.device)
+        self._gen = planops.make_generator(seed, "forget", self.device)
+        # True = removed from training.
+        self.pruned_mask = torch.zeros(num_samples, dtype=torch.bool,
+                                       device=self.device)
+        self.restarted = False
+
+    def draw_permutation(self) -> torch.Tensor:
+        return planops.device_permutation(self._gen, self.num_samples)
+
+    def get_device_state(self) -> SampleState:
+        return self.state
+
+    def set_device_state(self, state: SampleState) -> None:
+        self.state = state
+
+    def plan(self, epoch: int) -> EpochPlan:
+        """``epoch`` counts every epoch run, warmup included."""
+        c = self.config
+        if epoch == c.warmup_epochs and not self.restarted:
+            # floor in float64, as the reference's host code takes it.
+            k = int(math.floor(c.fraction * self.num_samples))
+            self.pruned_mask = _prune_step(self.state, k)
+            self.restarted = True
+        else:
+            self.restarted = False
+        order, num_pruned = planops.masked_order(self.draw_permutation(),
+                                                 self.pruned_mask)
+        order = order.cpu().numpy()           # the epoch's host crossing
+        return EpochPlan(
+            epoch=epoch,
+            visible_indices=order[: self.num_samples - int(num_pruned)],
+            reinit_model=self.restarted, host_syncs=1)
+
+    def observe(self, indices, loss, pa, pc, epoch: int) -> None:
+        self.state = scatter_observations(self.state, indices, loss, pa, pc,
+                                          epoch)

@@ -1,0 +1,101 @@
+"""InfoBatch baseline [28] (paper App. E / C.4; Qin et al. 2023).
+
+Port of ``repro/core/infobatch.py``.  Each epoch randomly prunes a fraction
+``r`` of the samples whose lagging loss is below the mean and weights the
+kept below-mean samples by ``1/(1 - r)``, so the expected gradient is
+unbiased.  No pruning in the final ``anneal`` fraction of training;
+``total_epochs`` reaches the strategy through ``make_strategy``'s extras.
+
+The soft prune (``planops.weighted_keep``) and the kept-first shuffle
+(``masked_order``) are one device step over uniforms and a permutation from
+the strategy's own ``torch.Generator``; the order, prune count and weights
+cross to the host once per epoch.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import planops
+from repro_torch.core.state import (SampleState, init_sample_state,
+                                    scatter_observations)
+from repro_torch.core.strategy import EpochPlan, SampleStrategy, register_strategy
+from repro_torch.kernels.backend import resolve_device
+
+
+@dataclasses.dataclass
+class InfoBatchConfig:
+    prune_ratio: float = 0.5   # r: fraction of below-mean samples pruned
+    anneal: float = 0.875      # stop pruning after this fraction of epochs
+    total_epochs: int = 100
+
+
+def _plan_step(state: SampleState, perm: torch.Tensor, u: torch.Tensor,
+               prune_ratio: float, *, annealed: bool):
+    """``(order with the kept samples first, prune count, weights)``.  In
+    the anneal phase nothing is pruned and the weights are uniform; with
+    nothing observed yet ``weighted_keep`` gives the same."""
+    n, dev = state.num_samples, state.loss.device
+    if annealed:
+        prune = torch.zeros(n, dtype=torch.bool, device=dev)
+        weights = torch.ones(n, dtype=torch.float32, device=dev)
+    else:
+        prune, weights = planops.weighted_keep(state.loss, state.seen >= 0,
+                                               prune_ratio, u)
+    order, num_prune = planops.masked_order(perm, prune)
+    return order, num_prune, weights
+
+
+@register_strategy("infobatch")
+class InfoBatchStrategy(SampleStrategy):
+    """Lossless dynamic pruning with ``1/(1 - r)`` rescaling weights."""
+
+    config_cls, config_field = InfoBatchConfig, "infobatch"
+    fused_observe = staticmethod(scatter_observations)
+
+    def __init__(self, num_samples: int, config: InfoBatchConfig | None = None,
+                 seed: int = 0, total_epochs: int | None = None,
+                 device: str | torch.device | None = None):
+        cfg = config or InfoBatchConfig()
+        if total_epochs is not None:
+            cfg = dataclasses.replace(cfg, total_epochs=total_epochs)
+        super().__init__(num_samples, cfg, seed)
+        self.device = resolve_device(device)
+        self.state = init_sample_state(num_samples, self.device)
+        self._gen = planops.make_generator(seed, "infobatch", self.device)
+        self.weights = np.ones(num_samples, np.float32)
+
+    def draw_uniform(self) -> torch.Tensor:
+        return planops.uniform(self._gen, self.num_samples)
+
+    def draw_permutation(self) -> torch.Tensor:
+        return planops.device_permutation(self._gen, self.num_samples)
+
+    def get_device_state(self) -> SampleState:
+        return self.state
+
+    def set_device_state(self, state: SampleState) -> None:
+        self.state = state
+
+    def plan(self, epoch: int) -> EpochPlan:
+        c, n = self.config, self.num_samples
+        annealed = epoch >= int(c.anneal * c.total_epochs)
+        u, perm = self.draw_uniform(), self.draw_permutation()
+        order, num_prune, weights = _plan_step(self.state, perm, u,
+                                               c.prune_ratio, annealed=annealed)
+        order = order.cpu().numpy()           # the epoch's host crossing
+        self.weights = weights.cpu().numpy()
+        kept = n - int(num_prune)
+        pruned = np.sort(order[kept:])
+        return EpochPlan(epoch=epoch, visible_indices=order[:kept],
+                         hidden_indices=pruned,
+                         hidden_fraction=len(pruned) / n, host_syncs=1)
+
+    def observe(self, indices, loss, pa, pc, epoch: int) -> None:
+        self.state = scatter_observations(self.state, indices, loss, pa, pc,
+                                          epoch)
+
+    def batch_weights(self, indices: np.ndarray) -> np.ndarray:
+        return self.weights[indices]

@@ -84,8 +84,7 @@ class KakurenboSampler:
         self.config = c = config or KakurenboConfig()
         self.device = resolve_device(device)
         self.state = init_sample_state(num_samples, self.device)
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(planops.strategy_seed(seed, "kakurenbo"))
+        self._gen = planops.make_generator(seed, "kakurenbo", self.device)
         self._fraction_schedule = FractionSchedule(
             max_fraction=c.max_fraction,
             alphas=(c.fraction_alphas if c.reduce_fraction
@@ -94,8 +93,7 @@ class KakurenboSampler:
 
     def draw_permutation(self) -> torch.Tensor:
         """This epoch's shuffle of ``range(N)``, on the device."""
-        return torch.randperm(self.state.num_samples, generator=self._gen,
-                              device=self.device)
+        return planops.device_permutation(self._gen, self.state.num_samples)
 
     def begin_epoch(self, epoch: int) -> EpochPlan:
         c = self.config
@@ -176,6 +174,9 @@ class KakurenboStrategy(SampleStrategy):
 
     def plan(self, epoch: int) -> EpochPlan:
         return self._inner.begin_epoch(epoch)
+
+    def observe(self, indices, loss, pa, pc, epoch: int) -> None:
+        self._inner.observe(indices, loss, pa, pc, epoch)
 
     def on_epoch_end(self, plan: EpochPlan, eval_forward, batch_size: int) -> int:
         return self._inner.refresh_hidden(plan, eval_forward, batch_size)

@@ -12,9 +12,10 @@ by ``KakurenboConfig.selection``:
 
 All honour the move-back rule: a candidate stays hidden only if it was
 correct with confidence >= tau at its last observation.  Never-seen samples
-are never hidden.  DropTop (App. D) under the histogram methods mirrors the
-CDF walk from the top bin; under ``"sort"`` it needs the radix rank-select
-kernels of a later slice.
+are never hidden.  DropTop (App. D) hides the highest-loss tail on top,
+regardless of move-back: under ``"sort"`` by the exact rank window of
+``planops.sort_high_mask`` (the radix select, kernels B4/B5 on the card),
+under the histogram methods by the CDF walk mirrored from the top bin.
 """
 from __future__ import annotations
 
@@ -37,14 +38,15 @@ def _eligible(state: SampleState, tau: float, moveback: bool) -> torch.Tensor:
 def select_hidden_sort(state: SampleState, max_fraction, tau: float = 0.7,
                        drop_top_fraction: float = 0.0,
                        moveback: bool = True) -> torch.Tensor:
-    """Paper-faithful selection: global sort by lagging loss."""
-    if drop_top_fraction > 0.0:
-        raise NotImplementedError(
-            "DropTop under selection='sort' needs the radix rank-select "
-            "kernels (byte_histogram, select_mask), which a later slice of "
-            "the PyTorch port brings; use a histogram method meanwhile")
+    """Paper-faithful selection: global sort by lagging loss.  DropTop's
+    top tail exempts never-seen samples, which rank below every real loss
+    so that they never occupy the top window."""
     candidate = planops.sort_low_mask(state.loss, max_fraction)
-    return candidate & _eligible(state, tau, moveback)
+    hidden = candidate & _eligible(state, tau, moveback)
+    if drop_top_fraction > 0.0:
+        hidden = hidden | planops.sort_high_mask(state.loss, state.seen >= 0,
+                                                 drop_top_fraction)
+    return hidden
 
 
 def select_hidden_histogram(state: SampleState, max_fraction,

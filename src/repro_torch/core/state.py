@@ -55,33 +55,51 @@ def init_sample_state(num_samples: int, device: torch.device | str,
     )
 
 
+def last_occurrence(idx: torch.Tensor) -> torch.Tensor:
+    """For each position j of the (B,) ``idx``, the position of the last
+    occurrence of ``idx[j]`` in the batch, with no wait on the device.
+
+    A stable sort groups equal indices in position order; the end of each
+    run is its last occurrence, spread over the run by a reverse running
+    minimum and scattered back through the sort's permutation (which has no
+    repeats, so that scatter is deterministic).
+    """
+    b = idx.shape[0]
+    sorted_idx, order = torch.sort(idx, stable=True)
+    pos = torch.arange(b, device=idx.device)
+    is_end = torch.ones(b, dtype=torch.bool, device=idx.device)
+    is_end[:-1] = sorted_idx[:-1] != sorted_idx[1:]
+    run_end = torch.where(is_end, pos, b).flip(0).cummin(0).values.flip(0)
+    winner = torch.empty_like(order)
+    winner[order] = order[run_end]
+    return winner
+
+
 def scatter_observations(state: SampleState,
                          indices: np.ndarray | torch.Tensor,
                          loss: torch.Tensor, pa: torch.Tensor,
                          pc: torch.Tensor, epoch: int) -> SampleState:
     """Record (loss, PA, PC) for the samples at ``indices``, in place.
 
-    The JAX version lets the last duplicate win; ``index_put_`` with
-    duplicate indices is nondeterministic on CUDA, so duplicates raise here.
-    They never occur on the training path: a batch row of
-    ``epoch_index_plan`` pads from the front of the epoch, and the refresh
-    batches slice their padding off before observing.  Host (numpy) indices
-    are checked on the host; a tensor is checked with ``torch.unique``,
-    which waits for the device.
+    Repeated indices (ISWR draws with replacement) keep the reference's
+    meaning: loss, PA, PC, ``seen`` and ``prev_correct`` take the batch's
+    *last* occurrence, and every occurrence adds its forgetting event,
+    computed from the pre-batch ``prev_correct``.  ``index_put_`` with
+    repeated indices writes in no fixed order on CUDA, so every occurrence
+    first takes the values of its index's last occurrence
+    (``last_occurrence``): all writers of a slot then write the same value.
+    The integer ``index_add_`` of the events is exact in any order.
     """
-    if isinstance(indices, np.ndarray):
-        if len(np.unique(indices)) != len(indices):
-            raise ValueError("scatter_observations: duplicate indices")
-        indices = torch.as_tensor(indices, device=state.loss.device)
-    elif torch.unique(indices).numel() != indices.numel():
-        raise ValueError("scatter_observations: duplicate indices")
-    idx = indices.to(device=state.loss.device, dtype=torch.int64)
+    dev = state.loss.device
+    idx = torch.as_tensor(indices).to(device=dev, dtype=torch.int64)
     # A forgetting event (FORGET baseline) is a correct -> incorrect flip.
     forget_inc = (state.prev_correct[idx] & ~pa).to(torch.int32)
-    state.loss[idx] = loss.to(torch.float32)
-    state.pa[idx] = pa
-    state.pc[idx] = pc.to(torch.float32)
+    last = last_occurrence(idx)
+    pa_last = pa[last]
+    state.loss[idx] = loss.to(torch.float32)[last]
+    state.pa[idx] = pa_last
+    state.pc[idx] = pc.to(torch.float32)[last]
     state.seen[idx] = epoch
-    state.forget_events[idx] += forget_inc
-    state.prev_correct[idx] = pa
+    state.forget_events.index_add_(0, idx, forget_inc)
+    state.prev_correct[idx] = pa_last
     return state

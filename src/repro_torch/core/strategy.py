@@ -5,11 +5,21 @@ port registers only the strategies it has ported).  The per-epoch contract
 driven by ``train/trainer.py``:
 
 1. ``plan(epoch) -> EpochPlan`` — the visible index list, LR scaling, the
-   hidden list and the step-D refresh flag;
-2. per batch, the trainer calls ``fused_observe`` on the strategy's device
-   state (``get_device_state``/``set_device_state``) when it has one;
-3. ``on_epoch_end(plan, eval_forward, batch_size) -> int`` — end-of-epoch
+   hidden list and the flags (``needs_refresh`` for KAKURENBO's step D,
+   ``reinit_model`` for FORGET's restart after warmup);
+2. per batch: ``batch_weights(indices)`` (static per-sample loss weights,
+   a plan-time lookup: ISWR, InfoBatch) and the in-step hooks on the
+   strategy's device state (``get_device_state``/``set_device_state``):
+   ``fused_select`` before the backward pass (Selective-Backprop's
+   loss-dependent mask) and ``fused_observe`` after it (the bookkeeping
+   scatter);
+3. ``observe(indices, loss, pa, pc, epoch)`` — lagging-loss bookkeeping
+   outside the train step (the step-D refresh);
+4. ``on_epoch_end(plan, eval_forward, batch_size) -> int`` — end-of-epoch
    work (the hidden-list refresh); returns extra forward samples.
+
+Checkpointing (``state_dict``) and Grad-Match's ``prepare`` hook belong to
+a later slice.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ class EpochPlan:
     hidden_fraction: float = 0.0           # F*_e (actual, after move-back)
     lr_scale: float = 1.0                  # Eq. 8 factor (1.0 = off)
     needs_refresh: bool = False            # run step-D refresh at epoch end
+    reinit_model: bool = False             # restart the model (FORGET)
     host_syncs: int = 0                    # device->host syncs spent planning
     #: Samples hidden last epoch that move-back returned to training.
     moveback_indices: np.ndarray = dataclasses.field(
@@ -53,6 +64,13 @@ class SampleStrategy:
     #: trainer after every train step on the strategy's device state.
     fused_observe: Callable | None = None
 
+    #: ``(state, loss) -> (weights, state)``, run by the trainer before the
+    #: backward pass on the (B,) f32 loss of a forward-only pass at the
+    #: current weights.  The (B,) f32 ``weights`` multiply the per-sample
+    #: losses of the objective; 0 drops a sample from the backward pass and
+    #: from ``bwd_samples``.
+    fused_select: Callable | None = None
+
     def __init__(self, num_samples: int, config: Any = None, seed: int = 0):
         self.num_samples = num_samples
         self.config = config
@@ -60,6 +78,14 @@ class SampleStrategy:
 
     def plan(self, epoch: int) -> EpochPlan:
         raise NotImplementedError
+
+    def observe(self, indices, loss, pa, pc, epoch: int) -> None:
+        """Record lagging (loss, PA, PC) outside the train step."""
+
+    def batch_weights(self, indices: np.ndarray) -> np.ndarray | None:
+        """(B,) f32 host loss weights for this batch (None = uniform),
+        looked up from plan-time decisions; never touches device state."""
+        return None
 
     def get_device_state(self):
         return None

@@ -123,6 +123,10 @@ _SIGNATURES = {
     "lc_forward_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ts_minmax": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ts_histogram": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "rs_byte_histogram": [_P, _P, _P, _I, _I, _I, _P],
+    "rs_select_mask": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # Not a launch: the number of tiles (scratch size) of the mask pass.
+    "rs_select_mask_tiles": [_I],
 }
 
 

@@ -1,6 +1,6 @@
 """Public wrappers over the kernels, and the differentiable fused scoring.
 
-Port of ``repro/kernels/ops.py`` for the kernels of this slice.  Each
+Port of ``repro/kernels/ops.py``.  Each
 wrapper dispatches by the device of its inputs: the plain PyTorch version on
 the CPU, the CUDA kernel on a CUDA tensor.  Unlike the JAX package there is
 no padding to a block grid: the kernels mask their ragged edges.
@@ -36,6 +36,14 @@ def loss_histogram(loss: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
                    hi: torch.Tensor, bins: int = 512) -> torch.Tensor:
     """(bins,) i32 histogram of the valid losses over ``[lo, hi]``."""
     return _ts.histogram(loss, valid, torch.stack([lo, hi]).float(), bins)
+
+
+def rank_select(scores: torch.Tensor, k, high: bool = False) -> torch.Tensor:
+    """Exact (N,) bool mask of the ``k`` smallest (or largest) scores by
+    count-then-select, equal to the stable-argsort rank masks (see
+    ``threshold_select.rank_select_mask`` for the tie contract): kernels
+    B4/B5 on a CUDA tensor, their plain versions on a CPU one."""
+    return _ts.rank_select_mask(scores, k, high=high)
 
 
 class _FusedLossMetrics(torch.autograd.Function):

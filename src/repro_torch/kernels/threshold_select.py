@@ -1,11 +1,25 @@
-"""Range and histogram passes of the histogram-CDF selection.
+"""Threshold selection: the histogram-CDF passes and the exact radix select.
 
-Port of ``minmax_kernel``, ``histogram_kernel`` and ``histogram_with_range``
-of ``repro/kernels/threshold_select.py`` (the radix rank-select pair of that
-module belongs to a later slice).  The CUDA kernels live in
-``csrc/threshold_select.cu``; ``minmax_plain`` and ``histogram_plain`` are
-their plain PyTorch versions.  Both return *raw* reductions: ``minmax`` gives
-``[BIG, -BIG]`` when nothing is valid, and callers fold ``lo = min(lo, hi)``.
+Port of ``repro/kernels/threshold_select.py``:
+
+- ``minmax`` (B2) and ``histogram`` (B3), the range and histogram passes of
+  the histogram-CDF selection (CUDA in ``csrc/threshold_select.cu``).  Both
+  return *raw* reductions: ``minmax`` gives ``[BIG, -BIG]`` when nothing is
+  valid, and callers fold ``lo = min(lo, hi)``;
+- ``byte_histogram`` (B4) and ``select_mask`` (B5), the passes of the exact
+  count-then-select that replaces a stable argsort where a plan needs only a
+  rank window (FORGET's prune, DropTop's top tail), driven by
+  ``radix_threshold`` and ``rank_select_mask`` (CUDA in
+  ``csrc/rank_select.cu``).
+
+Each kernel's plain PyTorch version (``*_plain``) sits beside it.
+
+The radix keys are the uint32 float-order keys of the reference.  PyTorch's
+uint32 support is partial (no shifts or comparisons on the CPU), so the keys
+travel as their bits in an int32 tensor (``order_key_bits``): the kernels
+read that buffer as uint32, and the plain versions widen it to int64
+(0 .. 2**32 - 1) before comparing.  Prefixes and thresholds are 0-d int64
+tensors holding the uint32 value.  Nothing here waits on the device.
 """
 from __future__ import annotations
 
@@ -99,3 +113,182 @@ def histogram_with_range(loss: torch.Tensor, valid: torch.Tensor,
     """Both passes chained on the device: ``(hist, lo_raw, hi_raw)``."""
     mm = minmax(loss, valid)
     return histogram(loss, valid, mm, bins), mm[0], mm[1]
+
+
+# ---------------------------------------------------------------------------
+# Exact count-then-select (radix select)
+# ---------------------------------------------------------------------------
+
+#: Radix passes walk the uint32 key one byte at a time, MSB first.
+RADIX_SHIFTS = (24, 16, 8, 0)
+_U32 = 0xFFFFFFFF
+
+
+def order_key_bits(scores: torch.Tensor, high: bool = False) -> torch.Tensor:
+    """The float-order keys' bits as (N,) int32: ``a < b`` iff
+    ``key(a) < key(b)`` as uint32 (complemented with ``high``, so the
+    largest scores get the smallest keys).
+
+    The sign-flip map of the reference: negative floats get their bits
+    inverted, the others the sign bit set.  ``-0.0`` is collapsed onto
+    ``+0.0`` first by a select on ``x == 0`` (a stable argsort treats signed
+    zeros as ties).  +/-inf order correctly; NaN carries payload bits, so
+    callers that may see NaN mask it first.
+    """
+    x = scores.to(torch.float32).contiguous()
+    b = torch.where(x == 0, 0, x.view(torch.int32))
+    keys = torch.where(b < 0, ~b, b | -(2 ** 31))
+    return ~keys if high else keys
+
+
+def float_order_keys(scores: torch.Tensor) -> torch.Tensor:
+    """The uint32 keys of ``order_key_bits`` as (N,) int64 values."""
+    return _widen(order_key_bits(scores))
+
+
+def _widen(keys: torch.Tensor) -> torch.Tensor:
+    return keys.to(torch.int64) & _U32
+
+
+def _prefix_mask(shift: int) -> int:
+    """Key bits fixed by the radix passes before the one at ``shift``."""
+    return (_U32 << (shift + 8)) & _U32 if shift < 24 else 0
+
+
+def byte_histogram_plain(keys: torch.Tensor, prefix: torch.Tensor,
+                         shift: int) -> torch.Tensor:
+    """(256,) i32 count of byte ``shift`` among the keys whose higher bytes
+    equal ``prefix`` (keys as int32 bits, prefix a 0-d int64)."""
+    k = _widen(keys)
+    match = (k & _prefix_mask(shift)) == prefix
+    bucket = (k >> shift) & 0xFF
+    hist = torch.zeros(256, dtype=torch.int32, device=keys.device)
+    return hist.index_add_(0, bucket, match.to(torch.int32))
+
+
+def select_mask_plain(keys: torch.Tensor, thresh: torch.Tensor,
+                      tie_lo: torch.Tensor, tie_hi: torch.Tensor
+                      ) -> torch.Tensor:
+    """(N,) bool: ``key < thresh``, plus the ties whose 1-based running
+    count in index order lies in ``(tie_lo, tie_hi]`` (the stable-argsort
+    tie break)."""
+    k = _widen(keys)
+    tie = k == thresh
+    cum = torch.cumsum(tie.to(torch.int64), 0)
+    return (k < thresh) | (tie & (cum > tie_lo) & (cum <= tie_hi))
+
+
+def _check_keys(name: str, keys: torch.Tensor, **scalars: torch.Tensor
+                ) -> torch.device:
+    if keys.dim() != 1 or keys.dtype != torch.int32:
+        raise ValueError(f"{name}: want (N,) int32 key bits; got "
+                         f"{tuple(keys.shape)} {keys.dtype}")
+    dev = backend.check_cuda(name, {"keys": keys, **scalars})
+    for k, t in scalars.items():
+        if t.dtype != torch.int64:
+            raise ValueError(f"{name}: {k} must be int64, got {t.dtype}")
+    if keys.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: N={keys.numel()} too large")
+    return dev
+
+
+def byte_histogram(keys: torch.Tensor, prefix: torch.Tensor,
+                   shift: int) -> torch.Tensor:
+    """Kernel B4: (256,) i32 byte histogram of the keys matching ``prefix``.
+
+    ``keys`` (N,) int32 bits, ``prefix`` a 0-d int64 on the keys' device,
+    ``shift`` in ``RADIX_SHIFTS``.  A CPU tensor takes the plain version.
+    """
+    if shift not in RADIX_SHIFTS:
+        raise ValueError(f"byte_histogram: shift={shift} not in {RADIX_SHIFTS}")
+    if keys.device.type == "cpu" and prefix.device.type == "cpu":
+        return byte_histogram_plain(keys, prefix, shift)
+    prefix = prefix.reshape(1)
+    dev = _check_keys("byte_histogram", keys, prefix=prefix)
+    out = torch.empty(256, dtype=torch.int32, device=dev)
+    backend.launch("rs_byte_histogram", "byte_histogram", dev, keys.data_ptr(),
+                   prefix.data_ptr(), out.data_ptr(), keys.numel(), shift)
+    return out
+
+
+def select_mask(keys: torch.Tensor, thresh: torch.Tensor,
+                tie_lo: torch.Tensor, tie_hi: torch.Tensor) -> torch.Tensor:
+    """Kernel B5: the (N,) bool rank-window mask of ``select_mask_plain``.
+
+    ``thresh``, ``tie_lo`` and ``tie_hi`` are 0-d int64 tensors on the keys'
+    device.  A CPU tensor takes the plain version.
+    """
+    if all(t.device.type == "cpu" for t in (keys, thresh, tie_lo, tie_hi)):
+        return select_mask_plain(keys, thresh, tie_lo, tie_hi)
+    thresh = thresh.reshape(1)
+    window = torch.stack([tie_lo.reshape(()), tie_hi.reshape(())])
+    dev = _check_keys("select_mask", keys, thresh=thresh, window=window)
+    n = keys.numel()
+    tiles = backend.library().rs_select_mask_tiles(n)
+    scratch = torch.empty(2 * tiles, dtype=torch.int32, device=dev)
+    mask = torch.empty(n, dtype=torch.bool, device=dev)
+    backend.launch("rs_select_mask", "select_mask", dev, keys.data_ptr(),
+                   thresh.data_ptr(), window.data_ptr(), scratch.data_ptr(),
+                   scratch[tiles:].data_ptr(), mask.data_ptr(), n)
+    return mask
+
+
+def device_scalar(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``x`` (a Python number or a tensor) as a 0-d ``dtype`` tensor on
+    ``device``.  A Python number is written there by a fill kernel:
+    ``torch.as_tensor`` would copy it from host memory, which waits for the
+    device's stream to drain."""
+    if isinstance(x, (int, float)):
+        return torch.full((), x, dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def radix_threshold(keys: torch.Tensor, k, hist_fn):
+    """The exact k-th smallest key by four MSB-first byte-histogram passes.
+
+    Returns 0-d int64 tensors ``(thresh, needed, total_ties)``: the k-th
+    order statistic (for k <= 0 the all-zero key: nothing selected), how
+    many of the ties at it the mask still needs, and their total count.
+    ``hist_fn(keys, prefix, shift)`` is ``byte_histogram`` or its plain
+    version; the bucket search between passes stays on the device.
+    """
+    dev = keys.device
+    prefix = torch.zeros((), dtype=torch.int64, device=dev)
+    remaining = device_scalar(k, torch.int64, dev).reshape(())
+    for shift in RADIX_SHIFTS:
+        hist = hist_fn(keys, prefix, shift)
+        cdf = torch.cumsum(hist, 0, dtype=torch.int64)
+        # bucket holding the remaining-th smallest key of the prefix subset
+        b = torch.clamp(torch.searchsorted(cdf, remaining.reshape(1),
+                                           side="left")[0], 0, 255)
+        below = torch.where(b > 0, cdf[torch.clamp(b - 1, min=0)], 0)
+        remaining = remaining - below
+        prefix = prefix | (b << shift)
+    # the last pass's bucket holds the exact-key matches: the ties at thresh
+    return prefix, remaining, hist[b].to(torch.int64)
+
+
+def rank_select_mask(scores: torch.Tensor, k, high: bool = False,
+                     use_kernel: bool = True) -> torch.Tensor:
+    """Exact (N,) bool mask of the ``k`` smallest (``high``: largest) scores.
+
+    Equal to the stable-argsort masks it replaces (non-NaN inputs):
+    ``high=False`` is ``stable_rank_order(scores) < k`` (ties at the
+    threshold go to the smaller indices, the first ``needed`` ties);
+    ``high=True`` is rank ``>= N - k`` of a stable ascending argsort (the
+    last ``needed`` ties: the window ``(total - needed, total]``).
+
+    Five O(N) passes: four byte histograms and the mask.  ``k`` may be a
+    device scalar.  ``use_kernel`` goes through the wrappers (kernels B4/B5
+    on a CUDA tensor, their plain versions on a CPU one); ``False`` runs the
+    plain versions on any device.
+    """
+    keys = order_key_bits(scores, high)
+    hist_fn = byte_histogram if use_kernel else byte_histogram_plain
+    mask_fn = select_mask if use_kernel else select_mask_plain
+    thresh, needed, total = radix_threshold(keys, k, hist_fn)
+    if high:
+        tie_lo, tie_hi = total - needed, total
+    else:
+        tie_lo, tie_hi = torch.zeros_like(needed), needed
+    return mask_fn(keys, thresh, tie_lo, tie_hi)

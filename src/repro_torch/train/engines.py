@@ -2,8 +2,9 @@
 
 Port of ``repro/train/engines.py::HostLoopEngine``: one train step per
 batch, batches assembled on the host by the ``Pipeline`` and copied to the
-device each step.  Per-step loss scalars stay on the device and cross to
-the host once, at epoch end.  The JAX package's default engine is the
+device each step with the strategy's per-sample weights.  Per-step loss
+scalars and backward counts stay on the device and cross to the host once,
+at epoch end.  The JAX package's default engine is the
 scanned one, which is bit-identical to the host loop there, so the host
 loop computes the same thing; a device-resident engine (CUDA graphs) comes
 in a later slice.
@@ -39,18 +40,24 @@ class HostLoopEngine:
         # The strategy's device state is threaded through the steps and
         # handed back at the epoch boundary (also on a crash).
         state = tr.strategy.get_device_state()
-        losses = []
+        losses, bwds = [], []
         try:
             for idx, batch in tr.pipeline.batches(indices):
-                state, scalar = tr.train_step(state, tr.to_device(batch), idx,
-                                              epoch, lr)
+                weight = tr.strategy.batch_weights(idx)
+                if weight is not None:
+                    batch = dict(batch, weight=np.asarray(weight, np.float32))
+                state, scalar, bwd = tr.train_step(
+                    state, tr.to_device(batch), idx, epoch, lr)
                 losses.append(scalar)
+                if bwd is not None:
+                    bwds.append(bwd)
         finally:
             if state is not None:
                 tr.strategy.set_device_state(state)
         if not losses:
             return EpochRunResult(np.zeros(0), 0, 0)
-        # The epoch's one loss materialisation.
+        # The epoch's one loss (and backward count) materialisation.
         ls = torch.stack(losses).cpu().numpy().astype(np.float64)
         n = len(losses) * tr.cfg.batch_size
-        return EpochRunResult(losses=ls, fwd_samples=n, bwd_samples=n)
+        bwd_total = int(torch.stack(bwds).sum()) if bwds else n
+        return EpochRunResult(losses=ls, fwd_samples=n, bwd_samples=bwd_total)

@@ -1,22 +1,28 @@
 """Epoch-based trainer over the ``SampleStrategy`` protocol (single device).
 
-Port of ``repro/train/trainer.py`` for this slice: the paper's experiment
-as ``examples/quickstart.py`` runs it — one device, SGD-momentum, the
-strategy's epoch plan, the Eq. 8 LR factor, the strategy's per-batch
-observation of (loss, PA, PC) on its device state, the step-D refresh and
-the work accounting (forward/backward samples, the quantity the paper's
-speedup comes from).
+Port of ``repro/train/trainer.py``, single device: the paper's experiments
+as ``examples/quickstart.py`` and ``benchmarks/table2_accuracy.py`` run them
+— SGD-momentum, the strategy's epoch plan, the Eq. 8 LR factor, FORGET's
+restart from the initial model (``EpochPlan.reinit_model``), per-sample loss
+weights (``batch_weights``: ISWR, InfoBatch), the in-step hooks on the
+strategy's device state (``fused_select`` before the backward pass:
+Selective-Backprop; ``fused_observe`` after it), the step-D refresh and the
+work accounting (forward/backward samples, the quantity the paper's speedup
+comes from).
 
 ``TrainConfig.fused_scoring`` derives the per-sample (loss, PA, PC) from the
 model's logits in one pass (``kernels/ops.fused_loss_metrics``: kernel B1 on
 the card) and needs ``logits_fn(model, batch) -> (B, V) logits``; otherwise
 ``loss_fn(model, batch) -> (scalar, (loss, pa, pc))`` is the caller's.
 
-Left for later slices: checkpointing, the numeric guard, the mesh and
-straggler code, gradient compression and the scanned engine.
+The objective is the weighted mean ``mean(ce * w)`` when the batch carries
+a ``"weight"`` (the fused-scoring loss does this; a caller's ``loss_fn``
+must too).  Left for later slices: checkpointing, the numeric guard, the
+mesh and straggler code, gradient compression and the scanned engine.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Any, Callable
@@ -24,7 +30,9 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core import KakurenboConfig, LRSchedule, SampleStrategy, make_strategy
+from repro_torch.core import (ForgetConfig, InfoBatchConfig, ISWRConfig,
+                              KakurenboConfig, LRSchedule, SampleStrategy,
+                              SBConfig, make_strategy)
 from repro_torch.data.pipeline import Pipeline
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.backend import resolve_device
@@ -44,6 +52,10 @@ class TrainConfig:
         default_factory=lambda: LRSchedule(base_lr=0.05, kind="cosine",
                                            total_epochs=10, warmup_epochs=1))
     kakurenbo: KakurenboConfig = dataclasses.field(default_factory=KakurenboConfig)
+    iswr: ISWRConfig = dataclasses.field(default_factory=ISWRConfig)
+    forget: ForgetConfig = dataclasses.field(default_factory=ForgetConfig)
+    sb: SBConfig = dataclasses.field(default_factory=SBConfig)
+    infobatch: InfoBatchConfig = dataclasses.field(default_factory=InfoBatchConfig)
     seed: int = 0
     eval_every: int = 1
     # Per-sample (loss, PA, PC) from the logits in one streaming pass
@@ -67,13 +79,15 @@ class EpochStats:
 
 
 def _fused_scoring_loss_fn(logits_fn: Callable) -> Callable:
-    """The ``loss_fn`` contract from a raw logits function: mean CE plus
-    the (ce, pa, pc) triple of ``fused_loss_metrics``."""
+    """The ``loss_fn`` contract from a raw logits function: the (weighted)
+    mean CE plus the (ce, pa, pc) triple of ``fused_loss_metrics``."""
 
     def loss_fn(model, batch):
         logits = logits_fn(model, batch)
         ce, pa, pc = kernel_ops.fused_loss_metrics(logits, batch["labels"])
-        return ce.mean(), (ce, pa, pc)
+        w = batch.get("weight")
+        scalar = (ce * w).mean() if w is not None else ce.mean()
+        return scalar, (ce, pa, pc)
 
     return loss_fn
 
@@ -108,17 +122,21 @@ class Trainer:
         else:
             self.loss_fn = loss_fn
         self.model = model.to(self.device)
+        # FORGET restarts from the initial weights, as the reference re-inits
+        # from the same key: keep a copy of them.
+        self._init_weights = copy.deepcopy(self.model.state_dict())
         self.opt = make_optimizer(cfg.optimizer, self.model.parameters(),
                                   **cfg.optimizer_hp)
         self.pipeline = Pipeline(dataset.get, cfg.batch_size)
         self.num_samples = dataset.num_samples
         self.strategy = strategy or make_strategy(
             cfg.strategy, self.num_samples, cfg=cfg, seed=cfg.seed,
-            device=self.device)
-        # The strategy's per-batch bookkeeping runs after every train step
-        # on its device state, when it has one.
-        self._fuse = (self.strategy.fused_observe
-                      if self.strategy.get_device_state() is not None else None)
+            total_epochs=cfg.epochs, device=self.device)
+        # The strategy's in-step hooks run on its device state, when it has
+        # one: selection before the backward pass, bookkeeping after it.
+        has_state = self.strategy.get_device_state() is not None
+        self._fuse = self.strategy.fused_observe if has_state else None
+        self._fsel = self.strategy.fused_select if has_state else None
         self.engine = HostLoopEngine(self)
         self.epoch = 0
         self.history: list[EpochStats] = []
@@ -129,8 +147,20 @@ class Trainer:
 
     def train_step(self, state, batch: dict, indices: np.ndarray, epoch: int,
                    lr: float):
-        """One update; returns (strategy state, loss scalar on the device)."""
+        """One update; returns (strategy state, loss scalar on the device,
+        backward samples as a device scalar, or None for the whole batch)."""
         self.model.train()
+        bwd = None
+        if self._fsel is not None:
+            # A forward-only loss at the current weights drives the in-step
+            # selection; its weights mask the backward pass.
+            with torch.no_grad():
+                _, (lv0, _, _) = self.loss_fn(self.model, batch)
+            w_sel, state = self._fsel(state, lv0)
+            batch = dict(batch)
+            batch["weight"] = (batch["weight"] * w_sel if "weight" in batch
+                               else w_sel)
+            bwd = torch.count_nonzero(w_sel)
         scalar, (lv, pa, pc) = self.loss_fn(self.model, batch)
         self.opt.zero_grad()
         scalar.backward()
@@ -138,7 +168,7 @@ class Trainer:
         if self._fuse is not None:
             state = self._fuse(state, indices, lv.detach(), pa, pc.detach(),
                                epoch)
-        return state, scalar.detach()
+        return state, scalar.detach(), bwd
 
     @torch.no_grad()
     def eval_step(self, batch: dict):
@@ -150,6 +180,11 @@ class Trainer:
         c = self.cfg
         t0 = time.perf_counter()
         plan = self.strategy.plan(epoch)
+        if plan.reinit_model:
+            # FORGET: restart from the initial weights with fresh momentum.
+            self.model.load_state_dict(self._init_weights)
+            self.opt = make_optimizer(c.optimizer, self.model.parameters(),
+                                      **c.optimizer_hp)
         lr = float(c.lr(epoch)) * plan.lr_scale
         res = self.engine.run_epoch(epoch, plan.visible_indices, plan, lr)
         fwd, bwd = res.fwd_samples, res.bwd_samples

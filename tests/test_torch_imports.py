@@ -81,8 +81,9 @@ def test_default_device_is_cuda_and_raises_without_it():
         KakurenboSampler(64)
     with pytest.raises(RuntimeError, match="CUDA"):
         BaselineStrategy(64)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        make_strategy("kakurenbo", 64, device="cuda")
+    for name in ("kakurenbo", "random", "forget", "iswr", "sb", "infobatch"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_strategy(name, 64)
     with pytest.raises(RuntimeError, match="CUDA"):
         backend.resolve_device(None)
     assert backend.resolve_device("cpu") == torch.device("cpu")
@@ -103,11 +104,12 @@ def test_library_path_names_the_sources():
     assert path == backend.library_path()           # stable hash
     assert path.name.startswith("libkernels_") and path.suffix == ".so"
     assert {p.name for p in backend.CSRC.glob("*.cu")} == {
-        "loss_confidence.cu", "threshold_select.cu"}
+        "loss_confidence.cu", "threshold_select.cu", "rank_select.cu"}
 
 
 def test_registry_is_the_ports_own():
     from repro_torch.core import available_strategies
-    assert available_strategies() == ["baseline", "kakurenbo"]
+    assert available_strategies() == ["baseline", "forget", "infobatch",
+                                      "iswr", "kakurenbo", "random", "sb"]
     with pytest.raises(ValueError, match="unknown strategy"):
-        make_strategy("forget", 10, device="cpu")
+        make_strategy("gradmatch", 10, device="cpu")

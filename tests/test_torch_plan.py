@@ -3,8 +3,8 @@
 The same ``SampleState`` (made from a seed with numpy) and the reference's
 permutation go through the JAX plan and the port's; every output must be
 exactly equal — masks, order, counts, F* and the Eq. 8 factor — for the
-three selection methods, with never-seen samples, tied losses, DropTop on
-the histogram methods and N not a multiple of the kernels' 2048 block.
+three selection methods, with never-seen samples, tied losses, DropTop and
+N not a multiple of the kernels' 2048 block.
 """
 from __future__ import annotations
 
@@ -86,12 +86,27 @@ def test_scatter_observations_exact():
 
 
 def test_scatter_observations_rejects_duplicates():
-    ts = state.init_sample_state(8, "cpu")
-    args = (torch.ones(2), torch.ones(2, dtype=torch.bool), torch.ones(2), 0)
-    with pytest.raises(ValueError, match="duplicate"):
-        state.scatter_observations(ts, np.array([3, 3]), *args)
-    with pytest.raises(ValueError, match="duplicate"):
-        state.scatter_observations(ts, torch.tensor([5, 5]), *args)
+    """Repeated indices (ISWR's with-replacement batches) are accepted with
+    the reference's meaning: the last occurrence wins, every occurrence
+    counts its forgetting event.  Exact against the JAX function."""
+    d = _np_state(40, seed=3)
+    ts, js = _torch_state(d), _jax_state(d)
+    r = np.random.default_rng(4)
+    for epoch, idx in ((1, np.array([3, 3, 7, 3, 7, 9])),
+                       (2, r.integers(0, 40, 64))):
+        b = len(idx)
+        loss = r.exponential(1.0, b).astype(np.float32)
+        pa = r.random(b) < 0.5
+        pc = r.random(b).astype(np.float32)
+        js = jstate.scatter_observations(js, jnp.asarray(idx), jnp.asarray(loss),
+                                         jnp.asarray(pa), jnp.asarray(pc), epoch)
+        ts = state.scatter_observations(ts, torch.from_numpy(idx),
+                                        torch.from_numpy(loss),
+                                        torch.from_numpy(pa),
+                                        torch.from_numpy(pc), epoch)
+        _assert_state_equal(ts, js)
+    assert np.array_equal(state.last_occurrence(torch.tensor([5, 2, 5, 5, 2, 8])),
+                          [3, 4, 3, 3, 4, 5])
 
 
 def test_schedules_match_reference():
@@ -118,7 +133,7 @@ def test_schedules_match_reference():
 
 @pytest.mark.parametrize("method,drop_top", [
     ("sort", 0.0), ("histogram", 0.0), ("histogram_pallas", 0.0),
-    ("histogram", 0.05), ("histogram_pallas", 0.05)])
+    ("sort", 0.05), ("histogram", 0.05), ("histogram_pallas", 0.05)])
 @pytest.mark.parametrize("n,ties", [(3000, False), (2048, True), (777, True)])
 def test_plan_step_exact(method, drop_top, n, ties):
     d = _np_state(n, seed=n, ties=ties)
@@ -173,9 +188,23 @@ def test_threshold_mask_and_masked_order(method):
 
 
 def test_sort_drop_top_waits_for_radix_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        select_hidden(_torch_state(_np_state(100)), 0.3, method="sort",
-                      drop_top_fraction=0.1)
+    """DropTop under ``"sort"`` runs through the radix rank-select and equals
+    the reference (and the argsort oracle), never-seen samples exempt;
+    an unknown method still raises."""
+    from repro.core.selection import select_hidden as jselect_hidden
+    for n, drop in ((100, 0.1), (3001, 0.02), (777, 0.3)):
+        d = _np_state(n, seed=n, ties=True)
+        want = jselect_hidden(_jax_state(d), 0.3, method="sort",
+                              drop_top_fraction=drop)
+        got = select_hidden(_torch_state(d), 0.3, method="sort",
+                            drop_top_fraction=drop)
+        assert np.array_equal(got.numpy(), np.asarray(want))
+        low = select_hidden(_torch_state(d), 0.3, method="sort")
+        top = planops.sort_high_mask_argsort(torch.from_numpy(d["loss"]),
+                                             torch.from_numpy(d["seen"] >= 0),
+                                             drop)
+        assert torch.equal(got, low | top)
+        assert not (got & ~low).numpy()[d["seen"] < 0].any()
     with pytest.raises(ValueError, match="unknown selection"):
         select_hidden(_torch_state(_np_state(100)), 0.3, method="bogus")
 
