@@ -14,6 +14,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    counts with +inf, signed zeros, +/-inf and all-equal inputs, for
    k in {0, 1, N/3, N} both ways; the whole rank-select at N = 1,281,167
    beside ``torch.kthvalue`` and a stable ``torch.sort`` as yardsticks;
+   the SSD scan (B6) at mamba2-130m's serve shapes;
 4. plan: ``_plan_step`` at N = 1,281,167 (ImageNet-1K's train size) with
    ``"histogram_pallas"`` (the kernels) against ``"histogram"`` (plain),
    and with ``"sort"`` + DropTop 0.02 and FORGET's ``_prune_step`` (the
@@ -25,11 +26,21 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 6. table 2: ``repro_torch.experiments.table2`` at the same width and size,
    3 epochs of each of its seven strategies, KAKURENBO under ``"sort"`` with
    DropTop 0.02; FORGET must prune floor(0.3 N) and restart, ISWR must draw
-   repeated indices into a batch, SB must skip backward samples.  The launch
-   counts of phases 5 and 6, each set to 0 just before it, show that the
-   main path went through every kernel;
+   repeated indices into a batch, SB must skip backward samples.  Table 2
+   scores as the reference harness does (PA by argmax), so B1 must not run
+   there.  The launch counts of phases 5 and 6, each set to 0 just before
+   it, show that the main path went through every kernel;
 7. card vs CPU: the same small run on ``cuda`` and on ``cpu`` from the same
-   params and permutations, TF32 off; per-epoch losses within 1e-4.
+   params and permutations, TF32 off; per-epoch losses within 1e-4;
+8. serve: ``repro_torch.launch.serve`` on mamba2-130m at full width and
+   depth (24 layers, f32, seeded weights), prefill of 4 x 2,048 tokens
+   then 32 greedy tokens; the SSD scan must run through kernel B6, 24
+   launches for the one prefill.  Then, at full width: prefill's last
+   logits against the full forward's at S - 1 (2e-4), one decode step
+   against the forward's at S (3e-3), and at 2 layers the card's prefill
+   (B6) against the CPU's (the plain scan) and their greedy tokens.  B6
+   itself is held against its plain version in phase 3 at B = 4 and
+   S = 2,048, 1,000 (a ragged last chunk) and 64 (shorter than a chunk).
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -295,6 +306,83 @@ def time_rank_select(dev, n: int, reps: int) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+#: mamba2-130m's scan: 24 heads of P = 64, state N = 128, chunk 128.
+SSD_SHAPE = dict(nh=24, p=64, n=128, chunk=128)
+#: allclose (rtol = atol) of B6 against its plain version: the JAX
+#: package's kernel-vs-oracle tolerance (tests/test_kernels.py).
+SSD_TOL = 1e-4
+
+
+def ssd_inputs(dev, b: int, s: int, kind: str, seed: int = 0):
+    """x, raw dt, a_log, b, c, d_skip at the serve shape.  ``model``: dt and
+    a_log as the model draws them at init (fast decay: the carried state
+    matters for a few rows of a chunk); ``slow``: dt ~ softplus(N(-5, 1)),
+    a in [-e, -1], so the state carries across chunks."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nh, p, n = SSD_SHAPE["nh"], SSD_SHAPE["p"], SSD_SHAPE["n"]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def unif(lo, hi, *shape):
+        return torch.rand(*shape, generator=g, device=dev) * (hi - lo) + lo
+
+    # x, b and c are column slices of one (B, S, NH.P + 2N) activation, as
+    # the model hands them to the wrapper (views, not contiguous).
+    xbc = randn(b, s, nh * p + 2 * n)
+    x, bm, cm = torch.split(xbc, [nh * p, n, n], dim=-1)
+    x = x.view(b, s, nh, p)
+    dt = randn(b, s, nh)
+    if kind == "model":
+        a_log = torch.log(unif(1.0, 16.0, nh))
+    else:
+        dt, a_log = dt - 5.0, unif(0.0, 1.0, nh)
+    return x, dt, a_log, bm, cm, randn(nh)
+
+
+def check_ssd_scan(dev, b: int, s: int, kind: str, reps: int) -> dict:
+    """B6 against its plain version on the card: y and the final state
+    within SSD_TOL (allclose), times and the bound."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    args = ssd_inputs(dev, b, s, kind)
+    chunk = SSD_SHAPE["chunk"]
+    y, st = ssd.ssd_scan(*args, chunk)
+    y_p, st_p = ssd.ssd_scan_plain(*args, chunk)
+    torch.cuda.synchronize()
+    tag = f"B={b} S={s} {kind}"
+    require(bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all()),
+            f"ssd_scan non-finite ({tag})")
+    for name, a, ref in (("y", y, y_p), ("state", st, st_p)):
+        require(torch.allclose(a, ref, rtol=SSD_TOL, atol=SSD_TOL),
+                f"ssd_scan {name} differs from the plain version by "
+                f"{float((a - ref).abs().max())} ({tag})")
+    nh, p, n = SSD_SHAPE["nh"], SSD_SHAPE["p"], SSD_SHAPE["n"]
+    # The fewest operations of the function: the chunked form's four
+    # products over this run's chunk lengths, counting only the causal
+    # s <= t half of C.B^T and scores.X, or the per-token recurrence's
+    # 5 N P (decay, outer-product update, C.state), whichever is fewer.
+    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    chunked = b * nh * sum(l * (l + 1) * (n + p) + 4 * l * n * p for l in lens)
+    recurrent = b * nh * s * 5 * n * p
+    ops = min(chunked, recurrent)
+    nbytes = 4 * (2 * y.numel() + b * s * nh + 2 * b * s * n + 2 * nh + st.numel())
+    b_ms, b_by = bound(nbytes, ops)
+    err_y = float((y - y_p).abs().max())
+    err_st = float((st - st_p).abs().max())
+    return {"name": "ssd_scan", "shape": [b, s, nh, p, n], "chunk": chunk,
+            "kind": kind, "max_abs_err": max(err_y, err_st),
+            "max_abs_err_y": err_y, "max_abs_err_state": err_st,
+            "max_abs_y": float(y_p.abs().max()), "tol": SSD_TOL,
+            "ms": time_ms(lambda: ssd.ssd_scan(*args, chunk), reps),
+            "plain_ms": time_ms(lambda: ssd.ssd_scan_plain(*args, chunk),
+                                max(reps // 4, 1)),
+            "bound_ms": b_ms, "bound_by": b_by, "gflop": ops / 1e9,
+            "gflop_chunked_causal": chunked / 1e9,
+            "gflop_recurrent": recurrent / 1e9, "mbytes": nbytes / 1e6}
+
+
 def phase_kernels(dev) -> dict:
     """Every kernel against its plain version; returns the main-shape rows."""
     import torch
@@ -314,6 +402,12 @@ def phase_kernels(dev) -> dict:
                       for kind in ("exp", "events", "zeros", "inf", "equal"))
     main.update(time_radix(dev, 50_000, 200))
     big.extend(time_radix(dev, 1_281_167, 50).values())
+    ssd_rows = [check_ssd_scan(dev, 4, 2048, kind, 20)
+                for kind in ("model", "slow")]
+    main["ssd_scan"] = dict(ssd_rows[0], max_abs_err=max(
+        r["max_abs_err"] for r in ssd_rows))
+    big.extend(ssd_rows)
+    big.extend(check_ssd_scan(dev, 4, s, "slow", 8) for s in (1000, 64))
     emit({"phase": "kernel_checks", "main": main, "more": big,
           "radix_cases": radix_cases})
     emit(time_rank_select(dev, 1_281_167, 20))
@@ -617,8 +711,12 @@ def phase_table2(dev, n: int = 50_000, n_test: int = 10_000, epochs: int = 3):
     require(bwd["sb"] < fwd["sb"], "SB skipped no backward samples")
     require(any(h.hidden_fraction > 0 for h in hist["kakurenbo"]),
             "kakurenbo hid nothing under sort")
-    for name in ("byte_histogram", "select_mask", "loss_confidence"):
+    for name in ("byte_histogram", "select_mask"):
         require(launches.get(name, 0) > 0, f"kernel {name} never launched")
+    # Table 2 scores with cnn.per_sample_metrics (argmax), as the reference
+    # harness does: the fused pass (B1) is the train phase's.
+    require(launches.get("loss_confidence", 0) == 0,
+            "Table 2 went through the fused scoring pass (B1)")
     emit({"phase": "table2_summary", "model": CONFIG.name, "n": n,
           "n_test": n_test, "epochs": epochs, "kakurenbo": dataclasses.asdict(kcfg),
           "fwd_samples": fwd, "bwd_samples": bwd,
@@ -671,6 +769,207 @@ def phase_card_vs_cpu(dev, n: int = 2048, epochs: int = 2) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Serving mamba2-130m
+# ---------------------------------------------------------------------------
+
+
+def device_breakdown(dev, fn, top: int = 12) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: device time by kernel,
+    grouped into B6, cuBLAS GEMMs and the rest, and the device's busy time
+    against the call's wall time (the profiler's own host cost included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per = collections.defaultdict(lambda: [0, 0.0])
+    spans = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = e.time_range.elapsed_us() / 1e3
+        per[e.name][0] += 1
+        per[e.name][1] += t
+        spans.append((e.time_range.start, e.time_range.end))
+    groups = collections.Counter()
+    for name, (_, ms) in per.items():
+        low = name.lower()
+        groups["B6 ssd_scan" if "ssd_scan" in low else
+               "GEMM (cuBLAS)" if "gemm" in low or "gemv" in low else
+               "other"] += ms
+    busy = 0.0
+    end = None
+    for a, b in sorted(spans):        # union of the device's intervals
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
+            "device_kernels": sum(c for c, _ in per.values()),
+            "groups_ms": dict(groups),
+            "top": [{"name": k[:90], "calls": c, "ms": ms}
+                    for k, (c, ms) in ranked]}
+
+
+def b6_share(dev, fn) -> float:
+    """B6's device time (ms) inside one call of ``fn``, by CUDA events
+    around every ``ops.ssd_scan`` call (a check on the profiler's figure)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    orig, events = kops.ssd_scan, []
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    kops.ssd_scan = timed
+    try:
+        fn()
+    finally:
+        kops.ssd_scan = orig
+    sync(dev)
+    return sum(a.elapsed_time(b) for a, b in events)
+
+
+def close(a, b, tol: float) -> tuple[bool, float]:
+    """(allclose with rtol = atol = tol, max abs difference)."""
+    import torch
+    return (bool(torch.allclose(a, b, rtol=tol, atol=tol)),
+            float((a - b).abs().max()))
+
+
+def phase_serve(dev, batch: int = 4, prompt: int = 2048, gen: int = 32,
+                cpu_layers: int = 2, cpu_gen: int = 16) -> dict:
+    """The serve path at full width and depth, its prefill/forward/decode
+    contract, and card against CPU at full width and ``cpu_layers`` layers.
+    Returns the launch counts of the serve call."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import backend
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model, transformer
+    # Full float32 everywhere: no TF32 in cuBLAS (and none in cuDNN, which
+    # this path does not call: the causal conv is a sum of shifted products).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_arch("mamba2-130m")
+    # A first, short call warms cuBLAS and the caching allocator at these
+    # shapes; the second is the one measured and counted.
+    serve(cfg.name, reduced=False, batch=batch, prompt_len=prompt,
+          gen_tokens=2, seed=0, verbose=False, device=dev)
+
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    stats = serve(cfg.name, reduced=False, batch=batch, prompt_len=prompt,
+                  gen_tokens=gen, seed=0, verbose=False, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(backend.LAUNCHES)
+    require(launches.get("ssd_scan", 0) == cfg.num_layers,
+            f"serve launched B6 {launches.get('ssd_scan', 0)} times, not once "
+            f"per layer ({cfg.num_layers}) of the one prefill")
+    toks = stats["generated"]
+    require(toks.shape == (batch, gen) and bool(((toks >= 0)
+                                                 & (toks < cfg.vocab_size)).all()),
+            f"serve generated {toks.shape} tokens outside the vocabulary")
+    row = {"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "batch": batch, "prompt": prompt,
+           "gen_tokens": gen, "dtype": "float32",
+           "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+           "prefill_ms": stats["prefill_s"] * 1e3,
+           "decode_ms_per_token": stats["decode_per_token_ms"],
+           "decode_tok_per_s": stats["decode_tok_per_s"],
+           "ssd_scan_launches": launches.get("ssd_scan", 0),
+           "launches": launches, "sample_tokens": toks[0, :8].tolist(),
+           "wall_s": wall}
+
+    # Prefill matches forward (tests/test_arch_smoke.py:81), at full width.
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator().manual_seed(0))
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (batch, prompt + 1))).to(dev)
+    with torch.no_grad():
+        full, _, _ = transformer.forward(cfg, params, {"tokens": ids})
+        lg, cache = model.prefill(params, {"tokens": ids[:, :prompt]},
+                                  max_len=prompt + 1)
+        lg2, _ = model.decode_step(params, ids[:, prompt:], cache)
+    ok1, d1 = close(lg[:, 0], full[:, prompt - 1], 2e-4)
+    ok2, d2 = close(lg2[:, 0], full[:, prompt], 3e-3)
+    row["prefill_vs_forward"] = {"max_abs_diff": d1, "tol": 2e-4}
+    row["decode_vs_forward"] = {"max_abs_diff": d2, "tol": 3e-3}
+    require(ok1, f"prefill logits differ from the forward's by {d1} > 2e-4")
+    require(ok2, f"decode logits differ from the forward's by {d2} > 3e-3")
+
+    # Where the time goes: one prefill and one decode step under the
+    # profiler, and B6's share of a prefill by CUDA events.
+    with torch.no_grad():
+        def prefill():
+            return model.prefill(params, {"tokens": ids[:, :prompt]})
+
+        def step():
+            return model.decode_step(params, ids[:, prompt:], cache)
+
+        row["prefill_breakdown"] = device_breakdown(dev, prefill)
+        row["prefill_breakdown"]["b6_ms_by_cuda_events"] = b6_share(dev, prefill)
+        row["decode_breakdown"] = device_breakdown(dev, step)
+    del full, lg, lg2, cache, params
+
+    # Card (B6) against CPU (the plain scan), full width, cut depth.
+    small = dataclasses.replace(cfg, num_layers=cpu_layers)
+    cpu = torch.device("cpu")
+    host = build_model(small, cpu)
+    p_cpu = host.init(torch.Generator().manual_seed(0))
+
+    def to_dev(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.to(dev)
+        return {k: to_dev(v) for k, v in tree.items()}
+
+    p_dev = to_dev(p_cpu)
+    card = build_model(small, dev)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (batch, prompt)))
+    runs = {}
+    for name, m, p, d in (("card", card, p_dev, dev), ("cpu", host, p_cpu, cpu)):
+        t = time.perf_counter()
+        lg, c = m.prefill(p, {"tokens": ids.to(d)})
+        first = (lg.cpu(), c["ssm_state"].cpu())
+        tok, seq = lg[:, -1:].argmax(-1), []
+        for _ in range(cpu_gen):
+            seq.append(tok.cpu())
+            lg, c = m.decode_step(p, tok, c)
+            tok = lg[:, -1:].argmax(-1)
+        runs[name] = (first, torch.cat(seq, 1), lg.cpu(),
+                      time.perf_counter() - t)
+    ok_l, d_l = close(runs["card"][0][0], runs["cpu"][0][0], 1e-4)
+    ok_s, d_s = close(runs["card"][0][1], runs["cpu"][0][1], 1e-4)
+    same = torch.equal(runs["card"][1], runs["cpu"][1])
+    row["card_vs_cpu"] = {
+        "layers": cpu_layers, "prompt": prompt, "gen_tokens": cpu_gen,
+        "prefill_logits_max_abs_diff": d_l, "state_max_abs_diff": d_s,
+        "tol": 1e-4, "last_decode_logits_max_abs_diff": float(
+            (runs["card"][2] - runs["cpu"][2]).abs().max()),
+        "same_greedy_tokens": same,
+        "card_s": runs["card"][3], "cpu_s": runs["cpu"][3]}
+    emit(row)
+    require(ok_l, f"card vs CPU prefill logits differ by {d_l} > 1e-4")
+    require(ok_s, f"card vs CPU SSM state differs by {d_s} > 1e-4")
+    require(same, "card and CPU greedy tokens differ")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -684,6 +983,8 @@ KERNELS = {
                        "src/repro/kernels/threshold_select.py:225"),
     "select_mask": ("src/repro_torch/kernels/csrc/rank_select.cu",
                     "src/repro/kernels/threshold_select.py:273"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:72"),
 }
 
 
@@ -723,6 +1024,7 @@ def main() -> int:
     launches = collections.Counter(phase_train(dev))
     launches.update(phase_table2(dev))
     phase_card_vs_cpu(dev)
+    launches.update(phase_serve(dev))
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,0 +1,17 @@
+"""``--arch <id>`` registry over the architectures the port runs.
+
+The JAX package's registry holds ten architectures; the port has the SSM
+family's so far.  The others come with the rest of the model zoo
+(ROADMAP A.13) and raise a ``KeyError`` until then.
+"""
+from repro_torch.configs import mamba2_130m
+from repro_torch.configs.base import ArchConfig
+
+ARCHS: dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in (mamba2_130m,)}
+
+
+def get_arch(name: str) -> ArchConfig:
+    if name not in ARCHS:
+        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP A.13: the "
+                       f"model zoo); the port runs {sorted(ARCHS)}")
+    return ARCHS[name]

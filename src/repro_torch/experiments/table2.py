@@ -7,9 +7,10 @@ paper CNN on ``SyntheticClassification(1024)`` (test split 512), batch 128,
 16 epochs, SGD-momentum with cosine LR 0.03 (1 warmup epoch); KAKURENBO
 with F = 0.3 and milestones (0, E/3, E/2, 3E/4); FORGET pruning 0.3 after
 ``max(E // 4, 2)`` warmup epochs; InfoBatch annealing over E epochs.  The
-per-sample scores come from the fused pass (``TrainConfig.fused_scoring``,
-kernel B1 on the card), whose PA counts a tied maximum as correct where
-the reference's ``per_sample_metrics`` takes the argmax.
+per-sample scores come from ``cnn.per_sample_metrics`` (PA by argmax), as
+the reference harness's ``loss_fn`` takes them; ``fused_scoring=True``
+scores with the fused pass instead (kernel B1 on the card), whose PA
+counts a tied maximum as correct.
 
     python -m repro_torch.experiments.table2 --device cpu --n 512 --epochs 4
 
@@ -27,7 +28,7 @@ import torch
 
 from repro_torch.core import ForgetConfig, KakurenboConfig, LRSchedule
 from repro_torch.data import SyntheticClassification
-from repro_torch.models.cnn import CNN, CNNConfig
+from repro_torch.models.cnn import CNN, CNNConfig, per_sample_metrics
 from repro_torch.train import Trainer, TrainConfig
 
 MODEL_CFG = CNNConfig(image_size=16, widths=(16, 32), hidden=64)
@@ -51,17 +52,27 @@ def _logits_fn(model, batch):
     return model(batch["images"])
 
 
+def _loss_fn(model, batch):
+    """``benchmarks/common.py::model_fns``' loss: the (weighted) mean CE
+    and the per-sample (loss, PA by argmax, PC)."""
+    loss, pa, pc = per_sample_metrics(model(batch["images"]), batch["labels"])
+    w = batch.get("weight")
+    scalar = (loss * w).mean() if w is not None else loss.mean()
+    return scalar, (loss, pa, pc)
+
+
 def make_trainer(strategy: str, *, model_cfg: CNNConfig = MODEL_CFG,
                  n: int = NUM_SAMPLES, n_test: int = NUM_TEST,
                  epochs: int = EPOCHS, seed: int = 0,
                  kakurenbo: KakurenboConfig | None = None,
-                 base_lr: float = 0.03,
+                 base_lr: float = 0.03, fused_scoring: bool = False,
                  device: str | torch.device | None = None) -> Trainer:
     """The Table 2 trainer of ``strategy`` (``device=None`` means CUDA)."""
     ds = SyntheticClassification(num_samples=n, image_size=model_cfg.image_size,
                                  seed=seed)
     tc = TrainConfig(
-        epochs=epochs, batch_size=BATCH, strategy=strategy, fused_scoring=True,
+        epochs=epochs, batch_size=BATCH, strategy=strategy,
+        fused_scoring=fused_scoring,
         lr=LRSchedule(base_lr, "cosine", epochs, 1),
         kakurenbo=kakurenbo or kakurenbo_config(epochs),
         # FORGET's warmup must fit inside the run so that prune + restart
@@ -69,7 +80,7 @@ def make_trainer(strategy: str, *, model_cfg: CNNConfig = MODEL_CFG,
         forget=ForgetConfig(fraction=0.3, warmup_epochs=max(epochs // 4, 2)),
         seed=seed)
     model = CNN(model_cfg, torch.Generator().manual_seed(seed))
-    return Trainer(tc, model, None, ds, ds.test_split(n_test),
+    return Trainer(tc, model, _loss_fn, ds, ds.test_split(n_test),
                    logits_fn=_logits_fn, device=device)
 
 

@@ -115,9 +115,11 @@ def build() -> Path:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: C signatures: every pointer and the stream are c_void_p, sizes and the
-#: device index c_int.  Each entry sets the device, launches on the stream
-#: and returns cudaGetLastError().
+_I64P = ctypes.POINTER(ctypes.c_longlong)
+#: C signatures: every device pointer and the stream are c_void_p, sizes and
+#: the device index c_int, an array of element strides a pointer to int64.
+#: Each entry sets the device, launches on the stream and returns
+#: cudaGetLastError().
 _SIGNATURES = {
     "lc_forward_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "lc_forward_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -127,6 +129,7 @@ _SIGNATURES = {
     "rs_select_mask": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # Not a launch: the number of tiles (scratch size) of the mask pass.
     "rs_select_mask_tiles": [_I],
+    "ssd_scan_f32": [_P] * 8 + [_I] * 6 + [_I64P, _I, _P],
 }
 
 
@@ -154,9 +157,11 @@ def launch(entry: str, name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def check_cuda(name: str, tensors: dict[str, torch.Tensor]) -> torch.device:
+def check_cuda(name: str, tensors: dict[str, torch.Tensor],
+               contiguous: bool = True) -> torch.device:
     """The common device/contiguity checks of a kernel wrapper: every tensor
-    on one CUDA device and contiguous.  Returns that device."""
+    on one CUDA device and (unless the kernel takes strides) contiguous.
+    Returns that device."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(
@@ -164,6 +169,6 @@ def check_cuda(name: str, tensors: dict[str, torch.Tensor]) -> torch.device:
             f"CPU for the plain version); got "
             f"{ {k: str(t.device) for k, t in tensors.items()} }")
     for k, t in tensors.items():
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
     return next(iter(devices))

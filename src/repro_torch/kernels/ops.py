@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import loss_confidence as _lc
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import threshold_select as _ts
 
 
@@ -44,6 +45,18 @@ def rank_select(scores: torch.Tensor, k, high: bool = False) -> torch.Tensor:
     ``threshold_select.rank_select_mask`` for the tie contract): kernels
     B4/B5 on a CUDA tensor, their plain versions on a CPU one."""
     return _ts.rank_select_mask(scores, k, high=high)
+
+
+def ssd_scan(x, dt, a_log, b, c, d_skip, chunk: int = 128):
+    """Same signature as ``models.ssm.ssd_scan_ref`` (the oracle).
+
+    x: (B,S,NH,P); dt: (B,S,NH) raw (pre-softplus); b,c: (B,S,N).  Kernel
+    B6 on CUDA tensors, which reads x, dt, b and c in place through their
+    strides, b and c per batch (no broadcast to the heads), and masks a
+    ragged tail instead of padding it; its plain version on CPU ones.
+    Returns y in x's dtype and the final state in float32.
+    """
+    return _ssd.ssd_scan(x, dt, a_log, b, c, d_skip, chunk)
 
 
 class _FusedLossMetrics(torch.autograd.Function):

@@ -1,2 +1,3 @@
-"""The paper's CNN (the model zoo comes in later slices)."""
+"""The paper's CNN and the model zoo's ported families (SSM so far)."""
 from repro_torch.models.cnn import CNN, CNNConfig  # noqa: F401
+from repro_torch.models.model import Model, build_model  # noqa: F401

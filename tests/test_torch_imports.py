@@ -20,10 +20,13 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs.registry import get_arch
 from repro_torch.core import KakurenboSampler, make_strategy
 from repro_torch.core.baseline import BaselineStrategy
 from repro_torch.data import SyntheticClassification
 from repro_torch.kernels import backend
+from repro_torch.launch.serve import serve
+from repro_torch.models import build_model, transformer
 from repro_torch.models.cnn import CNN, CNNConfig
 from repro_torch.train import TrainConfig, Trainer
 
@@ -84,6 +87,13 @@ def test_default_device_is_cuda_and_raises_without_it():
     for name in ("kakurenbo", "random", "forget", "iswr", "sb", "infobatch"):
         with pytest.raises(RuntimeError, match="CUDA"):
             make_strategy(name, 64)
+    cfg = get_arch("mamba2-130m").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve("mamba2-130m", verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.params_from_jax({"embed": [[0.0]]})
     with pytest.raises(RuntimeError, match="CUDA"):
         backend.resolve_device(None)
     assert backend.resolve_device("cpu") == torch.device("cpu")
@@ -104,7 +114,8 @@ def test_library_path_names_the_sources():
     assert path == backend.library_path()           # stable hash
     assert path.name.startswith("libkernels_") and path.suffix == ".so"
     assert {p.name for p in backend.CSRC.glob("*.cu")} == {
-        "loss_confidence.cu", "threshold_select.cu", "rank_select.cu"}
+        "loss_confidence.cu", "threshold_select.cu", "rank_select.cu",
+        "ssd_scan.cu"}
 
 
 def test_registry_is_the_ports_own():

@@ -11,7 +11,11 @@
   and uniforms from ``strategy_key`` splits, as the JAX strategies make
   them) handed to the port's ``draw_*`` methods.  Per-epoch train loss
   within 1e-4 relative; the per-epoch visible and hidden (or pruned) sets,
-  ``fwd_samples``, ``bwd_samples`` and FORGET's restart epoch equal.
+  ``fwd_samples``, ``bwd_samples`` and FORGET's restart epoch equal.  Two
+  ways of scoring: the fused pass on both sides, and Table 2's default
+  (``repro_torch.experiments.table2.make_trainer``, PA by argmax) against
+  the JAX ``Trainer`` built as ``benchmarks/common.py::run_strategy`` builds
+  it.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from repro.core import ForgetConfig as JForgetConfig
 from repro.core import ISWRConfig as JISWRConfig
 from repro.core import KakurenboConfig as JKakurenboConfig
 from repro.core import LRSchedule as JLRSchedule
+from repro.core import make_strategy as jmake_strategy
 from repro.core import planops as jplanops
 from repro.core import selective_backprop as jsb
 from repro.core import state as jstate
@@ -40,6 +45,7 @@ from repro_torch.core import selective_backprop as sb
 from repro_torch.core import state
 from repro_torch.core.baseline import randomize_importance
 from repro_torch.data import SyntheticClassification
+from repro_torch.experiments import table2
 from repro_torch.models import cnn
 from repro_torch.train import TrainConfig, Trainer
 
@@ -178,9 +184,12 @@ def _uniforms(name, size=N, count=EPOCHS):
             for s in _splits(name, count)]
 
 
-def _inject(strategy, tr):
+def _inject(strategy, tr, batch=BATCH):
     """Hand the reference's draws to the port's ``draw_*`` methods."""
     s = tr.strategy
+    if strategy == "baseline":
+        it = iter(_perms("baseline"))
+        s.draw_permutation = lambda: next(it)
     if strategy in ("kakurenbo", "random"):
         it = iter(_perms("kakurenbo"))
         s._inner.draw_permutation = lambda: next(it)
@@ -204,7 +213,7 @@ def _inject(strategy, tr):
     if strategy == "sb":
         it = iter(_perms("sb-plan"))
         s.draw_permutation = lambda: next(it)
-        us = iter(_uniforms("sb", BATCH, EPOCHS * (N // BATCH)))
+        us = iter(_uniforms("sb", batch, EPOCHS * (N // batch)))
         s.draw_uniform = lambda b: next(us)
 
 
@@ -286,3 +295,74 @@ def test_strategy_end_to_end_matches_jax_trainer(case):
                                                        for h in thist)
     else:
         assert any(len(p.hidden_indices) for p in tplans[1:])
+
+
+def _same_history(thist, jhist, tplans, jplans):
+    for e, (h, j, tp, jp) in enumerate(zip(thist, jhist, tplans, jplans)):
+        assert np.array_equal(tp.visible_indices, jp.visible_indices), e
+        assert np.array_equal(tp.hidden_indices, jp.hidden_indices), e
+        assert tp.reinit_model == jp.reinit_model, e
+        assert (h.fwd_samples, h.bwd_samples) == (j.fwd_samples, j.bwd_samples), e
+        assert h.hidden_fraction == j.hidden_fraction, e
+        assert h.train_loss == pytest.approx(j.train_loss, rel=1e-4), e
+        assert h.test_acc == j.test_acc, e
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_table2_scoring_keyword(fused):
+    """PA on a tied maximum: argmax (the default, the reference harness's)
+    takes the first class; the fused pass counts any gold >= max."""
+    tr = table2.make_trainer("baseline", model_cfg=cnn.CNNConfig(**SMALL), n=8,
+                             n_test=8, epochs=1, fused_scoring=fused,
+                             device="cpu")
+    assert tr.cfg.fused_scoring is fused
+    with torch.no_grad():
+        for p in tr.model.parameters():
+            p.zero_()
+    batch = {"images": torch.zeros(2, 8, 8, 3),
+             "labels": torch.tensor([0, 3], dtype=torch.int32)}
+    _, (loss, pa, _) = tr.loss_fn(tr.model, batch)
+    assert torch.allclose(loss, torch.full((2,), float(np.log(10))))
+    assert pa.tolist() == ([True, True] if fused else [True, False])
+
+
+@pytest.mark.parametrize("strategy", table2.STRATEGIES)
+def test_table2_default_scoring_matches_reference_harness(strategy):
+    """Table 2 scores as ``benchmarks/common.py`` does: PA by argmax from
+    ``cnn.per_sample_metrics`` (not the fused pass), the weighted mean CE."""
+    n_test, batch = 128, table2.BATCH
+    jcfg = jcnn.CNNConfig(**SMALL)
+
+    def jloss_fn(params, b):
+        logits = jcnn.forward(params, jcfg, b["images"])
+        loss, pa, pc = jcnn.per_sample_metrics(logits, b["labels"])
+        w = b.get("weight")
+        return (jnp.mean(loss * w) if w is not None else jnp.mean(loss)), (loss, pa, pc)
+
+    tc = JTrainConfig(
+        epochs=EPOCHS, batch_size=batch, strategy=strategy,
+        lr=JLRSchedule(0.03, "cosine", EPOCHS, 1),
+        kakurenbo=JKakurenboConfig(max_fraction=0.3,
+                                   fraction_milestones=(0, EPOCHS // 3,
+                                                        EPOCHS // 2,
+                                                        3 * EPOCHS // 4)),
+        forget=JForgetConfig(fraction=0.3, warmup_epochs=max(EPOCHS // 4, 2)),
+        seed=0)
+    assert not tc.fused_scoring
+    ds = JSynthetic(num_samples=N, image_size=8, seed=0)
+    jtr = JTrainer(tc, lambda rng: jcnn.init(rng, jcfg), jloss_fn, ds,
+                   ds.test_split(n_test),
+                   strategy=jmake_strategy(strategy, N, cfg=tc, seed=0,
+                                           num_classes=10, total_epochs=EPOCHS))
+    init = {k: np.array(v) for k, v in jtr.params.items()}
+    jplans = _record_plans(jtr)
+    jhist = jtr.run()
+
+    tr = table2.make_trainer(strategy, model_cfg=cnn.CNNConfig(**SMALL), n=N,
+                             n_test=n_test, epochs=EPOCHS, device="cpu")
+    assert not tr.cfg.fused_scoring
+    tr.model.load_state_dict(cnn.params_from_jax(init, tr.model.cfg))
+    tr._init_weights = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    _inject(strategy, tr, batch)
+    tplans = _record_plans(tr)
+    _same_history(tr.run(), jhist, tplans, jplans)
