@@ -14,7 +14,11 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    counts with +inf, signed zeros, +/-inf and all-equal inputs, for
    k in {0, 1, N/3, N} both ways; the whole rank-select at N = 1,281,167
    beside ``torch.kthvalue`` and a stable ``torch.sort`` as yardsticks;
-   the SSD scan (B6) at mamba2-130m's serve shapes;
+   the SSD scan (B6) at mamba2-130m's serve shapes; flash attention (B7)
+   at smollm-135m's prefill shape (B, S, Hq, Hkv, D) = (4, 2048, 9, 3,
+   64), causal and not, float32 (allclose 1e-5) and bfloat16 (2e-2), at a
+   ragged S = 1,000 and at head dims 128, 32 and 16, beside
+   ``F.scaled_dot_product_attention`` as a yardstick;
 4. plan: ``_plan_step`` at N = 1,281,167 (ImageNet-1K's train size) with
    ``"histogram_pallas"`` (the kernels) against ``"histogram"`` (plain),
    and with ``"sort"`` + DropTop 0.02 and FORGET's ``_prune_step`` (the
@@ -32,15 +36,18 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    it, show that the main path went through every kernel;
 7. card vs CPU: the same small run on ``cuda`` and on ``cpu`` from the same
    params and permutations, TF32 off; per-epoch losses within 1e-4;
-8. serve: ``repro_torch.launch.serve`` on mamba2-130m at full width and
-   depth (24 layers, f32, seeded weights), prefill of 4 x 2,048 tokens
-   then 32 greedy tokens; the SSD scan must run through kernel B6, 24
-   launches for the one prefill.  Then, at full width: prefill's last
-   logits against the full forward's at S - 1 (2e-4), one decode step
-   against the forward's at S (3e-3), and at 2 layers the card's prefill
-   (B6) against the CPU's (the plain scan) and their greedy tokens.  B6
-   itself is held against its plain version in phase 3 at B = 4 and
-   S = 2,048, 1,000 (a ragged last chunk) and 64 (shorter than a chunk).
+8. serve: ``repro_torch.launch.serve`` at full width and depth in f32
+   with seeded weights, prefill of 4 x 2,048 tokens then 32 greedy
+   tokens, first on mamba2-130m (24 layers; the SSD scan must run through
+   kernel B6, 24 launches for the one prefill), then on smollm-135m (30
+   layers; prefill attention must run through kernel B7, 30 launches).
+   For each, at full width: prefill's last logits against the full
+   forward's at S - 1 (2e-4), one decode step against the forward's at S
+   (3e-3), one prefill and one decode step under the profiler, and at 2
+   layers the card's prefill (the kernel) against the CPU's (its plain
+   version: logits and every cache tensor within 1e-4) and their greedy
+   tokens.  The kernels themselves are held against their plain versions
+   in phase 3.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -50,6 +57,7 @@ result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import json
@@ -383,6 +391,76 @@ def check_ssd_scan(dev, b: int, s: int, kind: str, reps: int) -> dict:
             "gflop_recurrent": recurrent / 1e9, "mbytes": nbytes / 1e6}
 
 
+#: smollm-135m's prefill attention: (B, S, Hq, Hkv, D), 9 query heads
+#: sharing 3 KV heads of 64.
+ATTN_SHAPE = (4, 2048, 9, 3, 64)
+
+
+def sdpa_kernels(fn) -> list:
+    """The CUDA kernels one call of ``fn`` runs (which SDPA backend ran)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name[:90] for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def check_flash_attention(dev, shape, causal: bool, dtype, tol: float,
+                          reps: int, library: bool = False,
+                          seed: int = 0) -> dict:
+    """B7 against its plain version on the card (allclose ``tol``), with
+    times and the bound; with ``library``, one call of
+    ``F.scaled_dot_product_attention`` on (B, H, S, D) views of the same
+    tensors as a yardstick (the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, hq, hkv, d = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+               for h in (hq, hkv, hkv))
+    out = fa.flash_attention(q, k, v, causal)
+    ref = fa.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    tag = f"{shape} causal={causal} {dtype}"
+    require(out.shape == ref.shape and out.dtype == q.dtype,
+            f"flash_attention returned {tuple(out.shape)} {out.dtype} ({tag})")
+    require(bool(torch.isfinite(out).all()), f"flash_attention non-finite ({tag})")
+    ok, err = close(out.float(), ref.float(), tol)
+    require(ok, f"flash_attention differs from the plain version by {err} "
+                f"> {tol} ({tag})")
+    # The causal half only where causal: s(s+1)/2 (query, key) pairs.
+    pairs = s * (s + 1) // 2 if causal else s * s
+    ops = 4 * b * hq * d * pairs
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound(nbytes, ops)
+    row = {"name": "flash_attention", "shape": list(shape), "causal": causal,
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "tol": tol, "ms": time_ms(lambda: fa.flash_attention(q, k, v, causal),
+                                     reps),
+           "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, causal),
+                               max(reps // 4, 1)),
+           "bound_ms": b_ms, "bound_by": b_by, "gflop": ops / 1e9,
+           "mbytes": nbytes / 1e6, "library_ms": None}
+    if library:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+
+        lib = sdpa().transpose(1, 2)
+        row["library_ms"] = time_ms(sdpa, reps)
+        row["library_call"] = ("F.scaled_dot_product_attention(is_causal="
+                               f"{causal}, enable_gqa=True)")
+        row["library_kernels"] = sdpa_kernels(sdpa)
+        row["library_max_abs_err"] = float((lib.float() - ref.float()).abs().max())
+    return row
+
+
 def phase_kernels(dev) -> dict:
     """Every kernel against its plain version; returns the main-shape rows."""
     import torch
@@ -408,6 +486,21 @@ def phase_kernels(dev) -> dict:
         r["max_abs_err"] for r in ssd_rows))
     big.extend(ssd_rows)
     big.extend(check_ssd_scan(dev, 4, s, "slow", 8) for s in (1000, 64))
+    fa_rows = [check_flash_attention(dev, ATTN_SHAPE, True, torch.float32,
+                                     1e-5, 20, library=True)]
+    b, _, hq, hkv, d = ATTN_SHAPE
+    for shape, causal, dtype, tol in (
+            ((b, 1000, hq, hkv, d), True, torch.float32, 1e-5),   # ragged
+            (ATTN_SHAPE, False, torch.float32, 1e-5),
+            (ATTN_SHAPE, True, torch.bfloat16, 2e-2),
+            ((1, 512, 2, 1, 128), True, torch.float32, 1e-5),
+            ((1, 512, 2, 1, 128), False, torch.bfloat16, 2e-2),
+            ((1, 256, 8, 8, 32), True, torch.float32, 1e-5),
+            ((2, 128, 4, 2, 16), False, torch.float32, 1e-5)):
+        fa_rows.append(check_flash_attention(dev, shape, causal, dtype, tol, 8))
+    main["flash_attention"] = dict(fa_rows[0], max_abs_err=max(
+        r["max_abs_err"] for r in fa_rows if r["dtype"] == "float32"))
+    big.extend(fa_rows)
     emit({"phase": "kernel_checks", "main": main, "more": big,
           "radix_cases": radix_cases})
     emit(time_rank_select(dev, 1_281_167, 20))
@@ -769,13 +862,17 @@ def phase_card_vs_cpu(dev, n: int = 2048, epochs: int = 2) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Serving mamba2-130m
+# Serving: mamba2-130m (B6) and smollm-135m (B7)
 # ---------------------------------------------------------------------------
+
+#: The kernel each served architecture's prefill runs once a layer, and its
+#: wrapper in ``kernels/ops.py``.
+SERVE_KERNEL = {"mamba2-130m": "ssd_scan", "smollm-135m": "flash_attention"}
 
 
 def device_breakdown(dev, fn, top: int = 12) -> dict:
     """One call of ``fn`` under ``torch.profiler``: device time by kernel,
-    grouped into B6, cuBLAS GEMMs and the rest, and the device's busy time
+    grouped into B6, B7, cuBLAS GEMMs and the rest, and the device's busy time
     against the call's wall time (the profiler's own host cost included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -799,6 +896,7 @@ def device_breakdown(dev, fn, top: int = 12) -> dict:
     for name, (_, ms) in per.items():
         low = name.lower()
         groups["B6 ssd_scan" if "ssd_scan" in low else
+               "B7 flash_attention" if "flash_attention" in low else
                "GEMM (cuBLAS)" if "gemm" in low or "gemv" in low else
                "other"] += ms
     busy = 0.0
@@ -816,29 +914,61 @@ def device_breakdown(dev, fn, top: int = 12) -> dict:
                     for k, (c, ms) in ranked]}
 
 
-def b6_share(dev, fn) -> float:
-    """B6's device time (ms) inside one call of ``fn``, by CUDA events
-    around every ``ops.ssd_scan`` call (a check on the profiler's figure)."""
-    import torch
+@contextlib.contextmanager
+def patched_op(op: str, wrap):
+    """Within the block, ``kernels/ops.<op>`` is ``wrap(original)``."""
     from repro_torch.kernels import ops as kops
-    orig, events = kops.ssd_scan, []
-
-    def timed(*args, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = orig(*args, **kw)
-        end.record()
-        events.append((start, end))
-        return out
-
-    kops.ssd_scan = timed
+    orig = getattr(kops, op)
+    setattr(kops, op, wrap(orig))
     try:
-        fn()
+        yield
     finally:
-        kops.ssd_scan = orig
+        setattr(kops, op, orig)
+
+
+def kernel_share(dev, fn, op: str) -> float:
+    """The device time (ms) of wrapper ``ops.<op>`` inside one call of
+    ``fn``, by CUDA events around every call (a check on the profiler's
+    figure)."""
+    import torch
+    events = []
+
+    def wrap(orig):
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(*args, **kw)
+            end.record()
+            events.append((start, end))
+            return out
+        return timed
+
+    with patched_op(op, wrap):
+        fn()
     sync(dev)
     return sum(a.elapsed_time(b) for a, b in events)
+
+
+def attention_fan_in(params: dict, cfg) -> dict:
+    """Rescale, in place, the attention projections of an ``init_params``
+    tree from the reference's fan-in to the fan-in of their input.
+
+    ``init_params`` (the reference's, copied by the port) takes
+    ``shape[-2]`` as fan-in: for wq, wk, wv (d, H, Dh) that is H, for wo
+    (H, Dh, d) Dh.  At smollm-135m's width q and k then draw at std 8, the
+    scaled scores at std ~64, the softmax is near one-hot, and a 30-layer
+    model is chaotic in float32: two correct attention orders (B7 and the
+    plain version) part by ~6 in the logits (ROADMAP C).  At the input's
+    fan-in (d_model for wq, wk, wv; H.Dh for wo) the same draws give a
+    model whose logits agree to ~1e-5 at any depth, so a comparison of two
+    paths through it can tell right from wrong."""
+    a = params["layers"]["attn"]
+    dh = cfg.resolved_head_dim
+    for name, fan in (("wq", cfg.d_model), ("wk", cfg.d_model),
+                      ("wv", cfg.d_model), ("wo", cfg.num_heads * dh)):
+        a[name].mul_((a[name].shape[-2] / fan) ** 0.5)
+    return params
 
 
 def close(a, b, tol: float) -> tuple[bool, float]:
@@ -848,11 +978,53 @@ def close(a, b, tol: float) -> tuple[bool, float]:
             float((a - b).abs().max()))
 
 
-def phase_serve(dev, batch: int = 4, prompt: int = 2048, gen: int = 32,
-                cpu_layers: int = 2, cpu_gen: int = 16) -> dict:
-    """The serve path at full width and depth, its prefill/forward/decode
-    contract, and card against CPU at full width and ``cpu_layers`` layers.
-    Returns the launch counts of the serve call."""
+def plain_attention():
+    """Within the block, ``ops.flash_attention`` runs B7's plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    return patched_op("flash_attention", lambda orig: lambda q, k, v, causal=True:
+                      fa.flash_attention_plain(q, k, v, causal))
+
+
+def conditioning_control(model, cfg, ids, contract, checked) -> dict:
+    """Recorded, not required: how far two correct attention orders part
+    under the reference's init and under ``checked`` (the weights the
+    checks use).  The contract on the reference's init at full depth,
+    through B7 and through its plain version alone; and the forward
+    through B7 against the forward through the plain version at depths 2,
+    8 and full.  Parting alike with or without B7, and growing with depth
+    under the reference's init only, is the init's conditioning, not a
+    fault of either path."""
+    import torch
+    from repro_torch.models import transformer
+    reference = model.init(torch.Generator().manual_seed(0))
+    (_, d1), (_, d2), _, _ = contract(reference)
+    with plain_attention():
+        (_, p1), (_, p2), _, _ = contract(reference)
+    out = {"reference_init": {
+        "prefill_vs_forward": d1, "decode_vs_forward": d2,
+        "plain_attention": {"prefill_vs_forward": p1, "decode_vs_forward": p2}},
+        "fan_in": {}}
+    for name, params in (("reference_init", reference), ("fan_in", checked)):
+        by_depth = {}
+        for depth in (2, 8, cfg.num_layers):
+            c = dataclasses.replace(cfg, num_layers=depth)
+            with torch.no_grad():
+                a, _, _ = transformer.forward(c, params, {"tokens": ids})
+                with plain_attention():
+                    b, _, _ = transformer.forward(c, params, {"tokens": ids})
+            by_depth[depth] = float((a - b).abs().max())
+            del a, b
+        out[name]["forward_b7_vs_plain_by_depth"] = by_depth
+    return out
+
+
+def phase_serve(dev, arch: str = "mamba2-130m", batch: int = 4,
+                prompt: int = 2048, gen: int = 32, cpu_layers: int = 2,
+                cpu_gen: int = 16) -> dict:
+    """The serve path of ``arch`` at full width and depth (its prefill must
+    launch its kernel once a layer), its prefill/forward/decode contract,
+    and card against CPU at full width and ``cpu_layers`` layers.  Returns
+    the launch counts of the serve call."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_arch
@@ -863,7 +1035,8 @@ def phase_serve(dev, batch: int = 4, prompt: int = 2048, gen: int = 32,
     # this path does not call: the causal conv is a sum of shifted products).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_arch("mamba2-130m")
+    cfg = get_arch(arch)
+    kernel = SERVE_KERNEL[arch]
     # A first, short call warms cuBLAS and the caching allocator at these
     # shapes; the second is the one measured and counted.
     serve(cfg.name, reduced=False, batch=batch, prompt_len=prompt,
@@ -875,9 +1048,9 @@ def phase_serve(dev, batch: int = 4, prompt: int = 2048, gen: int = 32,
                   gen_tokens=gen, seed=0, verbose=False, device=dev)
     wall = time.perf_counter() - t0
     launches = dict(backend.LAUNCHES)
-    require(launches.get("ssd_scan", 0) == cfg.num_layers,
-            f"serve launched B6 {launches.get('ssd_scan', 0)} times, not once "
-            f"per layer ({cfg.num_layers}) of the one prefill")
+    require(launches.get(kernel, 0) == cfg.num_layers,
+            f"serve launched {kernel} {launches.get(kernel, 0)} times, not "
+            f"once per layer ({cfg.num_layers}) of the one prefill")
     toks = stats["generated"]
     require(toks.shape == (batch, gen) and bool(((toks >= 0)
                                                  & (toks < cfg.vocab_size)).all()),
@@ -890,29 +1063,45 @@ def phase_serve(dev, batch: int = 4, prompt: int = 2048, gen: int = 32,
            "prefill_ms": stats["prefill_s"] * 1e3,
            "decode_ms_per_token": stats["decode_per_token_ms"],
            "decode_tok_per_s": stats["decode_tok_per_s"],
-           "ssd_scan_launches": launches.get("ssd_scan", 0),
+           "kernel": kernel, "kernel_launches": launches.get(kernel, 0),
            "launches": launches, "sample_tokens": toks[0, :8].tolist(),
            "wall_s": wall}
 
-    # Prefill matches forward (tests/test_arch_smoke.py:81), at full width.
+    # Prefill matches forward (tests/test_arch_smoke.py:81), at full width
+    # and depth.  The dense family's checks draw the same seeded weights
+    # with the attention projections at their input's fan-in: under the
+    # reference's init its 30 layers are chaotic in float32 (see
+    # attention_fan_in; conditioning_control measures it on every run).
+    def weights(m, c):
+        p = m.init(torch.Generator().manual_seed(0))
+        return attention_fan_in(p, c) if c.family == "dense" else p
+
     model = build_model(cfg, dev)
-    params = model.init(torch.Generator().manual_seed(0))
+    params = weights(model, cfg)
     ids = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (batch, prompt + 1))).to(dev)
-    with torch.no_grad():
-        full, _, _ = transformer.forward(cfg, params, {"tokens": ids})
-        lg, cache = model.prefill(params, {"tokens": ids[:, :prompt]},
-                                  max_len=prompt + 1)
-        lg2, _ = model.decode_step(params, ids[:, prompt:], cache)
-    ok1, d1 = close(lg[:, 0], full[:, prompt - 1], 2e-4)
-    ok2, d2 = close(lg2[:, 0], full[:, prompt], 3e-3)
+
+    def contract(p):
+        with torch.no_grad():
+            full, _, _ = transformer.forward(cfg, p, {"tokens": ids})
+            lg, cache = model.prefill(p, {"tokens": ids[:, :prompt]},
+                                      max_len=prompt + 1)
+            lg2, _ = model.decode_step(p, ids[:, prompt:], cache)
+        return (close(lg[:, 0], full[:, prompt - 1], 2e-4),
+                close(lg2[:, 0], full[:, prompt], 3e-3), full, cache)
+
+    (ok1, d1), (ok2, d2), full, cache = contract(params)
     row["prefill_vs_forward"] = {"max_abs_diff": d1, "tol": 2e-4}
     row["decode_vs_forward"] = {"max_abs_diff": d2, "tol": 3e-3}
     require(ok1, f"prefill logits differ from the forward's by {d1} > 2e-4")
     require(ok2, f"decode logits differ from the forward's by {d2} > 3e-3")
+    if cfg.family == "dense":
+        row["weights_for_checks"] = "init_params, attention at input fan-in"
+        row["conditioning_control"] = conditioning_control(
+            model, cfg, ids, contract, params)
 
     # Where the time goes: one prefill and one decode step under the
-    # profiler, and B6's share of a prefill by CUDA events.
+    # profiler, and the kernel's share of a prefill by CUDA events.
     with torch.no_grad():
         def prefill():
             return model.prefill(params, {"tokens": ids[:, :prompt]})
@@ -921,15 +1110,17 @@ def phase_serve(dev, batch: int = 4, prompt: int = 2048, gen: int = 32,
             return model.decode_step(params, ids[:, prompt:], cache)
 
         row["prefill_breakdown"] = device_breakdown(dev, prefill)
-        row["prefill_breakdown"]["b6_ms_by_cuda_events"] = b6_share(dev, prefill)
+        row["prefill_breakdown"]["kernel_ms_by_cuda_events"] = kernel_share(
+            dev, prefill, kernel)
         row["decode_breakdown"] = device_breakdown(dev, step)
-    del full, lg, lg2, cache, params
+    del full, cache, params
 
-    # Card (B6) against CPU (the plain scan), full width, cut depth.
+    # Card (the kernel) against CPU (its plain version), full width, cut
+    # depth: the prefill logits and every cache tensor.
     small = dataclasses.replace(cfg, num_layers=cpu_layers)
     cpu = torch.device("cpu")
     host = build_model(small, cpu)
-    p_cpu = host.init(torch.Generator().manual_seed(0))
+    p_cpu = weights(host, small)
 
     def to_dev(tree):
         if isinstance(tree, torch.Tensor):
@@ -944,7 +1135,7 @@ def phase_serve(dev, batch: int = 4, prompt: int = 2048, gen: int = 32,
     for name, m, p, d in (("card", card, p_dev, dev), ("cpu", host, p_cpu, cpu)):
         t = time.perf_counter()
         lg, c = m.prefill(p, {"tokens": ids.to(d)})
-        first = (lg.cpu(), c["ssm_state"].cpu())
+        first = (lg.cpu(), {k: t.cpu() for k, t in c.items() if k != "len"})
         tok, seq = lg[:, -1:].argmax(-1), []
         for _ in range(cpu_gen):
             seq.append(tok.cpu())
@@ -953,18 +1144,21 @@ def phase_serve(dev, batch: int = 4, prompt: int = 2048, gen: int = 32,
         runs[name] = (first, torch.cat(seq, 1), lg.cpu(),
                       time.perf_counter() - t)
     ok_l, d_l = close(runs["card"][0][0], runs["cpu"][0][0], 1e-4)
-    ok_s, d_s = close(runs["card"][0][1], runs["cpu"][0][1], 1e-4)
+    cache_diff = {k: close(t, runs["cpu"][0][1][k], 1e-4)
+                  for k, t in runs["card"][0][1].items()}
     same = torch.equal(runs["card"][1], runs["cpu"][1])
     row["card_vs_cpu"] = {
         "layers": cpu_layers, "prompt": prompt, "gen_tokens": cpu_gen,
-        "prefill_logits_max_abs_diff": d_l, "state_max_abs_diff": d_s,
+        "prefill_logits_max_abs_diff": d_l,
+        "cache_max_abs_diff": {k: d for k, (_, d) in cache_diff.items()},
         "tol": 1e-4, "last_decode_logits_max_abs_diff": float(
             (runs["card"][2] - runs["cpu"][2]).abs().max()),
         "same_greedy_tokens": same,
         "card_s": runs["card"][3], "cpu_s": runs["cpu"][3]}
     emit(row)
     require(ok_l, f"card vs CPU prefill logits differ by {d_l} > 1e-4")
-    require(ok_s, f"card vs CPU SSM state differs by {d_s} > 1e-4")
+    for k, (ok, d) in cache_diff.items():
+        require(ok, f"card vs CPU cache {k} differs by {d} > 1e-4")
     require(same, "card and CPU greedy tokens differ")
     return launches
 
@@ -985,6 +1179,8 @@ KERNELS = {
                     "src/repro/kernels/threshold_select.py:273"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:72"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:63"),
 }
 
 
@@ -1024,7 +1220,8 @@ def main() -> int:
     launches = collections.Counter(phase_train(dev))
     launches.update(phase_table2(dev))
     phase_card_vs_cpu(dev)
-    launches.update(phase_serve(dev))
+    launches.update(phase_serve(dev, "mamba2-130m"))
+    launches.update(phase_serve(dev, "smollm-135m"))
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -1034,7 +1231,7 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": None,
+                     "library_ms": r.get("library_ms"),
                      "shape": r.get("shape") or [r["n"]]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})

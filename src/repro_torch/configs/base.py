@@ -53,6 +53,13 @@ class ArchConfig:
     source: str = ""
     optimizer: str = "adamw"
 
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim is not None:
+            return self.head_dim
+        assert self.num_heads > 0
+        return self.d_model // self.num_heads
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""
         heads = 0 if self.num_heads == 0 else 4

@@ -114,10 +114,11 @@ def build() -> Path:
     return out
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _I64P = ctypes.POINTER(ctypes.c_longlong)
 #: C signatures: every device pointer and the stream are c_void_p, sizes and
-#: the device index c_int, an array of element strides a pointer to int64.
+#: the device index c_int, a scale c_float, an array of element strides a
+#: pointer to int64.
 #: Each entry sets the device, launches on the stream and returns
 #: cudaGetLastError().
 _SIGNATURES = {
@@ -130,6 +131,8 @@ _SIGNATURES = {
     # Not a launch: the number of tiles (scratch size) of the mask pass.
     "rs_select_mask_tiles": [_I],
     "ssd_scan_f32": [_P] * 8 + [_I] * 6 + [_I64P, _I, _P],
+    "flash_attention_f32": [_P] * 4 + [_I] * 6 + [_F, _I64P, _I, _P],
+    "flash_attention_bf16": [_P] * 4 + [_I] * 6 + [_F, _I64P, _I, _P],
 }
 
 

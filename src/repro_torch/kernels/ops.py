@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import loss_confidence as _lc
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import threshold_select as _ts
@@ -57,6 +58,17 @@ def ssd_scan(x, dt, a_log, b, c, d_skip, chunk: int = 128):
     Returns y in x's dtype and the final state in float32.
     """
     return _ssd.ssd_scan(x, dt, a_log, b, c, d_skip, chunk)
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """q: (B,S,Hq,D); k,v: (B,S,Hkv,D). Returns (B,S,Hq,D) in q's dtype.
+
+    Kernel B7 on CUDA tensors, which reads q, k and v in place through
+    their strides (no transposes to a (B.H, S, D) layout) and masks a
+    ragged S instead of asserting a block multiple; its plain version, the
+    twin of ``ref.flash_attention_ref``, on CPU ones.
+    """
+    return _fa.flash_attention(q, k, v, causal)
 
 
 class _FusedLossMetrics(torch.autograd.Function):

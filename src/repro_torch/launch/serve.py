@@ -4,11 +4,14 @@ Port of ``repro/launch/serve.py`` for the architectures the port runs
 (``repro_torch.configs.registry``; ``--full`` for the published widths,
 else the reduced config).  Reports prefill latency and per-token decode
 latency and throughput; on the card each time is taken between two
-``torch.cuda.synchronize()``.  Prefill runs the SSD scan through kernel
-B6 on the card; decode is the recurrent update in plain PyTorch.
+``torch.cuda.synchronize()``.  On the card, prefill runs attention through
+kernel B7 (smollm-135m, the default) or the SSD scan through kernel B6
+(mamba2-130m); decode is plain PyTorch (attention against the KV cache, or
+the recurrent update).
 
+    python -m repro_torch.launch.serve --full
+    python -m repro_torch.launch.serve --device cpu
     python -m repro_torch.launch.serve --arch mamba2-130m --full
-    python -m repro_torch.launch.serve --arch mamba2-130m --device cpu
 """
 from __future__ import annotations
 
@@ -83,7 +86,7 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
 
 def main(argv: list[str] | None = None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--arch", default="mamba2-130m")
+    p.add_argument("--arch", default="smollm-135m")
     p.add_argument("--full", action="store_true",
                    help="the published widths and depth (else reduced)")
     p.add_argument("--batch", type=int, default=4)

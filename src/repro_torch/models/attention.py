@@ -1,0 +1,147 @@
+"""GQA attention: prefill (full sequence) and decode paths.
+
+Port of ``repro/models/attention.py`` for one device.  Layouts, as the
+reference's:
+  x       (B, S, d_model)
+  q       (B, S, Hq, Dh)
+  k, v    (B, S, Hkv, Dh)
+  cache   (B, S_max, Hkv, Dh)
+
+``attend`` computes what the reference's chunked-q jnp form computes.  On
+CUDA tensors with no sliding window in effect it goes through
+``kernels/ops.flash_attention`` (kernel B7), on the CPU through the plain
+chunked form; a window is applied in plain PyTorch on every device, as it
+is plain jnp in the reference (B7 has no window).  ``decode_attend`` is
+plain PyTorch, as the reference's is plain jnp.  ``update_cache`` writes in
+place.  ``cross_attend`` (encdec) and ``decode_attend_sp`` (sequence-
+parallel, mesh) are not ported yet (ROADMAP A.13).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.common import ParamDef, rms_norm, rope
+
+NEG_INF = -1e30
+
+
+def attn_param_defs(d_model: int, n_q: int, n_kv: int, dh: int,
+                    qk_norm: bool) -> dict:
+    defs = {
+        "wq": ParamDef((d_model, n_q, dh)),
+        "wk": ParamDef((d_model, n_kv, dh)),
+        "wv": ParamDef((d_model, n_kv, dh)),
+        "wo": ParamDef((n_q, dh, d_model)),
+    }
+    if qk_norm:
+        defs["q_norm"] = ParamDef((dh,), init="ones")
+        defs["k_norm"] = ParamDef((dh,), init="ones")
+    return defs
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk")`` as one matrix product."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def project_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                theta: float, qk_norm: bool, norm_eps: float):
+    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+    if qk_norm:
+        q = rms_norm(q, p["q_norm"], norm_eps)
+        k = rms_norm(k, p["k_norm"], norm_eps)
+    return rope(q, positions, theta), rope(k, positions, theta), v
+
+
+def out_proj(a: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd")`` as one matrix product."""
+    h, k, d = wo.shape
+    return a.reshape(*a.shape[:-2], h * k) @ wo.to(a.dtype).reshape(h * k, d)
+
+
+def _grouped_scores(q5: torch.Tensor, k: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    # q5: (B, Q, Hkv, G, Dh), k: (B, K, Hkv, Dh) -> (B, Hkv, G, Q, K) f32
+    return torch.einsum("bqhgd,bkhd->bhgqk", q5.float(), k.float()) * scale
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool = True, window: int | None = None,
+           is_global: bool = True, q_chunk: int = 512) -> torch.Tensor:
+    """Full-sequence attention.
+
+    ``window``: sliding-window size, applied unless ``is_global``.  Without
+    a window in effect, CUDA tensors go through kernel B7
+    (``ops.flash_attention``).  Otherwise, and on the CPU, the reference's
+    form: queries in chunks of ``q_chunk`` when S is a multiple of it
+    (so the CPU never holds an S x S score tensor at S = 2,048), each
+    chunk's masked scores through a float32 softmax.
+    """
+    use_window = window is not None and not bool(is_global)
+    if q.device.type == "cuda" and not use_window:
+        return kops.flash_attention(q, k, v, causal)
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    scale = dh ** -0.5
+    q5 = q.reshape(b, s, hkv, hq // hkv, dh)
+    kpos = torch.arange(s, device=q.device)
+
+    def block(qc: torch.Tensor, q0: int) -> torch.Tensor:
+        cq = qc.shape[1]
+        scores = _grouped_scores(qc, k, scale)      # (B,Hkv,G,Cq,S) f32
+        qpos = q0 + torch.arange(cq, device=q.device)
+        mask = torch.ones(cq, s, dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if use_window:
+            mask &= qpos[:, None] - kpos[None, :] < window
+        scores = scores.masked_fill(~mask, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        return torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+
+    if s > q_chunk and s % q_chunk == 0:
+        out = torch.cat([block(q5[:, i:i + q_chunk], i)
+                         for i in range(0, s, q_chunk)], dim=1)
+    else:
+        out = block(q5, 0)
+    return out.reshape(b, s, hq, dh)
+
+
+# ---------------------------------------------------------------------------
+# Decode path
+# ---------------------------------------------------------------------------
+
+
+def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, cache_len: int, *,
+                  window: int | None = None,
+                  is_global: bool = True) -> torch.Tensor:
+    """One-token attention against a (B, S_max, Hkv, Dh) cache whose first
+    ``cache_len`` positions are valid."""
+    k_cache = k_cache.to(q.dtype)
+    v_cache = v_cache.to(q.dtype)
+    b, _, hq, dh = q.shape
+    hkv, s = k_cache.shape[2], k_cache.shape[1]
+    q5 = q.reshape(b, 1, hkv, hq // hkv, dh)
+    scores = _grouped_scores(q5, k_cache, dh ** -0.5)   # (B,Hkv,G,1,S)
+    kpos = torch.arange(s, device=q.device)
+    mask = kpos < cache_len
+    if window is not None and not bool(is_global):
+        mask &= cache_len - 1 - kpos < window
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs,
+                        v_cache).reshape(b, 1, hq, dh)
+
+
+def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 k_new: torch.Tensor, v_new: torch.Tensor, idx: int):
+    """Write the new positions at ``idx`` along axis 1, in place and in the
+    caches' dtype (the reference returns new arrays; here the caches given
+    are the ones written, and are returned)."""
+    n = k_new.shape[1]
+    k_cache[:, idx:idx + n] = k_new
+    v_cache[:, idx:idx + n] = v_new
+    return k_cache, v_cache

@@ -1,4 +1,5 @@
-"""Shared model building blocks: parameter definitions, inits, RMSNorm.
+"""Shared model building blocks: parameter definitions, inits, RMSNorm,
+rotary embedding and the gated MLP.
 
 Port of ``repro/models/common.py``.  Parameters are described by
 ``ParamDef`` trees (nested dicts) so that one structure gives the shapes
@@ -15,6 +16,9 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.backend import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,11 +43,12 @@ def stack_defs(defs: Any, num_layers: int) -> Any:
 
 def init_params(defs: Any, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
-                device: torch.device | str = "cpu") -> Any:
+                device: torch.device | str | None = None) -> Any:
     """Initialised tensors for ``defs``: zeros, ones, ``a_log`` = log U[1, 16]
     (Mamba's A), ``embed`` = normal times its scale, and ``normal`` at
     fan-in scale (``shape[-2]`` for matrices) unless a scale is given.
-    Drawn on the generator's device, then moved to ``device``."""
+    Drawn on the generator's device, then moved to ``device`` (None: CUDA)."""
+    device = resolve_device(device)
     gdev = generator.device
 
     def one(d: ParamDef) -> torch.Tensor:
@@ -72,3 +77,26 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(dt) * w.to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, the reference's float32 order: frequencies
+    ``1 / theta ** (arange(half) / half)``, the angle, cos and sin, then the
+    two rotated halves concatenated.  x: (..., S, H, D); positions (..., S)."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    ang = positions[..., :, None].float() * freqs           # (..., S, half)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+              w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: ``(silu(x W_gate) * x W_up) W_down``."""
+    dt = x.dtype
+    g = F.silu(x @ w_gate.to(dt))
+    return (g * (x @ w_up.to(dt))) @ w_down.to(dt)

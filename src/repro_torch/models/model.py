@@ -2,8 +2,8 @@
 
 Port of ``repro/models/model.py``: parameter construction, prefill/decode
 and caches for the server (the full forward is ``transformer.forward``;
-the LM trainer's loss comes with LM training, ROADMAP A.13).  Only the SSM
-family is ported; building a model of another family raises
+the LM trainer's loss comes with LM training, ROADMAP A.13).  The dense
+and SSM families are ported; building a model of another family raises
 ``NotImplementedError`` (ROADMAP A.13).  A ``Model`` lives on one device:
 ``device=None`` means CUDA and raises without a CUDA device.
 """

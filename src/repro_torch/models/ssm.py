@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.ssd_scan import ssd_scan_plain as ssd_scan_ref  # noqa: F401
 from repro_torch.models.common import ParamDef, rms_norm
 
@@ -85,7 +86,9 @@ def ssm_forward(p: dict, x: torch.Tensor, ssm, d_inner: int,
 
 
 def ssm_init_cache(batch: int, ssm, d_inner: int, dtype=torch.float32,
-                   device: torch.device | str = "cpu") -> dict:
+                   device: torch.device | str | None = None) -> dict:
+    """A zero decode cache on ``device`` (None: CUDA)."""
+    device = resolve_device(device)
     n, nh, hd = ssm.state_dim, d_inner // ssm.head_dim, ssm.head_dim
     return {
         "state": torch.zeros(batch, nh, n, hd, dtype=torch.float32,

@@ -1,12 +1,14 @@
-"""Decoder-only LM: the SSM family (mamba2) of ``repro/models/transformer.py``.
+"""Decoder-only LM: the dense (llama-style GQA) and SSM (mamba2) families of
+``repro/models/transformer.py``.
 
-The parameter tree is the reference's: ``embed`` (V, d), ``out_norm`` and
-``layers``, every layer leaf stacked along a leading (L, ...) axis.  The
-reference's ``lax.scan`` over layers is a Python loop over that axis here.
-Only ``cfg.family == "ssm"`` is ported; ``param_defs`` (and so ``Model``)
-raises ``NotImplementedError`` for the attention, MoE, hybrid, encdec and
-VLM families (ROADMAP A.13).  There is
-no ``ParallelCtx``: the port runs on one device.
+The parameter tree is the reference's: ``embed`` (V, d), ``out_norm``,
+``lm_head`` unless tied, and ``layers``, every layer leaf stacked along a
+leading (L, ...) axis.  The reference's ``lax.scan`` over layers is a Python
+loop over that axis here.  Only ``cfg.family`` "dense" and "ssm" are
+ported; ``param_defs`` (and so ``Model``) raises ``NotImplementedError`` for
+the MoE, hybrid, encdec and VLM families (ROADMAP A.13), and the ring
+(sliding-window) cache waits for the hybrid family.  There is no
+``ParallelCtx``: the port runs on one device.
 """
 from __future__ import annotations
 
@@ -17,30 +19,50 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import ParamDef, rms_norm, stack_defs
+from repro_torch.models.common import ParamDef, gated_mlp, rms_norm, stack_defs
+
+PORTED_FAMILIES = ("dense", "ssm")
 
 
 def check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "ssm":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP "
-            "A.13); the port runs the 'ssm' family")
+            f"A.13); the port runs the families {PORTED_FAMILIES}")
 
 
 def _d_inner(cfg: ArchConfig) -> int:
     return cfg.ssm.d_inner or cfg.ssm.expand * cfg.d_model
 
 
+def _mlp_defs(d: int, ff: int) -> dict:
+    return {"w_gate": ParamDef((d, ff)), "w_up": ParamDef((d, ff)),
+            "w_down": ParamDef((ff, d))}
+
+
+def _block_defs(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    defs: dict[str, Any] = {"ln1": ParamDef((d,), init="ones")}
+    if cfg.family == "dense":
+        defs["attn"] = attn.attn_param_defs(
+            d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+            cfg.qk_norm)
+        defs["ln2"] = ParamDef((d,), init="ones")
+        defs["mlp"] = _mlp_defs(d, cfg.d_ff)
+    else:
+        defs["ssm"] = ssm_mod.ssm_param_defs(d, cfg.ssm, _d_inner(cfg))
+    return defs
+
+
 def param_defs(cfg: ArchConfig) -> dict:
     check_family(cfg)
     d, v = cfg.d_model, cfg.vocab_size
-    block = {"ln1": ParamDef((d,), init="ones"),
-             "ssm": ssm_mod.ssm_param_defs(d, cfg.ssm, _d_inner(cfg))}
     defs: dict[str, Any] = {
         "embed": ParamDef((v, d), init="embed", scale=0.02),
         "out_norm": ParamDef((d,), init="ones"),
-        "layers": stack_defs(block, cfg.num_layers),
+        "layers": stack_defs(_block_defs(cfg), cfg.num_layers),
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, v))
@@ -81,10 +103,43 @@ def embed_inputs(cfg: ArchConfig, params: dict,
     return x, mask
 
 
-def _block(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def _mlp_residual(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + gated_mlp(h2, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                         p["mlp"]["w_down"])
+
+
+def _dense_block(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor, is_global: bool):
+    """One dense layer: attention, then the gated MLP, each with its
+    residual.  Returns (x, k, v); prefill writes k and v into the cache."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    return x + ssm_mod.ssm_forward(p["ssm"], h, cfg.ssm, _d_inner(cfg),
-                                   cfg.norm_eps)
+    q, k, v = attn.project_qkv(p["attn"], h, positions, cfg.rope_theta,
+                               cfg.qk_norm, cfg.norm_eps)
+    a = attn.attend(q, k, v, causal=True, window=cfg.attn_window,
+                    is_global=is_global)
+    x = x + attn.out_proj(a, p["attn"]["wo"])
+    return _mlp_residual(cfg, p, x), k, v
+
+
+def _block(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+           is_global: bool) -> torch.Tensor:
+    """One layer of the full forward."""
+    if cfg.family == "ssm":
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        return x + ssm_mod.ssm_forward(p["ssm"], h, cfg.ssm, _d_inner(cfg),
+                                       cfg.norm_eps)
+    return _dense_block(cfg, p, x, positions, is_global)[0]
+
+
+def global_layer_flags(cfg: ArchConfig) -> list[bool]:
+    """Per layer: True = full/global attention, False = sliding window.
+    Without a window every layer is global; with one, the first, middle and
+    last layers are (hymba)."""
+    L = cfg.num_layers
+    if cfg.attn_window is None:
+        return [True] * L
+    return [i in (0, L // 2, L - 1) for i in range(L)]
 
 
 def logits_fn(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -95,8 +150,9 @@ def logits_fn(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 def forward(cfg: ArchConfig, params: dict, batch: dict):
     """Full forward. Returns (logits, loss_mask, moe_aux = 0)."""
     x, mask = embed_inputs(cfg, params, batch)
-    for i in range(cfg.num_layers):
-        x = _block(cfg, _index(params["layers"], i), x)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for i, flag in enumerate(global_layer_flags(cfg)):
+        x = _block(cfg, _index(params["layers"], i), x, positions, flag)
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
     return logits_fn(cfg, params, x), mask, torch.zeros((), device=x.device)
 
@@ -108,55 +164,98 @@ def forward(cfg: ArchConfig, params: dict, batch: dict):
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str = "cpu") -> dict:
-    """Stacked (L, ...) caches: the SSM state (f32) and the conv buffer.
-    ``max_len`` sizes attention caches only; the SSM family has none."""
-    di, L = _d_inner(cfg), cfg.num_layers
-    one = ssm_mod.ssm_init_cache(batch, cfg.ssm, di, dtype, device)
-    return {"len": 0,
-            "ssm_state": one["state"].expand(L, *one["state"].shape).clone(),
-            "conv_buf": one["conv_buf"].expand(L, *one["conv_buf"].shape).clone()}
+               device: torch.device | str | None = None) -> dict:
+    """Stacked (L, ...) zero caches on ``device`` (None: CUDA): k and v of
+    (L, B, max_len, Hkv, Dh) for attention, the SSM state (f32) and the
+    conv buffer for the SSM family."""
+    dev = resolve_device(device)
+    L = cfg.num_layers
+    cache: dict[str, Any] = {"len": 0}
+    if cfg.family == "dense":
+        shape = (L, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    else:
+        one = ssm_mod.ssm_init_cache(batch, cfg.ssm, _d_inner(cfg), dtype, dev)
+        cache["ssm_state"] = one["state"].expand(L, *one["state"].shape).clone()
+        cache["conv_buf"] = one["conv_buf"].expand(
+            L, *one["conv_buf"].shape).clone()
+    return cache
+
+
+def _decode_block(cfg: ArchConfig, p: dict, x: torch.Tensor, layer_cache: dict,
+                  cache_len: int, is_global: bool) -> tuple[torch.Tensor, dict]:
+    """One layer of one decode step.  Writes k and v into ``layer_cache``'s
+    (views of the stacked cache) in place; returns (x, the SSM family's new
+    state and conv buffer, or nothing)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cfg.family == "ssm":
+        y, sc = ssm_mod.ssm_decode_step(
+            p["ssm"], h, {"state": layer_cache["ssm_state"],
+                          "conv_buf": layer_cache["conv_buf"]},
+            cfg.ssm, _d_inner(cfg), cfg.norm_eps)
+        return x + y, {"ssm_state": sc["state"], "conv_buf": sc["conv_buf"]}
+    positions = torch.full((x.shape[0], 1), cache_len, device=x.device)
+    q, k, v = attn.project_qkv(p["attn"], h, positions, cfg.rope_theta,
+                               cfg.qk_norm, cfg.norm_eps)
+    kc, vc = attn.update_cache(layer_cache["k"], layer_cache["v"], k, v,
+                               cache_len)
+    a = attn.decode_attend(q, kc, vc, cache_len + 1, window=cfg.attn_window,
+                           is_global=is_global)
+    x = x + attn.out_proj(a, p["attn"]["wo"])
+    return _mlp_residual(cfg, p, x), {}
 
 
 def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor,
                 cache: dict) -> tuple[torch.Tensor, dict]:
-    """One decode step. token: (B, 1). Returns (logits (B,1,V), new cache)."""
+    """One decode step. token: (B, 1). Returns (logits (B,1,V), new cache).
+
+    The attention cache's k and v are written in place (the new cache
+    holds the same tensors); the SSM family's state and conv buffer are
+    new tensors, the old cache's are not modified."""
     x = params["embed"][token.long()]
-    states, bufs = [], []
-    for i in range(cfg.num_layers):
-        p = _index(params["layers"], i)
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        y, sc = ssm_mod.ssm_decode_step(
-            p["ssm"], h, {"state": cache["ssm_state"][i],
-                          "conv_buf": cache["conv_buf"][i]},
-            cfg.ssm, _d_inner(cfg), cfg.norm_eps)
-        x = x + y
-        states.append(sc["state"])
-        bufs.append(sc["conv_buf"])
+    n = cache["len"]
+    layer_caches = {k: v for k, v in cache.items() if k != "len"}
+    emitted: dict[str, list] = {}
+    for i, flag in enumerate(global_layer_flags(cfg)):
+        x, new = _decode_block(cfg, _index(params["layers"], i), x,
+                               _index(layer_caches, i), n, flag)
+        for k, t in new.items():
+            emitted.setdefault(k, []).append(t)
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
-    new_cache = {"len": cache["len"] + 1, "ssm_state": torch.stack(states),
-                 "conv_buf": torch.stack(bufs).to(cache["conv_buf"].dtype)}
+    new_cache = dict(cache, len=n + 1)
+    for k, ts in emitted.items():
+        new_cache[k] = torch.stack(ts).to(cache[k].dtype)
     return logits_fn(cfg, params, x), new_cache
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict,
             max_len: int | None = None) -> tuple[torch.Tensor, dict]:
-    """Prefill: run the full prompt, return last-position logits + cache."""
+    """Prefill: run the full prompt, return last-position logits + cache.
+    The cache holds x's dtype, as the reference's."""
     x, _ = embed_inputs(cfg, params, batch)
     b, s = x.shape[0], x.shape[1]
     cache = init_cache(cfg, b, max(max_len or s, s), dtype=x.dtype,
                        device=x.device)
+    positions = torch.arange(s, device=x.device)[None, :]
     states, bufs = [], []
-    for i in range(cfg.num_layers):
+    for i, flag in enumerate(global_layer_flags(cfg)):
         p = _index(params["layers"], i)
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        y, st, cb = ssm_mod.ssm_forward(p["ssm"], h, cfg.ssm, _d_inner(cfg),
-                                        cfg.norm_eps, return_state=True)
-        x = x + y
-        states.append(st)
-        bufs.append(cb)
-    cache["ssm_state"] = torch.stack(states)
-    cache["conv_buf"] = torch.stack(bufs).to(cache["conv_buf"].dtype)
+        if cfg.family == "ssm":
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            y, st, cb = ssm_mod.ssm_forward(p["ssm"], h, cfg.ssm,
+                                            _d_inner(cfg), cfg.norm_eps,
+                                            return_state=True)
+            x = x + y
+            states.append(st)
+            bufs.append(cb)
+        else:
+            x, k, v = _dense_block(cfg, p, x, positions, flag)
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
+    if states:
+        cache["ssm_state"] = torch.stack(states)
+        cache["conv_buf"] = torch.stack(bufs).to(cache["conv_buf"].dtype)
     cache["len"] = s
     logits = logits_fn(cfg, params,
                        rms_norm(x[:, -1:], params["out_norm"], cfg.norm_eps))

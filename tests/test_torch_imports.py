@@ -28,6 +28,8 @@ from repro_torch.kernels import backend
 from repro_torch.launch.serve import serve
 from repro_torch.models import build_model, transformer
 from repro_torch.models.cnn import CNN, CNNConfig
+from repro_torch.models.common import init_params
+from repro_torch.models.ssm import ssm_init_cache
 from repro_torch.train import TrainConfig, Trainer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -93,6 +95,15 @@ def test_default_device_is_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         serve("mamba2-130m", verbose=False)
     with pytest.raises(RuntimeError, match="CUDA"):
+        serve("smollm-135m", verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(transformer.param_defs(cfg), torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ssm_init_cache(2, cfg.ssm, 64)
+    for arch in ("mamba2-130m", "smollm-135m"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            transformer.init_cache(get_arch(arch).reduced(), 2, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
         transformer.params_from_jax({"embed": [[0.0]]})
     with pytest.raises(RuntimeError, match="CUDA"):
         backend.resolve_device(None)
@@ -115,7 +126,7 @@ def test_library_path_names_the_sources():
     assert path.name.startswith("libkernels_") and path.suffix == ".so"
     assert {p.name for p in backend.CSRC.glob("*.cu")} == {
         "loss_confidence.cu", "threshold_select.cu", "rank_select.cu",
-        "ssd_scan.cu"}
+        "ssd_scan.cu", "flash_attention.cu"}
 
 
 def test_registry_is_the_ports_own():

@@ -179,7 +179,7 @@ def test_ssm_block_matches_jax(s, rng):
 def test_ssm_init_cache_matches_jax():
     cfg = get_arch("mamba2-130m").reduced()
     jcfg = jget_arch("mamba2-130m").reduced()
-    c = ssm.ssm_init_cache(3, cfg.ssm, 128)
+    c = ssm.ssm_init_cache(3, cfg.ssm, 128, device="cpu")
     jc = jssm.ssm_init_cache(3, jcfg.ssm, 128)
     for k in ("state", "conv_buf"):
         assert tuple(c[k].shape) == jc[k].shape and not c[k].any()
@@ -191,7 +191,8 @@ def test_param_shapes_and_init_kinds():
     jshapes = jax.tree.map(lambda a: a.shape,
                            jbuild_model(jcfg).abstract_params())
     params = common.init_params(transformer.param_defs(cfg),
-                                torch.Generator().manual_seed(0))
+                                torch.Generator().manual_seed(0),
+                                device="cpu")
     tshapes = jax.tree.map(lambda t: tuple(t.shape), params)
     assert tshapes == jshapes
     p = params["layers"]["ssm"]
@@ -204,5 +205,6 @@ def test_param_shapes_and_init_kinds():
     assert abs(float(p["w_in"].std()) - cfg.d_model ** -0.5) < 0.01
     # a generator seeded alike draws the same parameters
     again = common.init_params(transformer.param_defs(cfg),
-                               torch.Generator().manual_seed(0))
+                               torch.Generator().manual_seed(0),
+                               device="cpu")
     assert torch.equal(again["layers"]["ssm"]["w_out"], p["w_out"])
