@@ -14,11 +14,18 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    counts with +inf, signed zeros, +/-inf and all-equal inputs, for
    k in {0, 1, N/3, N} both ways; the whole rank-select at N = 1,281,167
    beside ``torch.kthvalue`` and a stable ``torch.sort`` as yardsticks;
-   the SSD scan (B6) at mamba2-130m's serve shapes; flash attention (B7)
+   the SSD scan (B6) at mamba2-130m's serve shapes and at two smaller
+   shapes whose MMA tiles have edges to mask; flash attention (B7)
    at smollm-135m's prefill shape (B, S, Hq, Hkv, D) = (4, 2048, 9, 3,
    64), causal and not, float32 (allclose 1e-5) and bfloat16 (2e-2), at a
    ragged S = 1,000 and at head dims 128, 32 and 16, beside
-   ``F.scaled_dot_product_attention`` as a yardstick;
+   ``F.scaled_dot_product_attention`` under its math, efficient and cuDNN
+   backends as a yardstick.  Every row holds its call time (CUDA events)
+   and its device-only time (``torch.profiler``), and its bound at the
+   rate of the unit the kernel uses: fp32 on the CUDA cores for B1-B5,
+   3xTF32 on the tensor cores for B6 and B7 (which also get the fp32
+   bound).  The float32 rows of B6 and B7 also give the kernel's and the
+   plain version's error against a float64 reference;
 4. plan: ``_plan_step`` at N = 1,281,167 (ImageNet-1K's train size) with
    ``"histogram_pallas"`` (the kernels) against ``"histogram"`` (plain),
    and with ``"sort"`` + DropTop 0.02 and FORGET's ``_prune_step`` (the
@@ -70,9 +77,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: H100 SXM data-sheet peaks (dense): HBM bytes/s, fp32 outside the tensor cores.
+#: H100 SXM data-sheet peaks (dense): HBM bytes/s, fp32 outside the tensor
+#: cores, and float32 products on the tensor cores in 3xTF32 (three TF32
+#: products at the 495 TFLOP/s TF32 rate), the unit B6 and B7 use.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32X3_OPS_PER_S = 495e12 / 3
 
 
 def emit(obj) -> None:
@@ -84,9 +94,12 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time (ms) for the work: bytes at HBM rate vs ops at fp32 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound(nbytes: float, ops: float,
+          rate: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    """Least time (ms) for the work: bytes at HBM rate vs ops at the peak
+    ``rate`` of the unit that does them (fp32 on the CUDA cores unless
+    given)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -105,6 +118,23 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device-only time of ``fn``: the summed durations of the device
+    activities (kernels, copies, fills) that ``reps`` calls run under
+    ``torch.profiler``, over ``reps``.  Beside ``time_ms``, which also
+    holds the host's cost of each call where the device waits for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +161,8 @@ def check_loss_confidence(dev, t: int, v: int, dtype, tol: float, reps: int,
     return {"shape": [t, v], "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "tol": tol,
             "ms": time_ms(lambda: lc.loss_confidence(logits, labels), reps),
+            "device_ms": device_ms(lambda: lc.loss_confidence(logits, labels),
+                                   min(reps, 20)),
             "plain_ms": time_ms(lambda: lc.loss_confidence_plain(logits, labels),
                                 reps),
             "bound_ms": b_ms, "bound_by": b_by}
@@ -179,6 +211,7 @@ def check_threshold(dev, n: int, invalid: float, kind: str, reps: int,
         b_ms, b_by = bound(nbytes, ops)
         out.append({"name": name, "n": n, "invalid": invalid, "kind": kind,
                     "max_abs_err": float(err), "ms": time_ms(fn, reps),
+                    "device_ms": device_ms(fn, min(reps, 20)),
                     "plain_ms": time_ms(plain, reps), "bound_ms": b_ms,
                     "bound_by": b_by})
     return out[0], out[1]
@@ -268,12 +301,16 @@ def time_radix(dev, n: int, reps: int) -> dict:
         "byte_histogram": {
             "n": n, "max_abs_err": float((h - hp).abs().max()),
             "ms": time_ms(lambda: ts.byte_histogram(keys, prefix, 24), reps),
+            "device_ms": device_ms(lambda: ts.byte_histogram(keys, prefix, 24),
+                                   min(reps, 20)),
             "plain_ms": time_ms(lambda: ts.byte_histogram_plain(keys, prefix, 24),
                                 reps),
             "bound_ms": b4_ms, "bound_by": b4_by},
         "select_mask": {
             "n": n, "max_abs_err": float((m.int() - mp.int()).abs().max()),
             "ms": time_ms(lambda: ts.select_mask(keys, thresh, lo, total), reps),
+            "device_ms": device_ms(lambda: ts.select_mask(keys, thresh, lo, total),
+                                   min(reps, 20)),
             "plain_ms": time_ms(lambda: ts.select_mask_plain(keys, thresh, lo,
                                                              total), reps),
             "bound_ms": b5_ms, "bound_by": b5_by}}
@@ -321,14 +358,16 @@ SSD_SHAPE = dict(nh=24, p=64, n=128, chunk=128)
 SSD_TOL = 1e-4
 
 
-def ssd_inputs(dev, b: int, s: int, kind: str, seed: int = 0):
-    """x, raw dt, a_log, b, c, d_skip at the serve shape.  ``model``: dt and
-    a_log as the model draws them at init (fast decay: the carried state
-    matters for a few rows of a chunk); ``slow``: dt ~ softplus(N(-5, 1)),
-    a in [-e, -1], so the state carries across chunks."""
+def ssd_inputs(dev, b: int, s: int, kind: str, seed: int = 0,
+               shape: dict = SSD_SHAPE):
+    """x, raw dt, a_log, b, c, d_skip at ``shape`` (the serve shape by
+    default).  ``model``: dt and a_log as the model draws them at init
+    (fast decay: the carried state matters for a few rows of a chunk);
+    ``slow``: dt ~ softplus(N(-5, 1)), a in [-e, -1], so the state carries
+    across chunks."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
-    nh, p, n = SSD_SHAPE["nh"], SSD_SHAPE["p"], SSD_SHAPE["n"]
+    nh, p, n = shape["nh"], shape["p"], shape["n"]
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev)
@@ -349,44 +388,100 @@ def ssd_inputs(dev, b: int, s: int, kind: str, seed: int = 0):
     return x, dt, a_log, bm, cm, randn(nh)
 
 
-def check_ssd_scan(dev, b: int, s: int, kind: str, reps: int) -> dict:
+def ssd_scan_f64(x, dt, a_log, b, c, d_skip, chunk: int):
+    """``ssd_scan_plain``'s chunked form with its products in float64, on
+    the float32 dt and chunk cumsum that B6 and the plain version both
+    take: another order of the cumsum alone moves y by ~6e-3 at the
+    model's decays (ROADMAP C), so only with the same cum does the
+    difference measure the products' rounding.  A yardstick for both."""
+    import torch
+    import torch.nn.functional as F
+    B, S, NH, P = x.shape
+    s_orig = S
+    if S % chunk:
+        pad = chunk - S % chunk
+        x, b, c = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, b, c))
+        dt = F.pad(dt, (0, 0, 0, pad), value=-1e30)
+        S += pad
+    N, nc = b.shape[-1], S // chunk
+    dt = F.softplus(dt.float())
+    cum = torch.cumsum((dt * -torch.exp(a_log.float())).reshape(B, nc, chunk, NH),
+                       dim=2).double()
+    dtr = dt.double().reshape(B, nc, chunk, NH)
+    xr = x.double().reshape(B, nc, chunk, NH, P)
+    br, cr = (t.double().reshape(B, nc, chunk, N) for t in (b, c))
+    seg = cum[:, :, -1]
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp((cum[:, :, :, None] - cum[:, :, None]).masked_fill(
+        ~tri[None, None, :, :, None], -1e300))
+    cb = torch.einsum("bctn,bcsn->bcts", cr, br)
+    y = torch.einsum("bctsh,bcshp->bcthp", cb[..., None] * decay * dtr[:, :, None], xr)
+    w = torch.exp(seg[:, :, None] - cum) * dtr
+    states = torch.einsum("bcsh,bcsn,bcshp->bchnp", w, br, xr)
+    h = torch.zeros(B, NH, N, P, dtype=torch.float64, device=x.device)
+    h_prev = []
+    for i in range(nc):
+        h_prev.append(h)
+        h = h * torch.exp(seg[:, i])[:, :, None, None] + states[:, i]
+    y = y + torch.einsum("bctn,bcth,bchnp->bcthp", cr, torch.exp(cum),
+                         torch.stack(h_prev, dim=1))
+    y = y.reshape(B, S, NH, P) + d_skip.double()[None, None, :, None] * x.double()
+    return y[:, :s_orig], h
+
+
+def check_ssd_scan(dev, b: int, s: int, kind: str, reps: int,
+                   shape: dict = SSD_SHAPE) -> dict:
     """B6 against its plain version on the card: y and the final state
-    within SSD_TOL (allclose), times and the bound."""
+    within SSD_TOL (allclose), times and the bound; both against
+    ``ssd_scan_f64``."""
     import torch
     from repro_torch.kernels import ssd_scan as ssd
-    args = ssd_inputs(dev, b, s, kind)
-    chunk = SSD_SHAPE["chunk"]
+    args = ssd_inputs(dev, b, s, kind, shape=shape)
+    chunk = shape["chunk"]
     y, st = ssd.ssd_scan(*args, chunk)
     y_p, st_p = ssd.ssd_scan_plain(*args, chunk)
     torch.cuda.synchronize()
-    tag = f"B={b} S={s} {kind}"
+    tag = f"B={b} S={s} {kind} {shape}"
     require(bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all()),
             f"ssd_scan non-finite ({tag})")
     for name, a, ref in (("y", y, y_p), ("state", st, st_p)):
         require(torch.allclose(a, ref, rtol=SSD_TOL, atol=SSD_TOL),
                 f"ssd_scan {name} differs from the plain version by "
                 f"{float((a - ref).abs().max())} ({tag})")
-    nh, p, n = SSD_SHAPE["nh"], SSD_SHAPE["p"], SSD_SHAPE["n"]
-    # The fewest operations of the function: the chunked form's four
-    # products over this run's chunk lengths, counting only the causal
-    # s <= t half of C.B^T and scores.X, or the per-token recurrence's
-    # 5 N P (decay, outer-product update, C.state), whichever is fewer.
+    nh, p, n = shape["nh"], shape["p"], shape["n"]
+    # The chunked form's products over this run's chunk lengths, counting
+    # only the causal s <= t half of C.B^T and scores.X, with C.B^T once
+    # per (batch, chunk) (b and c are one group shared by every head): B6's
+    # work, on the tensor cores in 3xTF32.  On the CUDA cores in fp32 the
+    # per-token recurrence's 5 N P (decay, outer-product update, C.state)
+    # may be fewer; the fp32 bound takes the fewer of the two.
     lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
-    chunked = b * nh * sum(l * (l + 1) * (n + p) + 4 * l * n * p for l in lens)
+    chunked = b * sum(l * (l + 1) * n + nh * (l * (l + 1) * p + 4 * l * n * p)
+                      for l in lens)
     recurrent = b * nh * s * 5 * n * p
-    ops = min(chunked, recurrent)
+    ops = chunked
     nbytes = 4 * (2 * y.numel() + b * s * nh + 2 * b * s * n + 2 * nh + st.numel())
-    b_ms, b_by = bound(nbytes, ops)
+    b_ms, b_by = bound(nbytes, chunked, TF32X3_OPS_PER_S)
+    b32_ms, _ = bound(nbytes, min(chunked, recurrent))
     err_y = float((y - y_p).abs().max())
     err_st = float((st - st_p).abs().max())
+    y64, st64 = ssd_scan_f64(*args, chunk)
+
+    def err64(a, ref):
+        return float((a.double() - ref).abs().max())
     return {"name": "ssd_scan", "shape": [b, s, nh, p, n], "chunk": chunk,
             "kind": kind, "max_abs_err": max(err_y, err_st),
             "max_abs_err_y": err_y, "max_abs_err_state": err_st,
+            "f64_err_y": err64(y, y64), "plain_f64_err_y": err64(y_p, y64),
+            "f64_err_state": err64(st, st64),
+            "plain_f64_err_state": err64(st_p, st64),
             "max_abs_y": float(y_p.abs().max()), "tol": SSD_TOL,
             "ms": time_ms(lambda: ssd.ssd_scan(*args, chunk), reps),
+            "device_ms": device_ms(lambda: ssd.ssd_scan(*args, chunk), reps),
             "plain_ms": time_ms(lambda: ssd.ssd_scan_plain(*args, chunk),
                                 max(reps // 4, 1)),
-            "bound_ms": b_ms, "bound_by": b_by, "gflop": ops / 1e9,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_unit": "3xTF32",
+            "bound_fp32_ms": b32_ms, "gflop": ops / 1e9,
             "gflop_chunked_causal": chunked / 1e9,
             "gflop_recurrent": recurrent / 1e9, "mbytes": nbytes / 1e6}
 
@@ -407,15 +502,28 @@ def sdpa_kernels(fn) -> list:
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
+def attention_f64(q, k, v, causal: bool):
+    """Causal or full GQA attention in float64 (B, S, H, D): a yardstick
+    for B7 and its plain version alike."""
+    import torch
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    q5 = q.double().view(b, s, hkv, hq // hkv, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q5, k.double()) * d ** -0.5
+    if causal:
+        tri = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~tri, float("-inf"))
+    out = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(scores, -1), v.double())
+    return out.reshape(b, s, hq, d)
+
+
 def check_flash_attention(dev, shape, causal: bool, dtype, tol: float,
                           reps: int, library: bool = False,
                           seed: int = 0) -> dict:
     """B7 against its plain version on the card (allclose ``tol``), with
-    times and the bound; with ``library``, one call of
-    ``F.scaled_dot_product_attention`` on (B, H, S, D) views of the same
-    tensors as a yardstick (the port never calls it)."""
+    times and both bounds; with ``library``, SDPA under each backend
+    (``sdpa_backends``) as a yardstick, the fastest as ``library_ms``."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False
     b, s, hq, hkv, d = shape
@@ -436,29 +544,76 @@ def check_flash_attention(dev, shape, causal: bool, dtype, tol: float,
     pairs = s * (s + 1) // 2 if causal else s * s
     ops = 4 * b * hq * d * pairs
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    b_ms, b_by = bound(nbytes, ops)
+    b_ms, b_by = bound(nbytes, ops, TF32X3_OPS_PER_S)
+    b32_ms, _ = bound(nbytes, ops)
     row = {"name": "flash_attention", "shape": list(shape), "causal": causal,
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "tol": tol, "ms": time_ms(lambda: fa.flash_attention(q, k, v, causal),
                                      reps),
+           "device_ms": device_ms(lambda: fa.flash_attention(q, k, v, causal),
+                                  reps),
            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, causal),
                                max(reps // 4, 1)),
-           "bound_ms": b_ms, "bound_by": b_by, "gflop": ops / 1e9,
+           "bound_ms": b_ms, "bound_by": b_by, "bound_unit": "3xTF32",
+           "bound_fp32_ms": b32_ms, "gflop": ops / 1e9,
            "mbytes": nbytes / 1e6, "library_ms": None}
+    if dtype == torch.float32:
+        o64 = attention_f64(q, k, v, causal)
+        row["f64_err"] = float((out.double() - o64).abs().max())
+        row["plain_f64_err"] = float((ref.double() - o64).abs().max())
+        del o64
     if library:
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                  enable_gqa=True)
-
-        lib = sdpa().transpose(1, 2)
-        row["library_ms"] = time_ms(sdpa, reps)
-        row["library_call"] = ("F.scaled_dot_product_attention(is_causal="
-                               f"{causal}, enable_gqa=True)")
-        row["library_kernels"] = sdpa_kernels(sdpa)
-        row["library_max_abs_err"] = float((lib.float() - ref.float()).abs().max())
+        backends = sdpa_backends(q, k, v, causal, ref, reps)
+        timed = {k: r for k, r in backends.items() if "ms" in r}
+        row["sdpa_backends"] = backends
+        if timed:
+            best = min(timed, key=lambda k: timed[k]["ms"])
+            row["library_ms"] = timed[best]["ms"]
+            row["library_backend"] = best
     return row
+
+
+def sdpa_backends(q, k, v, causal: bool, ref, reps: int) -> dict:
+    """``F.scaled_dot_product_attention`` on (B, H, S, D) views of q, k, v
+    under each backend that might take a float32 call (math, efficient,
+    cuDNN), forced through ``torch.nn.attention.sdpa_kernel``: with
+    ``enable_gqa=True``, or where the backend refuses that, with K and V
+    expanded to Hq heads outside the timed call.  Each backend's time, its
+    error against the plain version and its kernels, or its refusals.  A
+    yardstick: the port never calls SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    group = q.shape[2] // k.shape[2]
+    expanded = tuple(t.repeat_interleave(group, dim=1) for t in (kt, vt))
+    out = {}
+    for name, backend in (("math", SDPBackend.MATH),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION)):
+        row = {"refused": []}
+        for gqa, (kk, vv) in ((True, (kt, vt)), (False, expanded)):
+            def call(kk=kk, vv=vv, gqa=gqa):
+                return F.scaled_dot_product_attention(qt, kk, vv,
+                                                      is_causal=causal,
+                                                      enable_gqa=gqa)
+            with sdpa_kernel(backend):
+                try:
+                    lib = call()
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    row["refused"].append(
+                        f"enable_gqa={gqa}: {str(e).strip().splitlines()[0][:200]}")
+                    continue
+                row.update(
+                    ms=time_ms(call, reps), enable_gqa=gqa,
+                    expanded_kv=not gqa,
+                    max_abs_err=float((lib.transpose(1, 2).float()
+                                       - ref.float()).abs().max()),
+                    kernels=sdpa_kernels(call))
+            break
+        out[name] = row
+    return out
 
 
 def phase_kernels(dev) -> dict:
@@ -486,6 +641,12 @@ def phase_kernels(dev) -> dict:
         r["max_abs_err"] for r in ssd_rows))
     big.extend(ssd_rows)
     big.extend(check_ssd_scan(dev, 4, s, "slow", 8) for s in (1000, 64))
+    # Shapes off the model's that the wrapper takes: MMA tiles with edges
+    # (P, N, chunk not multiples of 8 or 16) and a P that is not a multiple
+    # of 4 (x then copied by plain loads, not cp.async).
+    big.extend(check_ssd_scan(dev, 2, s, "slow", 4, shape)
+               for s, shape in ((100, dict(nh=3, p=20, n=12, chunk=20)),
+                                (50, dict(nh=2, p=6, n=8, chunk=12))))
     fa_rows = [check_flash_attention(dev, ATTN_SHAPE, True, torch.float32,
                                      1e-5, 20, library=True)]
     b, _, hq, hkv, d = ATTN_SHAPE
@@ -895,7 +1056,7 @@ def device_breakdown(dev, fn, top: int = 12) -> dict:
     groups = collections.Counter()
     for name, (_, ms) in per.items():
         low = name.lower()
-        groups["B6 ssd_scan" if "ssd_scan" in low else
+        groups["B6 ssd_scan" if "ssd_" in low else
                "B7 flash_attention" if "flash_attention" in low else
                "GEMM (cuBLAS)" if "gemm" in low or "gemv" in low else
                "other"] += ms
@@ -1134,8 +1295,11 @@ def phase_serve(dev, arch: str = "mamba2-130m", batch: int = 4,
     runs = {}
     for name, m, p, d in (("card", card, p_dev, dev), ("cpu", host, p_cpu, cpu)):
         t = time.perf_counter()
-        lg, c = m.prefill(p, {"tokens": ids.to(d)})
-        first = (lg.cpu(), {k: t.cpu() for k, t in c.items() if k != "len"})
+        # The cache holds the decoded tokens too, as serve() sizes it; the
+        # snapshot is a copy, since decode writes the cache in place.
+        lg, c = m.prefill(p, {"tokens": ids.to(d)}, max_len=prompt + cpu_gen)
+        first = (lg.cpu(), {k: t.to("cpu", copy=True) for k, t in c.items()
+                            if k != "len"})
         tok, seq = lg[:, -1:].argmax(-1), []
         for _ in range(cpu_gen):
             seq.append(tok.cpu())
@@ -1229,9 +1393,13 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches.get(name, 0),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "kernel_ms": r["ms"], "device_ms": r["device_ms"],
+                     "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "bound_unit": r.get("bound_unit", "fp32"),
+                     "bound_fp32_ms": r.get("bound_fp32_ms", r["bound_ms"]),
                      "library_ms": r.get("library_ms"),
+                     "library_backend": r.get("library_backend"),
                      "shape": r.get("shape") or [r["n"]]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})

@@ -130,7 +130,9 @@ _SIGNATURES = {
     "rs_select_mask": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # Not a launch: the number of tiles (scratch size) of the mask pass.
     "rs_select_mask_tiles": [_I],
-    "ssd_scan_f32": [_P] * 8 + [_I] * 6 + [_I64P, _I, _P],
+    # Not a launch: the floats of B6's scratch (-1 if too large).
+    "ssd_scan_scratch_floats": [_I] * 6,
+    "ssd_scan_f32": [_P] * 9 + [_I] * 6 + [_I64P, _I, _P],
     "flash_attention_f32": [_P] * 4 + [_I] * 6 + [_F, _I64P, _I, _P],
     "flash_attention_bf16": [_P] * 4 + [_I] * 6 + [_F, _I64P, _I, _P],
 }

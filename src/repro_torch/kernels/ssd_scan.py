@@ -22,7 +22,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import backend
 
 NAME = "ssd_scan"
-#: What the kernel takes (``csrc/ssd_scan.cu``): its shared-memory tiles.
+#: What the kernel takes (``csrc/ssd_scan.cu``): 8 warps of 16 MMA rows
+#: cover N and the chunk, and one warp's 8 column tiles cover P.
 MAX_STATE_DIM, MAX_HEAD_DIM, MAX_CHUNK = 128, 64, 128
 
 
@@ -83,9 +84,11 @@ def ssd_scan_plain(x, dt, a_log, b, c, d_skip, chunk: int):
 def ssd_scan(x, dt, a_log, b, c, d_skip, chunk: int):
     """Kernel B6: ``(y, final_state)`` of the chunked scan.
 
-    A CPU tensor takes ``ssd_scan_plain``; CUDA tensors launch the kernel
-    (float32; N <= 128 and chunk <= 128, multiples of 4; P <= 64; any S)
-    or raise.  The kernel reads x, dt, b and c through their strides, so
+    A CPU tensor takes ``ssd_scan_plain``; CUDA tensors launch the
+    kernel's four steps (float32; N <= 128 and chunk <= 128, multiples of
+    4; P <= 64; any S) or raise, with their scratch (dt, cum, C.B^T per
+    chunk, the chunk states: 50 MB at mamba2-130m's serve shape) allocated
+    here.  The kernel reads x, dt, b and c through their strides, so
     views such as column slices of one activation need no copy; the last
     dimension of x, b and c must be dense.
     """
@@ -117,12 +120,16 @@ def ssd_scan(x, dt, a_log, b, c, d_skip, chunk: int):
                          f"P <= {MAX_HEAD_DIM}; got N={N}, P={P}, chunk={chunk}")
     if max(B * S, B * NH) >= 2 ** 31:
         raise ValueError(f"{NAME}: shape {tuple(x.shape)} too large")
+    floats = backend.library().ssd_scan_scratch_floats(B, S, NH, P, N, chunk)
+    if floats < 0:
+        raise ValueError(f"{NAME}: shape {tuple(x.shape)} too large")
     y = torch.empty(B, S, NH, P, dtype=torch.float32, device=dev)
     state = torch.empty(B, NH, N, P, dtype=torch.float32, device=dev)
+    scratch = torch.empty(max(floats, 1), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 10)(*x.stride()[:3], *dt.stride(),
                                        *b.stride()[:2], *c.stride()[:2])
     backend.launch("ssd_scan_f32", NAME, dev, x.data_ptr(), dt.data_ptr(),
                    a_log.data_ptr(), b.data_ptr(), c.data_ptr(),
                    d_skip.data_ptr(), y.data_ptr(), state.data_ptr(),
-                   B, S, NH, P, N, chunk, strides)
+                   scratch.data_ptr(), B, S, NH, P, N, chunk, strides)
     return y, state

@@ -140,8 +140,18 @@ def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
                  k_new: torch.Tensor, v_new: torch.Tensor, idx: int):
     """Write the new positions at ``idx`` along axis 1, in place and in the
     caches' dtype (the reference returns new arrays; here the caches given
-    are the ones written, and are returned)."""
-    n = k_new.shape[1]
-    k_cache[:, idx:idx + n] = k_new
-    v_cache[:, idx:idx + n] = v_new
+    are the ones written, and are returned).
+
+    The start is placed as the reference's
+    ``lax.dynamic_update_slice_in_dim`` places it: a negative ``idx``
+    counts from the end (``idx + S_max``), then the start is clamped into
+    ``[0, S_max - n]``, so a write that would run past the end overwrites
+    the last ``n`` slots."""
+    n, s_max = k_new.shape[1], k_cache.shape[1]
+    start = int(idx)
+    if start < 0:
+        start += s_max
+    start = min(max(start, 0), s_max - n)
+    k_cache[:, start:start + n] = k_new
+    v_cache[:, start:start + n] = v_new
     return k_cache, v_cache

@@ -13,8 +13,8 @@ plain version there).  Here, on inputs made from a seed with numpy:
   that is not dense), which hold on every device;
 - ``rope``, ``gated_mlp``, ``project_qkv`` (qk_norm on and off),
   ``attend`` (S above, at and below ``q_chunk``, with a window and
-  ``is_global`` both ways), ``decode_attend`` and ``update_cache`` against
-  their JAX counterparts within 1e-5.
+  ``is_global`` both ways), ``decode_attend`` against their JAX counterparts within 1e-5,
+  and ``update_cache`` exactly, at every start the reference clamps.
 """
 from __future__ import annotations
 
@@ -183,14 +183,25 @@ def test_decode_attend_matches_jax(cache_len, window, is_global):
     _close(got, want)
 
 
-def test_update_cache_writes_in_place_as_jax_writes():
+S_MAX = 8
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("where", ["0", "5", "S_max-n", "S_max-n+1", "S_max",
+                                   "S_max+3", "-1", "-S_max-1"])
+def test_update_cache_writes_in_place_as_jax_writes(where, n):
+    """Bit for bit the reference's ``dynamic_update_slice_in_dim``: a
+    negative start counts from the end, then the start is clamped into
+    [0, S_max - n], so past the end and negative writes land as there."""
+    idx = eval(where, {"S_max": S_MAX, "n": n})
     r = np.random.default_rng(5)
-    kc, vc = (r.normal(size=(2, 8, 2, 4)).astype(np.float32) for _ in range(2))
-    kn, vn = (r.normal(size=(2, 1, 2, 4)).astype(np.float32) for _ in range(2))
+    kc, vc = (r.normal(size=(2, S_MAX, 2, 4)).astype(np.float32)
+              for _ in range(2))
+    kn, vn = (r.normal(size=(2, n, 2, 4)).astype(np.float32) for _ in range(2))
     tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
     out = attention.update_cache(tk, tv, torch.from_numpy(kn),
-                                 torch.from_numpy(vn), 5)
+                                 torch.from_numpy(vn), idx)
     assert out[0] is tk and out[1] is tv
-    want = jattn.update_cache(*map(jnp.asarray, (kc, vc, kn, vn)), 5)
+    want = jattn.update_cache(*map(jnp.asarray, (kc, vc, kn, vn)), idx)
     for a, b in zip(out, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
