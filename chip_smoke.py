@@ -8,11 +8,16 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 1. environment: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: the CUDA kernels compiled with nvcc from ``src/repro_torch/kernels/csrc``;
 3. kernel checks: every kernel against its plain PyTorch version on the same
-   inputs, at the main path's shapes and at larger ones, with times; the
-   radix pair (B4/B5) exactly, also against the stable-sort rank window,
-   at N = 50,000 and 1,281,167 on exponential losses, FORGET-like event
-   counts with +inf, signed zeros, +/-inf and all-equal inputs, for
-   k in {0, 1, N/3, N} both ways; the whole rank-select at N = 1,281,167
+   inputs, at the main path's shapes and at larger ones, with times, and
+   beside one PyTorch call computing the same function where there is one
+   (``F.cross_entropy`` for B1's ce, ``torch.aminmax`` and ``torch.histc``
+   for B2 and B3); the rank-select (B4 and B5 fused into one kernel)
+   exactly, its mask, four pass histograms and threshold triple, also
+   against the stable-sort rank window, at N = 50,000 and 1,281,167 on
+   exponential losses, FORGET-like event counts with +inf, signed zeros,
+   +/-inf and all-equal inputs, for k in {0, 1, N/3, N} both ways, and at
+   N = 1, a ragged N and an N past its shared-memory path; its call at
+   N = 50,000 and 1,281,167 with its device time and device launches,
    beside ``torch.kthvalue`` and a stable ``torch.sort`` as yardsticks;
    the SSD scan (B6) at mamba2-130m's serve shapes and at two smaller
    shapes whose MMA tiles have edges to mask; flash attention (B7)
@@ -29,8 +34,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 4. plan: ``_plan_step`` at N = 1,281,167 (ImageNet-1K's train size) with
    ``"histogram_pallas"`` (the kernels) against ``"histogram"`` (plain),
    and with ``"sort"`` + DropTop 0.02 and FORGET's ``_prune_step`` (the
-   radix kernels) against the same on the CPU (the plain versions): the
-   plans must be equal;
+   rank-select kernel) against the same on the CPU (its plain version):
+   the plans must be equal;
 5. train: the paper CNN at the full width of ``configs/paper_cnn.py`` on
    ``SyntheticClassification(50_000)``, 3 epochs of ``baseline`` then of
    ``kakurenbo`` (``histogram_pallas`` with DropTop 0.02, fused scoring);
@@ -120,11 +125,11 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device-only time of ``fn``: the summed durations of the device
-    activities (kernels, copies, fills) that ``reps`` calls run under
-    ``torch.profiler``, over ``reps``.  Beside ``time_ms``, which also
-    holds the host's cost of each call where the device waits for it."""
+def device_profile(fn, reps: int) -> tuple[float, float, list]:
+    """``fn``'s device activities (kernels, copies, memsets) under
+    ``torch.profiler`` over ``reps`` calls: their summed duration a call
+    (ms), their number a call, and their names.  Beside ``time_ms``, which
+    also holds the host's cost of each call where the device waits for it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -133,8 +138,15 @@ def device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps,
+            len(events) / reps, sorted({e.name for e in events}))
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device-only time of ``fn`` a call (``device_profile``)."""
+    return device_profile(fn, reps)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +157,7 @@ def device_ms(fn, reps: int) -> float:
 def check_loss_confidence(dev, t: int, v: int, dtype, tol: float, reps: int,
                           seed: int = 0) -> dict:
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import loss_confidence as lc
     g = torch.Generator(device=dev).manual_seed(seed)
     logits = (torch.randn(t, v, generator=g, device=dev) * 3).to(dtype)
@@ -158,6 +171,9 @@ def check_loss_confidence(dev, t: int, v: int, dtype, tol: float, reps: int,
     require(err <= tol, f"loss_confidence err {err} > {tol} at {(t, v, dtype)}")
     elt = logits.element_size()
     b_ms, b_by = bound(t * v * elt + t * 4 + t * 12, 5.0 * t * v)
+    # Yardstick: F.cross_entropy gives ce alone (not correct or pmax).
+    labels64 = labels.long()
+    ce_lib = F.cross_entropy(logits, labels64, reduction="none")
     return {"shape": [t, v], "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "tol": tol,
             "ms": time_ms(lambda: lc.loss_confidence(logits, labels), reps),
@@ -165,7 +181,11 @@ def check_loss_confidence(dev, t: int, v: int, dtype, tol: float, reps: int,
                                    min(reps, 20)),
             "plain_ms": time_ms(lambda: lc.loss_confidence_plain(logits, labels),
                                 reps),
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: F.cross_entropy(
+                logits, labels64, reduction="none"), reps),
+            "library_backend": "F.cross_entropy(reduction='none'): ce only",
+            "library_ce_err": float((ce_lib.float() - ce_p).abs().max())}
 
 
 def selection_inputs(dev, n: int, invalid: float, seed: int, kind: str = "exp"):
@@ -200,6 +220,19 @@ def check_threshold(dev, n: int, invalid: float, kind: str, reps: int,
     require(torch.equal(hist, hist_p), f"histogram differs ({tag})")
     require(int(hist.sum()) == int(valid.sum()), f"histogram lost counts ({tag})")
     nv = int(valid.sum())
+    # Yardsticks, where every loss is valid (the function is then one
+    # PyTorch call): torch.aminmax, and torch.histc over the same range
+    # (its own bin arithmetic: an edge value may land one bin over).
+    lib = {"minmax": (None, None), "histogram": (None, None)}
+    if nv == n:
+        lo, hi = (float(v) for v in mm)
+        require(torch.equal(torch.stack(torch.aminmax(loss)), mm),
+                f"torch.aminmax differs from minmax ({tag})")
+        lib = {"minmax": (lambda: torch.aminmax(loss), "torch.aminmax"),
+               "histogram": (lambda: torch.histc(loss, 512, lo, hi),
+                             "torch.histc")}
+        histc_err = float((torch.histc(loss, 512, lo, hi) - hist.float())
+                          .abs().max())
     out = []
     for name, fn, plain, err, nbytes, ops in (
             ("minmax", lambda: ts.minmax(loss, valid),
@@ -209,11 +242,16 @@ def check_threshold(dev, n: int, invalid: float, kind: str, reps: int,
              lambda: ts.histogram_plain(loss, valid, mm),
              (hist - hist_p).abs().max(), 5 * n + 8 + 512 * 4, n + 6 * nv)):
         b_ms, b_by = bound(nbytes, ops)
+        lib_fn, lib_name = lib[name]
         out.append({"name": name, "n": n, "invalid": invalid, "kind": kind,
                     "max_abs_err": float(err), "ms": time_ms(fn, reps),
                     "device_ms": device_ms(fn, min(reps, 20)),
                     "plain_ms": time_ms(plain, reps), "bound_ms": b_ms,
-                    "bound_by": b_by})
+                    "bound_by": b_by,
+                    "library_ms": time_ms(lib_fn, reps) if lib_fn else None,
+                    "library_backend": lib_name})
+    if nv == n:
+        out[1]["library_bin_err"] = histc_err
     return out[0], out[1]
 
 
@@ -247,31 +285,28 @@ def rank_oracle(scores, k: int, high: bool):
 
 
 def check_radix(dev, n: int, kind: str) -> int:
-    """B4 at every radix pass and B5 on every window, against their plain
-    versions, for k in {0, 1, N/3, N} both ways; returns the cases run."""
+    """The rank-select kernel (B4 and B5 in one launch) against its plain
+    version on the same card: the mask, the four pass histograms and the
+    (thresh, needed, total) triple exactly, and the mask against the stable
+    sort's rank window, for k in {0, 1, N/3, N} both ways, k passed by value
+    and as int32 and int64 device scalars in turn.  Returns the cases run."""
     import torch
     from repro_torch.kernels import threshold_select as ts
     scores = radix_scores(dev, n, kind, seed=n)
     cases = 0
     for high in (False, True):
-        keys = ts.order_key_bits(scores, high)
-        for k in (0, 1, n // 3, n):
+        for j, k in enumerate((0, 1, n // 3, n)):
             tag = f"N={n} {kind} k={k} high={high}"
-
-            def both(keys, prefix, shift):
-                h = ts.byte_histogram(keys, prefix, shift)
-                require(torch.equal(h, ts.byte_histogram_plain(keys, prefix, shift)),
-                        f"byte_histogram differs at shift {shift} ({tag})")
-                return h
-
-            thresh, needed, total = ts.radix_threshold(keys, k, both)
-            lo, hi = ((total - needed, total) if high
-                      else (torch.zeros_like(needed), needed))
-            mask = ts.select_mask(keys, thresh, lo, hi)
-            require(torch.equal(mask, ts.select_mask_plain(keys, thresh, lo, hi)),
-                    f"select_mask differs ({tag})")
-            require(torch.equal(mask, ts.rank_select_mask(scores, k, high)),
-                    f"rank_select_mask differs from its passes ({tag})")
+            k_arg = (k, torch.tensor(k, dtype=torch.int32, device=dev),
+                     torch.tensor(k, device=dev), k)[j]
+            mask, hists, triple = ts.rank_select(scores, k_arg, high)
+            want, hists_p, triple_p = ts.rank_select_plain(scores, k, high)
+            require(torch.equal(hists, hists_p), f"pass histograms differ ({tag}): "
+                    f"rows {(hists != hists_p).any(1).nonzero().flatten().tolist()}")
+            require(torch.equal(triple, triple_p), f"(thresh, needed, total) "
+                    f"{triple.tolist()} != {triple_p.tolist()} ({tag})")
+            require(torch.equal(mask, want), f"mask differs in "
+                    f"{int((mask != want).sum())} places ({tag})")
             require(torch.equal(mask, rank_oracle(scores, k, high)),
                     f"rank window differs from the stable sort ({tag})")
             require(int(mask.sum()) == k, f"mask holds {int(mask.sum())} != k ({tag})")
@@ -279,55 +314,29 @@ def check_radix(dev, n: int, kind: str) -> int:
     return cases
 
 
-def time_radix(dev, n: int, reps: int) -> dict:
-    """One B4 pass and one B5 mask on exponential losses at N, with their
-    plain versions and bounds."""
-    import torch
-    from repro_torch.kernels import threshold_select as ts
-    keys = ts.order_key_bits(radix_scores(dev, n, "exp"), high=True)
-    prefix = torch.zeros((), dtype=torch.int64, device=dev)
-    thresh, needed, total = ts.radix_threshold(keys, n // 50, ts.byte_histogram)
-    lo = total - needed
-    h, hp = ts.byte_histogram(keys, prefix, 24), ts.byte_histogram_plain(keys, prefix, 24)
-    m = ts.select_mask(keys, thresh, lo, total)
-    mp = ts.select_mask_plain(keys, thresh, lo, total)
-    torch.cuda.synchronize()
-    # Integer work, counted against the fp32 rate (no int32 row in the
-    # data sheet's table): B4 matches, shifts and counts a few ops a key,
-    # B5 compares and ranks a few.
-    b4_ms, b4_by = bound(4 * n + 8 + 256 * 4, 4.0 * n)
-    b5_ms, b5_by = bound(4 * n + 8 + 16 + n, 4.0 * n)
-    return {
-        "byte_histogram": {
-            "n": n, "max_abs_err": float((h - hp).abs().max()),
-            "ms": time_ms(lambda: ts.byte_histogram(keys, prefix, 24), reps),
-            "device_ms": device_ms(lambda: ts.byte_histogram(keys, prefix, 24),
-                                   min(reps, 20)),
-            "plain_ms": time_ms(lambda: ts.byte_histogram_plain(keys, prefix, 24),
-                                reps),
-            "bound_ms": b4_ms, "bound_by": b4_by},
-        "select_mask": {
-            "n": n, "max_abs_err": float((m.int() - mp.int()).abs().max()),
-            "ms": time_ms(lambda: ts.select_mask(keys, thresh, lo, total), reps),
-            "device_ms": device_ms(lambda: ts.select_mask(keys, thresh, lo, total),
-                                   min(reps, 20)),
-            "plain_ms": time_ms(lambda: ts.select_mask_plain(keys, thresh, lo,
-                                                             total), reps),
-            "bound_ms": b5_ms, "bound_by": b5_by}}
+#: Keys a block of the rank-select keeps in shared memory
+#: (``csrc/rank_select.cu``'s kMaxSliceKeys): up to SMs x this N the
+#: scores are read from HBM once.
+RS_SLICE_KEYS = 55 * 1024
 
 
 def time_rank_select(dev, n: int, reps: int) -> dict:
     """The whole rank-select (DropTop's k = N/50 largest) against its plain
     version and two one-call yardsticks the port never uses:
     ``torch.kthvalue`` (the threshold alone) and a stable ``torch.sort``
-    (the rank-window mask)."""
+    with a scatter of the ranks (the same mask).  ``cuda_launches`` counts
+    the device activities of one call under the profiler."""
     import torch
+    from repro_torch.kernels import backend
     from repro_torch.kernels import threshold_select as ts
     scores = radix_scores(dev, n, "exp")
     k = n // 50
+    k_dev = torch.tensor(k, dtype=torch.int32, device=dev)
     want = rank_oracle(scores, k, True)
-    require(torch.equal(ts.rank_select_mask(scores, k, True), want),
-            "rank_select at the timing shape")
+    mask, hists, triple = ts.rank_select(scores, k, True)
+    _, hists_p, triple_p = ts.rank_select_plain(scores, k, True)
+    require(torch.equal(mask, want) and torch.equal(hists, hists_p)
+            and torch.equal(triple, triple_p), "rank_select at the timing shape")
 
     def sort_mask():
         order = torch.sort(scores, stable=True).indices
@@ -336,18 +345,42 @@ def time_rank_select(dev, n: int, reps: int) -> dict:
         return rank >= n - k
 
     require(torch.equal(sort_mask(), want), "sort-mask yardstick")
+    # The C entry alone on buffers allocated once (the memset and the
+    # cooperative launch): the call's host cost without the wrapper's.
+    scratch = torch.empty(ts._RS_TIE_WORD + ts._RS_MAX_BLOCKS,
+                          dtype=torch.int32, device=dev)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+
+    def entry_only():
+        backend.launch("rs_rank_select", "rank_select", dev, scores.data_ptr(),
+                       0, 0, k, 1, scratch.data_ptr(), scratch.numel(),
+                       out.data_ptr(), n)
+
+    dev_ms, launches, names = device_profile(
+        lambda: ts.rank_select(scores, k, True), min(reps, 20))
+    require(launches <= 2, f"a rank_select call ran {launches} device "
+            f"activities ({names}), more than the memset and the kernel")
+    # Bytes: the float scores read once, the bool mask written once; a few
+    # integer operations a key over the five passes, counted at the fp32
+    # rate (the data sheet has no int32 row).
     b_ms, b_by = bound(4 * n + n, 20.0 * n)
+    sort_ms = time_ms(sort_mask, reps)
     return {"phase": "rank_select", "n": n, "k": k, "high": True,
-            "ms": time_ms(lambda: ts.rank_select_mask(scores, k, True), reps),
-            # k copied from host memory on every call, which waits for the
-            # stream to drain: what a fill kernel for k saves.
-            "k_copied_ms": time_ms(lambda: ts.rank_select_mask(
-                scores, torch.as_tensor(k, device=dev), True), reps),
-            "plain_ms": time_ms(lambda: ts.rank_select_mask(
-                scores, k, True, use_kernel=False), reps),
+            "max_abs_err": float((mask.int() - want.int()).abs().max()),
+            "ms": time_ms(lambda: ts.rank_select(scores, k, True), reps),
+            "k_device_ms": time_ms(lambda: ts.rank_select(scores, k_dev, True),
+                                   reps),
+            "entry_only_ms": time_ms(entry_only, reps),
+            "device_ms": dev_ms, "cuda_launches": launches,
+            "device_events": names,
+            "shared_path": n <= RS_SLICE_KEYS * torch.cuda.get_device_properties(
+                dev).multi_processor_count,
+            "plain_ms": time_ms(lambda: ts.rank_select_plain(scores, k, True),
+                                reps),
             "kthvalue_ms": time_ms(lambda: torch.kthvalue(scores, n - k + 1),
                                    reps),
-            "sort_mask_ms": time_ms(sort_mask, reps),
+            "sort_mask_ms": sort_ms, "library_ms": sort_ms,
+            "library_backend": "torch.sort(stable=True) + scatter of the ranks",
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -633,8 +666,13 @@ def phase_kernels(dev) -> dict:
     radix_cases = sum(check_radix(dev, n, kind)
                       for n in (50_000, 1_281_167)
                       for kind in ("exp", "events", "zeros", "inf", "equal"))
-    main.update(time_radix(dev, 50_000, 200))
-    big.extend(time_radix(dev, 1_281_167, 50).values())
+    # One key; an N no slice size divides; an N past the shared-memory path.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    radix_cases += sum(check_radix(dev, n, kind)
+                       for n in (1, 1_000_003, RS_SLICE_KEYS * sms + 4_099)
+                       for kind in ("exp", "events"))
+    rs = time_rank_select(dev, 50_000, 200)
+    main["byte_histogram"] = main["select_mask"] = dict(rs, fused="rank_select")
     ssd_rows = [check_ssd_scan(dev, 4, 2048, kind, 20)
                 for kind in ("model", "slow")]
     main["ssd_scan"] = dict(ssd_rows[0], max_abs_err=max(
@@ -664,7 +702,7 @@ def phase_kernels(dev) -> dict:
     big.extend(fa_rows)
     emit({"phase": "kernel_checks", "main": main, "more": big,
           "radix_cases": radix_cases})
-    emit(time_rank_select(dev, 1_281_167, 20))
+    emit(time_rank_select(dev, 1_281_167, 50))
     return main
 
 
@@ -742,8 +780,8 @@ def median_ms(dev, fn, reps: int) -> float:
 
 def radix_plans(dev, st, perm, reps: int) -> dict:
     """The plans that run the radix select: ``"sort"`` + DropTop 0.02 and
-    FORGET's prune at 0.3 N, on the card (kernels B4/B5) and on the CPU
-    (their plain versions).  Equal, and the prune equal to the stable-sort
+    FORGET's prune at 0.3 N, on the card (the rank-select kernel) and on
+    the CPU (its plain version).  Equal, and the prune equal to the stable-sort
     rank window."""
     import numpy as np
     import torch
@@ -927,7 +965,7 @@ def watch_table2(tr, log: dict) -> None:
 
 def phase_table2(dev, n: int = 50_000, n_test: int = 10_000, epochs: int = 3):
     """``experiments/table2`` at full width: every strategy, KAKURENBO under
-    ``"sort"`` with DropTop 0.02 (the radix kernels B4/B5)."""
+    ``"sort"`` with DropTop 0.02 (the rank-select kernel, B4 and B5)."""
     from repro_torch.configs.paper_cnn import CONFIG
     from repro_torch.experiments import table2
     from repro_torch.kernels import backend
@@ -965,8 +1003,7 @@ def phase_table2(dev, n: int = 50_000, n_test: int = 10_000, epochs: int = 3):
     require(bwd["sb"] < fwd["sb"], "SB skipped no backward samples")
     require(any(h.hidden_fraction > 0 for h in hist["kakurenbo"]),
             "kakurenbo hid nothing under sort")
-    for name in ("byte_histogram", "select_mask"):
-        require(launches.get(name, 0) > 0, f"kernel {name} never launched")
+    require(launches.get("rank_select", 0) > 0, "kernel rank_select never launched")
     # Table 2 scores with cnn.per_sample_metrics (argmax), as the reference
     # harness does: the fused pass (B1) is the train phase's.
     require(launches.get("loss_confidence", 0) == 0,
@@ -1330,6 +1367,8 @@ def phase_serve(dev, arch: str = "mamba2-130m", batch: int = 4,
 # ---------------------------------------------------------------------------
 
 
+#: Each TPU kernel's row: its port's source and the ``pallas_call`` site it
+#: replaces.  B4 and B5 are one fused kernel, counted as ``rank_select``.
 KERNELS = {
     "loss_confidence": ("src/repro_torch/kernels/csrc/loss_confidence.cu",
                         "src/repro/kernels/loss_confidence.py:63"),
@@ -1391,7 +1430,9 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         r = main_rows[name]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches.get(name, 0),
+                     "replaces": replaces,
+                     "launches": launches.get(r.get("fused", name), 0),
+                     "fused": r.get("fused"),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "kernel_ms": r["ms"], "device_ms": r["device_ms"],
                      "plain_ms": r["plain_ms"],

@@ -8,7 +8,7 @@ the pruned set (``EpochPlan.reinit_model``).  The reported cost includes
 the warmup epochs (paper Sec. 4.2).
 
 The prune set is the stable fewest-events-first rank window
-(``planops.topk_hide``: the radix select, kernels B4/B5 on the card);
+(``planops.topk_hide``: the radix select, one kernel on the card);
 never-correct samples score +inf.  The epoch shuffle is ``masked_order``
 over a permutation drawn from the strategy's own ``torch.Generator``.
 """

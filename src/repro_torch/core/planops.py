@@ -90,7 +90,7 @@ def stable_rank_order(scores: torch.Tensor) -> torch.Tensor:
 def topk_hide(scores: torch.Tensor, k) -> torch.Tensor:
     """Mask of the ``k`` smallest scores, ties by index (FORGET's prune
     set): equal to ``stable_rank_order(scores) < k``, by the radix
-    count-then-select (kernels B4/B5 on the card) instead of a sort."""
+    count-then-select (the rank-select kernel on the card) instead of a sort."""
     return kernel_ops.rank_select(scores, k)
 
 

@@ -14,7 +14,7 @@ All honour the move-back rule: a candidate stays hidden only if it was
 correct with confidence >= tau at its last observation.  Never-seen samples
 are never hidden.  DropTop (App. D) hides the highest-loss tail on top,
 regardless of move-back: under ``"sort"`` by the exact rank window of
-``planops.sort_high_mask`` (the radix select, kernels B4/B5 on the card),
+``planops.sort_high_mask`` (the radix select, one kernel on the card),
 under the histogram methods by the CDF walk mirrored from the top bin.
 """
 from __future__ import annotations

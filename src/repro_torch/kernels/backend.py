@@ -115,10 +115,11 @@ def build() -> Path:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 _I64P = ctypes.POINTER(ctypes.c_longlong)
 #: C signatures: every device pointer and the stream are c_void_p, sizes and
-#: the device index c_int, a scale c_float, an array of element strides a
-#: pointer to int64.
+#: the device index c_int, a scale c_float, a 64-bit value c_longlong, an
+#: array of element strides a pointer to int64.
 #: Each entry sets the device, launches on the stream and returns
 #: cudaGetLastError().
 _SIGNATURES = {
@@ -126,10 +127,7 @@ _SIGNATURES = {
     "lc_forward_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ts_minmax": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ts_histogram": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "rs_byte_histogram": [_P, _P, _P, _I, _I, _I, _P],
-    "rs_select_mask": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    # Not a launch: the number of tiles (scratch size) of the mask pass.
-    "rs_select_mask_tiles": [_I],
+    "rs_rank_select": [_P, _P, _I, _LL, _I, _P, _I, _P, _I, _I, _P],
     # Not a launch: the floats of B6's scratch (-1 if too large).
     "ssd_scan_scratch_floats": [_I] * 6,
     "ssd_scan_f32": [_P] * 9 + [_I] * 6 + [_I64P, _I, _P],

@@ -43,8 +43,9 @@ def loss_histogram(loss: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
 def rank_select(scores: torch.Tensor, k, high: bool = False) -> torch.Tensor:
     """Exact (N,) bool mask of the ``k`` smallest (or largest) scores by
     count-then-select, equal to the stable-argsort rank masks (see
-    ``threshold_select.rank_select_mask`` for the tie contract): kernels
-    B4/B5 on a CUDA tensor, their plain versions on a CPU one."""
+    ``threshold_select.rank_select_mask`` for the tie contract): the one
+    rank-select kernel (B4 and B5) on a CUDA tensor, its plain version on a
+    CPU one."""
     return _ts.rank_select_mask(scores, k, high=high)
 
 

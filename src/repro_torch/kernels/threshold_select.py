@@ -6,22 +6,27 @@ Port of ``repro/kernels/threshold_select.py``:
   the histogram-CDF selection (CUDA in ``csrc/threshold_select.cu``).  Both
   return *raw* reductions: ``minmax`` gives ``[BIG, -BIG]`` when nothing is
   valid, and callers fold ``lo = min(lo, hi)``;
-- ``byte_histogram`` (B4) and ``select_mask`` (B5), the passes of the exact
-  count-then-select that replaces a stable argsort where a plan needs only a
-  rank window (FORGET's prune, DropTop's top tail), driven by
-  ``radix_threshold`` and ``rank_select_mask`` (CUDA in
-  ``csrc/rank_select.cu``).
+- ``rank_select`` (B4 and B5 in one kernel), the exact count-then-select
+  that replaces a stable argsort where a plan needs only a rank window
+  (FORGET's prune, DropTop's top tail): one persistent CUDA kernel in
+  ``csrc/rank_select.cu`` builds the order keys, runs the four byte
+  histograms (B4's function) with the bucket search between them, and
+  writes the mask (B5's function).  Its plain version ``rank_select_plain``
+  composes the per-pass specs ``order_key_bits``, ``byte_histogram_plain``,
+  ``radix_threshold`` and ``select_mask_plain``.
 
 Each kernel's plain PyTorch version (``*_plain``) sits beside it.
 
 The radix keys are the uint32 float-order keys of the reference.  PyTorch's
 uint32 support is partial (no shifts or comparisons on the CPU), so the keys
-travel as their bits in an int32 tensor (``order_key_bits``): the kernels
-read that buffer as uint32, and the plain versions widen it to int64
-(0 .. 2**32 - 1) before comparing.  Prefixes and thresholds are 0-d int64
-tensors holding the uint32 value.  Nothing here waits on the device.
+travel as their bits in an int32 tensor (``order_key_bits``), and the plain
+versions widen them to int64 (0 .. 2**32 - 1) before comparing.  Prefixes
+and thresholds are 0-d int64 tensors holding the uint32 value.  Nothing here
+waits on the device.
 """
 from __future__ import annotations
+
+import operator
 
 import torch
 
@@ -178,61 +183,6 @@ def select_mask_plain(keys: torch.Tensor, thresh: torch.Tensor,
     return (k < thresh) | (tie & (cum > tie_lo) & (cum <= tie_hi))
 
 
-def _check_keys(name: str, keys: torch.Tensor, **scalars: torch.Tensor
-                ) -> torch.device:
-    if keys.dim() != 1 or keys.dtype != torch.int32:
-        raise ValueError(f"{name}: want (N,) int32 key bits; got "
-                         f"{tuple(keys.shape)} {keys.dtype}")
-    dev = backend.check_cuda(name, {"keys": keys, **scalars})
-    for k, t in scalars.items():
-        if t.dtype != torch.int64:
-            raise ValueError(f"{name}: {k} must be int64, got {t.dtype}")
-    if keys.numel() >= 2 ** 31:
-        raise ValueError(f"{name}: N={keys.numel()} too large")
-    return dev
-
-
-def byte_histogram(keys: torch.Tensor, prefix: torch.Tensor,
-                   shift: int) -> torch.Tensor:
-    """Kernel B4: (256,) i32 byte histogram of the keys matching ``prefix``.
-
-    ``keys`` (N,) int32 bits, ``prefix`` a 0-d int64 on the keys' device,
-    ``shift`` in ``RADIX_SHIFTS``.  A CPU tensor takes the plain version.
-    """
-    if shift not in RADIX_SHIFTS:
-        raise ValueError(f"byte_histogram: shift={shift} not in {RADIX_SHIFTS}")
-    if keys.device.type == "cpu" and prefix.device.type == "cpu":
-        return byte_histogram_plain(keys, prefix, shift)
-    prefix = prefix.reshape(1)
-    dev = _check_keys("byte_histogram", keys, prefix=prefix)
-    out = torch.empty(256, dtype=torch.int32, device=dev)
-    backend.launch("rs_byte_histogram", "byte_histogram", dev, keys.data_ptr(),
-                   prefix.data_ptr(), out.data_ptr(), keys.numel(), shift)
-    return out
-
-
-def select_mask(keys: torch.Tensor, thresh: torch.Tensor,
-                tie_lo: torch.Tensor, tie_hi: torch.Tensor) -> torch.Tensor:
-    """Kernel B5: the (N,) bool rank-window mask of ``select_mask_plain``.
-
-    ``thresh``, ``tie_lo`` and ``tie_hi`` are 0-d int64 tensors on the keys'
-    device.  A CPU tensor takes the plain version.
-    """
-    if all(t.device.type == "cpu" for t in (keys, thresh, tie_lo, tie_hi)):
-        return select_mask_plain(keys, thresh, tie_lo, tie_hi)
-    thresh = thresh.reshape(1)
-    window = torch.stack([tie_lo.reshape(()), tie_hi.reshape(())])
-    dev = _check_keys("select_mask", keys, thresh=thresh, window=window)
-    n = keys.numel()
-    tiles = backend.library().rs_select_mask_tiles(n)
-    scratch = torch.empty(2 * tiles, dtype=torch.int32, device=dev)
-    mask = torch.empty(n, dtype=torch.bool, device=dev)
-    backend.launch("rs_select_mask", "select_mask", dev, keys.data_ptr(),
-                   thresh.data_ptr(), window.data_ptr(), scratch.data_ptr(),
-                   scratch[tiles:].data_ptr(), mask.data_ptr(), n)
-    return mask
-
-
 def device_scalar(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``x`` (a Python number or a tensor) as a 0-d ``dtype`` tensor on
     ``device``.  A Python number is written there by a fill kernel:
@@ -249,8 +199,9 @@ def radix_threshold(keys: torch.Tensor, k, hist_fn):
     Returns 0-d int64 tensors ``(thresh, needed, total_ties)``: the k-th
     order statistic (for k <= 0 the all-zero key: nothing selected), how
     many of the ties at it the mask still needs, and their total count.
-    ``hist_fn(keys, prefix, shift)`` is ``byte_histogram`` or its plain
-    version; the bucket search between passes stays on the device.
+    ``hist_fn(keys, prefix, shift)`` is ``byte_histogram_plain`` or a
+    function that returns what it returns; the bucket search between passes
+    stays on the device.
     """
     dev = keys.device
     prefix = torch.zeros((), dtype=torch.int64, device=dev)
@@ -268,6 +219,91 @@ def radix_threshold(keys: torch.Tensor, k, hist_fn):
     return prefix, remaining, hist[b].to(torch.int64)
 
 
+#: Scratch of the rank-select kernel, in int32 words (``csrc/rank_select.cu``
+#: lays it out): the (4, 256) pass histograms, the int64 (thresh, needed,
+#: total), then one tie count per block.
+_RS_TRIPLE_WORD = len(RADIX_SHIFTS) * 256
+_RS_TIE_WORD = _RS_TRIPLE_WORD + 6
+#: Tie-count slots in the scratch: more than the blocks the kernel runs
+#: (at most the co-resident ones, one a SM: 132 on an H100).
+_RS_MAX_BLOCKS = 4096
+
+
+def rank_select_plain(scores: torch.Tensor, k, high: bool = False):
+    """The rank-select's plain version: ``(mask, hists, triple)``.
+
+    ``mask`` is the (N,) bool mask of ``rank_select_mask``; ``hists`` the
+    (4, 256) int32 byte histograms of the four radix passes, MSB first;
+    ``triple`` the (3,) int64 ``(thresh, needed, total)`` of
+    ``radix_threshold``.  Runs on the scores' device.
+    """
+    keys = order_key_bits(scores, high)
+    hists = []
+
+    def hist_fn(keys, prefix, shift):
+        hists.append(byte_histogram_plain(keys, prefix, shift))
+        return hists[-1]
+
+    thresh, needed, total = radix_threshold(keys, k, hist_fn)
+    if high:
+        tie_lo, tie_hi = total - needed, total
+    else:
+        tie_lo, tie_hi = torch.zeros_like(needed), needed
+    mask = select_mask_plain(keys, thresh, tie_lo, tie_hi)
+    return mask, torch.stack(hists), torch.stack([thresh, needed, total])
+
+
+def _k_argument(k, dev: torch.device) -> tuple[int, int, int]:
+    """``(pointer, bytes, value)`` of ``k`` for the kernel: a CUDA tensor is
+    read on the device (int32 or int64), a number or a CPU tensor is passed
+    by value."""
+    if isinstance(k, torch.Tensor):
+        if k.numel() != 1 or k.dtype not in (torch.int32, torch.int64):
+            raise ValueError("rank_select: k must be one int32 or int64 value; "
+                             f"got {tuple(k.shape)} {k.dtype}")
+        if k.device.type != "cpu":
+            if k.device != dev:
+                raise ValueError(f"rank_select: k on {k.device}, scores on {dev}")
+            return k.data_ptr(), k.element_size(), 0
+        k = k.item()
+    k = operator.index(k)
+    if abs(k) >= 2 ** 62:
+        raise ValueError(f"rank_select: k={k} out of range")
+    return 0, 0, k
+
+
+def rank_select(scores: torch.Tensor, k, high: bool = False):
+    """Kernel B4+B5: the rank-select in one launch, ``(mask, hists, triple)``
+    as ``rank_select_plain`` gives them.
+
+    ``scores`` (N,) float32, contiguous; ``k`` a number, a CPU tensor or a
+    one-element int32/int64 tensor on the scores' device (read there, never
+    copied to the host).  A call is two CUDA launches, the scratch's memset
+    and the kernel.  CPU scores take the plain version.
+    """
+    if scores.device.type == "cpu" and not (
+            isinstance(k, torch.Tensor) and k.device.type != "cpu"):
+        return rank_select_plain(scores, k, high)
+    if scores.dim() != 1:
+        raise ValueError(f"rank_select: want (N,) scores; got {tuple(scores.shape)}")
+    dev = backend.check_cuda("rank_select", {"scores": scores})
+    if scores.dtype != torch.float32:
+        raise ValueError(f"rank_select: want float32 scores; got {scores.dtype}")
+    n = scores.numel()
+    if n >= 2 ** 31:
+        raise ValueError(f"rank_select: N={n} too large")
+    k_ptr, k_bytes, k_value = _k_argument(k, dev)
+    scratch = torch.empty(_RS_TIE_WORD + _RS_MAX_BLOCKS, dtype=torch.int32,
+                          device=dev)
+    mask = torch.empty(n, dtype=torch.bool, device=dev)
+    backend.launch("rs_rank_select", "rank_select", dev, scores.data_ptr(),
+                   k_ptr, k_bytes, k_value, int(high), scratch.data_ptr(),
+                   scratch.numel(), mask.data_ptr(), n)
+    hists = scratch[:_RS_TRIPLE_WORD].view(len(RADIX_SHIFTS), 256)
+    triple = scratch[_RS_TRIPLE_WORD:_RS_TRIPLE_WORD + 6].view(torch.int64)
+    return mask, hists, triple
+
+
 def rank_select_mask(scores: torch.Tensor, k, high: bool = False,
                      use_kernel: bool = True) -> torch.Tensor:
     """Exact (N,) bool mask of the ``k`` smallest (``high``: largest) scores.
@@ -279,16 +315,8 @@ def rank_select_mask(scores: torch.Tensor, k, high: bool = False,
     last ``needed`` ties: the window ``(total - needed, total]``).
 
     Five O(N) passes: four byte histograms and the mask.  ``k`` may be a
-    device scalar.  ``use_kernel`` goes through the wrappers (kernels B4/B5
-    on a CUDA tensor, their plain versions on a CPU one); ``False`` runs the
-    plain versions on any device.
+    device scalar.  ``use_kernel`` goes through ``rank_select`` (the kernel
+    on a CUDA tensor, the plain version on a CPU one); ``False`` runs the
+    plain version on any device.
     """
-    keys = order_key_bits(scores, high)
-    hist_fn = byte_histogram if use_kernel else byte_histogram_plain
-    mask_fn = select_mask if use_kernel else select_mask_plain
-    thresh, needed, total = radix_threshold(keys, k, hist_fn)
-    if high:
-        tie_lo, tie_hi = total - needed, total
-    else:
-        tie_lo, tie_hi = torch.zeros_like(needed), needed
-    return mask_fn(keys, thresh, tie_lo, tie_hi)
+    return (rank_select if use_kernel else rank_select_plain)(scores, k, high)[0]

@@ -1,12 +1,16 @@
-"""PyTorch port, radix rank-select: kernels B4/B5 and the masks built on them.
+"""PyTorch port, radix rank-select: B4 and B5 in one kernel, and the masks
+built on it.
 
-The CUDA kernels run only on the card (``chip_smoke.py`` holds each against
-its plain version there).  Here the plain versions — what the wrappers run
-on a CPU tensor — are held against the JAX package: the Pallas kernels in
-interpret mode and their jnp twins, ``rank_select_mask``, ``topk_hide`` and
-``sort_high_mask``, and the stable-argsort oracles.  Every result is an
-integer or a bool, so every comparison is exact.  N stays at or below 8192
-because interpret mode is slow.
+The CUDA kernel runs only on the card (``chip_smoke.py`` holds its mask,
+its four pass histograms and its threshold triple against the plain
+version there).  Here the plain versions — what the wrapper runs on a CPU
+tensor — are held against the JAX package: the Pallas kernels in interpret
+mode and their jnp twins, ``radix_threshold``, ``rank_select_mask``,
+``topk_hide`` and ``sort_high_mask``, and the stable-argsort oracles; and a
+torch emulation of the kernel's split into contiguous block slices is held
+against the sequential plain version.  Every result is an integer or a
+bool, so every comparison is exact.  N stays at or below 8192 because
+interpret mode is slow.
 """
 from __future__ import annotations
 
@@ -81,7 +85,7 @@ def test_byte_histogram_plain_matches_pallas_kernel(kind):
         want = np.asarray(jts.byte_histogram_kernel(keys_j, p, shift,
                                                     interpret=True))
         twin = np.asarray(jts._byte_histogram_jnp(keys_j, p, shift))
-        got = ts.byte_histogram(bits, torch.tensor(prefix), shift)
+        got = ts.byte_histogram_plain(bits, torch.tensor(prefix), shift)
         assert got.dtype == torch.int32 and got.shape == (256,)
         assert np.array_equal(got.numpy(), want), (shift, prefix)
         assert np.array_equal(want, twin)
@@ -122,8 +126,8 @@ def test_select_mask_plain_matches_pallas_kernel(kind):
             keys_j, jnp.uint32(t), jnp.int32(lo), jnp.int32(hi),
             interpret=True)) != 0
         twin = np.asarray(jts._select_mask_jnp(keys_j, jnp.uint32(t), lo, hi))
-        got = ts.select_mask(bits, torch.tensor(t), torch.tensor(lo),
-                             torch.tensor(hi))
+        got = ts.select_mask_plain(bits, torch.tensor(t), torch.tensor(lo),
+                                   torch.tensor(hi))
         assert got.dtype == torch.bool
         assert np.array_equal(got.numpy(), want), (t, lo, hi)
         assert np.array_equal(want, twin)
@@ -228,13 +232,159 @@ def test_sort_high_mask_matches_reference_and_oracle(n, fraction):
 
 
 def test_radix_wrappers_refuse_non_cpu_non_cuda_tensors():
-    keys = torch.zeros(8, dtype=torch.int32, device="meta")
-    scalar = torch.zeros((), dtype=torch.int64, device="meta")
+    scores = torch.zeros(8, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        ts.byte_histogram(keys, scalar, 24)
+        ts.rank_select(scores, 3)
     with pytest.raises(ValueError, match="CUDA"):
-        ts.select_mask(keys, scalar, scalar, scalar)
-    with pytest.raises(ValueError, match="shift"):
-        ts.byte_histogram(torch.zeros(8, dtype=torch.int32), torch.tensor(0), 4)
-    assert backend.LAUNCHES["byte_histogram"] == 0
-    assert backend.LAUNCHES["select_mask"] == 0
+        ts.rank_select_mask(scores, torch.tensor(3), high=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.rank_select(scores, 3)
+    assert backend.LAUNCHES["rank_select"] == 0
+    # the CPU takes the plain version, counted as no launch
+    mask, hists, triple = ts.rank_select(torch.arange(8.0), 3)
+    assert mask.tolist() == [True] * 3 + [False] * 5
+    assert hists.shape == (4, 256) and hists.dtype == torch.int32
+    assert triple.shape == (3,) and triple.dtype == torch.int64
+    assert backend.LAUNCHES["rank_select"] == 0
+
+
+@pytest.mark.parametrize("k,want", [
+    (7, (0, 0, 7)), (np.int64(-2), (0, 0, -2)),
+    (torch.tensor(5, dtype=torch.int32), (0, 0, 5)),
+    (torch.tensor([9]), (0, 0, 9))])
+def test_rank_select_k_by_value(k, want):
+    """A number or a CPU tensor goes to the kernel by value; only a CUDA
+    tensor is read on the device."""
+    assert ts._k_argument(k, torch.device("cuda", 0)) == want
+
+
+@pytest.mark.parametrize("k,err", [
+    (2.5, TypeError), (torch.tensor(3.0), ValueError),
+    (torch.tensor([1, 2]), ValueError), (2 ** 63, ValueError)])
+def test_rank_select_refuses_bad_k(k, err):
+    with pytest.raises(err):
+        ts._k_argument(k, torch.device("cuda", 0))
+
+
+def _reference_passes(x, k, high):
+    """The reference's keys, its four pass histograms, the prefixes it
+    took them at, and its ``(thresh, needed, total)``."""
+    keys = jts.float_order_keys(jnp.asarray(x))
+    if high:
+        keys = ~keys
+    hists, prefixes = [], []
+
+    def hist_fn(ks, prefix, shift):
+        prefixes.append(prefix)
+        hists.append(np.asarray(jts._byte_histogram_jnp(ks, prefix, shift)))
+        return hists[-1]
+
+    triple = jts.radix_threshold(keys, jnp.int32(k), hist_fn)
+    return keys, np.stack(hists), prefixes, [int(v) for v in triple]
+
+
+def _mixed(n, seed):
+    """Signed zeros, +/-inf and repeated finite values side by side."""
+    r = np.random.default_rng(seed)
+    pool = np.array([-0.0, 0.0, np.inf, -np.inf, 1.5, -1.5, 3.0], np.float32)
+    x = pool[r.integers(0, len(pool), n)]
+    spread = r.random(n) < 0.3
+    x[spread] = r.normal(size=int(spread.sum()))
+    return x
+
+
+@pytest.mark.parametrize("kind", KINDS + ["mixed"])
+def test_rank_select_plain_intermediates_match_reference(kind):
+    n = 3000
+    x = (_mixed(n, 8) if kind == "mixed" else _scores(n, kind, seed=8))
+    rank = _stable_rank(x)
+    for k in (0, 1, n // 3, n - 1, n):
+        for high in (False, True):
+            _, hists_j, _, triple_j = _reference_passes(x, k, high)
+            mask, hists, triple = ts.rank_select_plain(torch.from_numpy(x), k,
+                                                       high)
+            assert hists.dtype == torch.int32 and hists.shape == (4, 256)
+            assert np.array_equal(hists.numpy(), hists_j), (k, high)
+            assert triple.dtype == torch.int64
+            assert triple.tolist() == triple_j, (k, high)
+            want = np.asarray(jts.rank_select_mask(jnp.asarray(x), jnp.int32(k),
+                                                   high=high))
+            oracle = rank >= n - k if high else rank < k
+            assert np.array_equal(mask.numpy(), want), (k, high)
+            assert np.array_equal(mask.numpy(), oracle), (k, high)
+            assert int(hists[0].sum()) == n
+
+
+@pytest.mark.parametrize("high", [False, True])
+def test_rank_select_plain_hists_match_pallas_kernel(high):
+    """The four pass histograms against the Pallas ``byte_histogram_kernel``
+    in interpret mode, at the reference's own prefixes."""
+    n = 4096
+    x = _scores(n, "events", seed=9)
+    k = n // 3
+    keys_j, hists_j, prefixes, _ = _reference_passes(x, k, high)
+    _, hists, _ = ts.rank_select_plain(torch.from_numpy(x), k, high)
+    for p, (shift, prefix) in enumerate(zip(ts.RADIX_SHIFTS, prefixes)):
+        want = np.asarray(jts.byte_histogram_kernel(keys_j, prefix, shift,
+                                                    interpret=True))
+        assert np.array_equal(hists[p].numpy(), want), shift
+        assert np.array_equal(want, hists_j[p])
+
+
+def _emulate_kernel(x, k, high, g):
+    """The kernel's decomposition in torch: G contiguous slices of
+    ceil(N / G) keys, per-slice byte histograms summed into the pass's
+    histogram (the atomics), the same bucket search in every block, and
+    per-slice tie counts summed into exclusive offsets for the ranks."""
+    n = len(x)
+    size = -(-n // g)
+    keys = ts.float_order_keys(torch.from_numpy(x))
+    if high:
+        keys = keys ^ ts._U32
+    block = torch.arange(n) // size
+    prefix, remaining = 0, k
+    hists = []
+    for shift in ts.RADIX_SHIFTS:
+        match = (keys & ts._prefix_mask(shift)) == prefix
+        local = torch.zeros(g, 256, dtype=torch.int32)
+        local.index_put_((block[match], (keys[match] >> shift) & 0xFF),
+                         torch.ones(int(match.sum()), dtype=torch.int32),
+                         accumulate=True)
+        hist = local.sum(0, dtype=torch.int32)
+        hists.append(hist)
+        cdf = torch.cumsum(hist, 0, dtype=torch.int64)
+        # the kernel's rule: the one bin whose running count first reaches
+        # remaining (cdf never falls); 255 when none does
+        reached = cdf >= remaining
+        first = reached & torch.cat([torch.tensor([True]), ~reached[:-1]])
+        b = int(first.nonzero()[0]) if bool(reached.any()) else 255
+        below = int(cdf[b - 1]) if b else 0
+        total = int(cdf[b]) - below
+        remaining -= below
+        prefix |= b << shift
+    ties = local[:, b].to(torch.int64)              # pass 3's count at T
+    offset = torch.cumsum(ties, 0) - ties
+    tie = keys == prefix
+    padded = torch.zeros(g * size, dtype=torch.int64)
+    padded[:n] = tie.to(torch.int64)
+    within = torch.cumsum(padded.view(g, size), 1).view(-1)[:n]
+    cum = offset[block] + within
+    lo, hi = (total - remaining, total) if high else (0, remaining)
+    mask = (keys < prefix) | (tie & (cum > lo) & (cum <= hi))
+    return mask, torch.stack(hists), [prefix, remaining, total]
+
+
+@pytest.mark.parametrize("kind", ["events", "ties", "equal", "mixed"])
+@pytest.mark.parametrize("blocks", [1, 3, 132, "N"])
+def test_rank_select_block_decomposition_matches_sequential(kind, blocks):
+    n = 2049
+    x = _mixed(n, 10) if kind == "mixed" else _scores(n, kind, seed=10)
+    g = n if blocks == "N" else blocks
+    for k in (0, 1, n // 3, n - 1, n):
+        for high in (False, True):
+            mask, hists, triple = ts.rank_select_plain(torch.from_numpy(x), k,
+                                                       high)
+            e_mask, e_hists, e_triple = _emulate_kernel(x, k, high, g)
+            assert torch.equal(e_hists, hists), (k, high)
+            assert e_triple == triple.tolist(), (k, high)
+            assert torch.equal(e_mask, mask), (k, high)
