@@ -10,9 +10,17 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 3. kernel checks: every kernel against its plain PyTorch version on the same
    inputs, at the main path's shapes and at larger ones, with times, and
    beside one PyTorch call computing the same function where there is one
-   (``F.cross_entropy`` for B1's ce, ``torch.aminmax`` and ``torch.histc``
-   for B2 and B3); the rank-select (B4 and B5 fused into one kernel)
-   exactly, its mask, four pass histograms and threshold triple, also
+   (``F.cross_entropy`` for B1's ce); the histogram-select (B2 and B3
+   fused with the CDF walks and the masks into one kernel) exactly, its
+   two masks, histogram, raw range and walk, at N = 50,000 and 1,281,167
+   on exponential losses (0.3 invalid), all invalid, one valid, all
+   equal, signed zeros and NaN/+-inf losses, and at N = 1, a ragged N, an
+   N past its shared-memory path and one past 2**24, for low fractions
+   {0, 0.3, 1} x high fractions {0, 0.02} x bins {512, 64}; its call at
+   N = 50,000 and 1,281,167 with its device time and device launches,
+   beside ``torch.aminmax`` + ``torch.histc`` (the nearest two calls;
+   neither gives the masks); the rank-select (B4 and B5 fused into one
+   kernel) exactly, its mask, four pass histograms and threshold triple, also
    against the stable-sort rank window, at N = 50,000 and 1,281,167 on
    exponential losses, FORGET-like event counts with +inf, signed zeros,
    +/-inf and all-equal inputs, for k in {0, 1, N/3, N} both ways, and at
@@ -32,9 +40,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    bound).  The float32 rows of B6 and B7 also give the kernel's and the
    plain version's error against a float64 reference;
 4. plan: ``_plan_step`` at N = 1,281,167 (ImageNet-1K's train size) with
-   ``"histogram_pallas"`` (the kernels) against ``"histogram"`` (plain),
-   and with ``"sort"`` + DropTop 0.02 and FORGET's ``_prune_step`` (the
-   rank-select kernel) against the same on the CPU (its plain version):
+   ``"histogram_pallas"`` (the histogram-select kernel) against
+   ``"histogram"`` (plain) on the card and against itself on the CPU (its
+   plain version), and with ``"sort"`` + DropTop 0.02 and FORGET's
+   ``_prune_step`` (the rank-select kernel) against the same on the CPU:
    the plans must be equal;
 5. train: the paper CNN at the full width of ``configs/paper_cnn.py`` on
    ``SyntheticClassification(50_000)``, 3 epochs of ``baseline`` then of
@@ -192,67 +201,150 @@ def selection_inputs(dev, n: int, invalid: float, seed: int, kind: str = "exp"):
     import numpy as np
     import torch
     r = np.random.default_rng(seed)
-    if kind == "exp":
+    if kind in ("exp", "single"):
         loss = r.exponential(1.0, n)
     elif kind == "equal":
         loss = np.full(n, 2.5)
+    elif kind == "naninf":                  # non-finite losses count as invalid
+        loss = np.select([r.random(n) < 0.05, r.random(n) < 0.05,
+                          r.random(n) < 0.05], [np.nan, np.inf, -np.inf],
+                         r.exponential(1.0, n))
     else:                                   # signed zeros
         loss = np.where(r.random(n) < 0.5, -0.0, 0.0)
     valid = r.random(n) >= invalid
     if kind == "single":
-        loss, valid = r.exponential(1.0, n), np.zeros(n, bool)
-        valid[n // 3] = True
+        valid = np.arange(n) == n // 3
     return (torch.tensor(loss, dtype=torch.float32, device=dev),
             torch.tensor(valid, device=dev))
 
 
-def check_threshold(dev, n: int, invalid: float, kind: str, reps: int,
-                    seed: int = 0) -> tuple[dict, dict]:
+def check_histogram_select(dev, n: int, invalid: float, kind: str,
+                           seed: int = 0) -> int:
+    """The histogram-select kernel (B2 and B3 fused with the CDF walks and
+    the masks) against its plain version on the same card: both masks, the
+    histogram, the walk exactly and the raw range by ``==`` (a signed zero
+    may come back as either zero; both bin alike), for low fractions {0,
+    0.3, 1} (by value and as a float32 device scalar in turn) x high
+    fractions {0, 0.02} x bins {512, 64}.  Returns the cases run."""
     import torch
     from repro_torch.kernels import threshold_select as ts
     loss, valid = selection_inputs(dev, n, invalid, seed, kind)
-    mm, mm_p = ts.minmax(loss, valid), ts.minmax_plain(loss, valid)
-    hist = ts.histogram(loss, valid, mm)
-    hist_p = ts.histogram_plain(loss, valid, mm)
-    torch.cuda.synchronize()
-    tag = f"N={n} invalid={invalid} {kind}"
-    require(bool((mm == mm_p).all()), f"minmax {mm.tolist()} != {mm_p.tolist()} ({tag})")
-    require(torch.equal(hist, hist_p), f"histogram differs ({tag})")
-    require(int(hist.sum()) == int(valid.sum()), f"histogram lost counts ({tag})")
+    nv = int((valid & torch.isfinite(loss)).sum())
+    cases = 0
+    for bins in (512, 64):
+        for j, low in enumerate((0.0, 0.3, 1.0)):
+            for high in (0.0, 0.02):
+                tag = f"N={n} invalid={invalid} {kind} F={low} top={high} bins={bins}"
+                f = (torch.full((), low, device=dev) if (j + cases) % 2 else low)
+                got = ts.histogram_select(loss, valid, f, high, bins)
+                want = ts.histogram_select_plain(loss, valid, low, high, bins)
+                for name, a, b in zip(("low mask", "high mask", "histogram"),
+                                      got, want):
+                    require((a is None) == (b is None), f"{name}: None differs ({tag})")
+                    require(a is None or torch.equal(a, b), f"{name} differs in "
+                            f"{0 if a is None else int((a != b).sum())} places ({tag})")
+                require(bool((got[3] == want[3]).all()),
+                        f"range {got[3].tolist()} != {want[3].tolist()} ({tag})")
+                require(torch.equal(got[4], want[4]),
+                        f"walk {got[4].tolist()} != {want[4].tolist()} ({tag})")
+                require(int(got[2].sum()) == nv, f"histogram lost counts ({tag})")
+                cases += 1
+    return cases
+
+
+#: Losses a block of the histogram-select keeps in shared memory at 512
+#: bins (``csrc/threshold_select.cu``: 220 KiB less 12 bytes a bin, over 4):
+#: up to SMs x this N the losses are read from HBM once.
+HS_SLICE_LOSSES = (220 * 1024 - 12 * 512) // 4
+
+
+def time_histogram_masks(dev, n: int, reps: int, invalid: float = 0.3,
+                         high: float = 0.02) -> dict:
+    """``planops.histogram_masks`` as the plan calls it (F = 0.3 as a
+    float32 device scalar, DropTop ``high``) with ``use_kernel`` on (the
+    kernel path) and off (the plain composition), and the device
+    activities of one kernel-path call.  Only ``planops``' public
+    signature is used, so the same function times an earlier tree's
+    composition."""
+    import torch
+    from repro_torch.core import planops
+    loss, valid = selection_inputs(dev, n, invalid, 0, "exp")
+    f = torch.full((), 0.3, device=dev)
+
+    def masks(use_kernel):
+        return planops.histogram_masks(loss, valid, f, high,
+                                       use_kernel=use_kernel)
+
+    dev_ms, launches, names = device_profile(lambda: masks(True), min(reps, 20))
+    return {"n": n, "invalid": invalid, "high_fraction": high,
+            "masks_kernel_ms": time_ms(lambda: masks(True), reps),
+            "masks_plain_ms": time_ms(lambda: masks(False), reps),
+            "masks_device_ms": dev_ms, "masks_cuda_launches": launches,
+            "masks_device_events": names}
+
+
+def time_histogram_select(dev, n: int, reps: int) -> dict:
+    """The histogram-select call at the plan's arguments (F = 0.3 as a
+    device scalar, DropTop 0.02, 0.3 invalid, 512 bins) against its plain
+    version on the card, the C entry alone on buffers allocated once, and
+    ``torch.aminmax`` + ``torch.histc`` on the same losses (the nearest two
+    calls: the range and a histogram, neither gives the masks; used nowhere
+    in the port).  ``cuda_launches`` counts the device activities of one
+    call under the profiler: the memset and the kernel."""
+    import torch
+    from repro_torch.kernels import backend
+    from repro_torch.kernels import threshold_select as ts
+    invalid, high, bins = 0.3, 0.02, 512
+    loss, valid = selection_inputs(dev, n, invalid, 0, "exp")
+    f = torch.full((), 0.3, device=dev)
+    got = ts.histogram_select(loss, valid, f, high, bins)
+    want = ts.histogram_select_plain(loss, valid, 0.3, high, bins)
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(got, want))
+    require(err == 0.0, f"histogram_select at the timing shape N={n}: "
+            f"max abs difference {err}")
+    lo, hi = (float(v) for v in want[3])
+
+    def library():
+        return torch.aminmax(loss), torch.histc(loss, bins, lo, hi)
+
+    scratch = torch.empty(ts._HS_HIST_WORD + bins + 2 * ts._HS_MAX_BLOCKS,
+                          dtype=torch.int32, device=dev)
+    low_out = torch.empty(n, dtype=torch.bool, device=dev)
+    high_out = torch.empty(n, dtype=torch.bool, device=dev)
+
+    def entry_only():
+        backend.launch("hs_histogram_select", "histogram_select", dev,
+                       loss.data_ptr(), valid.data_ptr(), f.data_ptr(), 0.0,
+                       high, bins, scratch.data_ptr(), scratch.numel(),
+                       low_out.data_ptr(), high_out.data_ptr(), n)
+
+    def call():
+        return ts.histogram_select(loss, valid, f, high, bins)
+
+    dev_ms, launches, names = device_profile(call, min(reps, 20))
+    require(launches <= 2, f"a histogram_select call ran {launches} device "
+            f"activities ({names}), more than the memset and the kernel")
     nv = int(valid.sum())
-    # Yardsticks, where every loss is valid (the function is then one
-    # PyTorch call): torch.aminmax, and torch.histc over the same range
-    # (its own bin arithmetic: an edge value may land one bin over).
-    lib = {"minmax": (None, None), "histogram": (None, None)}
-    if nv == n:
-        lo, hi = (float(v) for v in mm)
-        require(torch.equal(torch.stack(torch.aminmax(loss)), mm),
-                f"torch.aminmax differs from minmax ({tag})")
-        lib = {"minmax": (lambda: torch.aminmax(loss), "torch.aminmax"),
-               "histogram": (lambda: torch.histc(loss, 512, lo, hi),
-                             "torch.histc")}
-        histc_err = float((torch.histc(loss, 512, lo, hi) - hist.float())
-                          .abs().max())
-    out = []
-    for name, fn, plain, err, nbytes, ops in (
-            ("minmax", lambda: ts.minmax(loss, valid),
-             lambda: ts.minmax_plain(loss, valid), (mm - mm_p).abs().max(),
-             5 * n + 8, n + 2 * nv),
-            ("histogram", lambda: ts.histogram(loss, valid, mm),
-             lambda: ts.histogram_plain(loss, valid, mm),
-             (hist - hist_p).abs().max(), 5 * n + 8 + 512 * 4, n + 6 * nv)):
-        b_ms, b_by = bound(nbytes, ops)
-        lib_fn, lib_name = lib[name]
-        out.append({"name": name, "n": n, "invalid": invalid, "kind": kind,
-                    "max_abs_err": float(err), "ms": time_ms(fn, reps),
-                    "device_ms": device_ms(fn, min(reps, 20)),
-                    "plain_ms": time_ms(plain, reps), "bound_ms": b_ms,
-                    "bound_by": b_by,
-                    "library_ms": time_ms(lib_fn, reps) if lib_fn else None,
-                    "library_backend": lib_name})
-    if nv == n:
-        out[1]["library_bin_err"] = histc_err
-    return out[0], out[1]
+    # Bytes: the float losses and bool flags read once, the two bool masks
+    # written once; ops: the validity select on every loss, then min, max,
+    # the bin index (sub, div, mul, truncate, two clamps) and two mask
+    # compares on each valid one, at the fp32 rate.
+    b_ms, b_by = bound(5 * n + 2 * n, n + 10 * nv)
+    return {"phase": "histogram_select", "n": n, "invalid": invalid,
+            "high_fraction": high, "bins": bins, "max_abs_err": err,
+            "ms": time_ms(call, reps), "entry_only_ms": time_ms(entry_only, reps),
+            "device_ms": dev_ms, "cuda_launches": launches,
+            "device_events": names,
+            "shared_path": n <= HS_SLICE_LOSSES * torch.cuda.get_device_properties(
+                dev).multi_processor_count,
+            "plain_ms": time_ms(lambda: ts.histogram_select_plain(
+                loss, valid, f, high, bins), reps),
+            "library_ms": time_ms(library, reps),
+            "library_backend": "torch.aminmax + torch.histc over [lo, hi]: the "
+                               "nearest two calls, neither gives the masks",
+            "bound_ms": b_ms, "bound_by": b_by,
+            **time_histogram_masks(dev, n, reps, invalid, high)}
 
 
 def radix_scores(dev, n: int, kind: str, seed: int = 0):
@@ -657,17 +749,24 @@ def phase_kernels(dev) -> dict:
     big = [check_loss_confidence(dev, 4096, 151936, torch.float32, 1e-4, 5),
            check_loss_confidence(dev, 4096, 151936, torch.bfloat16, 1e-4, 5),
            check_loss_confidence(dev, 1000, 50257, torch.float32, 1e-4, 10)]
-    mm, hist = check_threshold(dev, 50_000, 0.0, "exp", 200)
-    main["minmax"], main["histogram"] = mm, hist
-    for n, invalid, kind in ((1_281_167, 0.3, "exp"), (50_000, 1.0, "exp"),
-                             (50_000, 0.0, "single"), (50_000, 0.0, "equal"),
-                             (50_000, 0.2, "zeros")):
-        big.extend(check_threshold(dev, n, invalid, kind, 50))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # One loss; an N no slice size divides; an N past the shared-memory
+    # path; an N past 2**24, where f32(N) rounds.
+    hs_cases = sum(check_histogram_select(dev, n, invalid, kind)
+                   for n, invalid, kind in (
+                       (50_000, 0.3, "exp"), (1_281_167, 0.3, "exp"),
+                       (50_000, 1.0, "exp"), (50_000, 0.0, "single"),
+                       (50_000, 0.0, "equal"), (50_000, 0.2, "zeros"),
+                       (50_000, 0.2, "naninf"), (1_281_167, 0.1, "naninf"),
+                       (1, 0.0, "exp"), (1_000_003, 0.3, "exp"),
+                       (HS_SLICE_LOSSES * sms + 4_099, 0.3, "exp"),
+                       (2 ** 24 + 1, 0.3, "exp")))
+    hs = time_histogram_select(dev, 50_000, 200)
+    main["minmax"] = main["histogram"] = dict(hs, fused="histogram_select")
     radix_cases = sum(check_radix(dev, n, kind)
                       for n in (50_000, 1_281_167)
                       for kind in ("exp", "events", "zeros", "inf", "equal"))
     # One key; an N no slice size divides; an N past the shared-memory path.
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     radix_cases += sum(check_radix(dev, n, kind)
                        for n in (1, 1_000_003, RS_SLICE_KEYS * sms + 4_099)
                        for kind in ("exp", "events"))
@@ -701,7 +800,8 @@ def phase_kernels(dev) -> dict:
         r["max_abs_err"] for r in fa_rows if r["dtype"] == "float32"))
     big.extend(fa_rows)
     emit({"phase": "kernel_checks", "main": main, "more": big,
-          "radix_cases": radix_cases})
+          "histogram_select_cases": hs_cases, "radix_cases": radix_cases})
+    emit(time_histogram_select(dev, 1_281_167, 50))
     emit(time_rank_select(dev, 1_281_167, 50))
     return main
 
@@ -734,37 +834,47 @@ def seeded_state(dev, n: int, seed: int = 0):
 
 
 def phase_plan(dev, n: int = 1_281_167, reps: int = 5) -> None:
+    """The plans at ImageNet-1K's size: ``"histogram_pallas"`` (the
+    histogram-select kernel) against ``"histogram"`` (plain) on the card
+    and against itself on the CPU (its plain version), then the radix
+    plans."""
     import torch
     from repro_torch.core.kakurenbo import _plan_step
     st = seeded_state(dev, n)
     perm = torch.randperm(n, generator=torch.Generator(device=dev).manual_seed(1),
                           device=dev)
+    cpu = torch.device("cpu")
+    st_cpu = dataclasses.replace(st, **{f.name: getattr(st, f.name).to(cpu)
+                                        for f in dataclasses.fields(st)})
     row = {"phase": "plan", "n": n}
     for drop in (0.0, 0.02):
         outs, ms = {}, {}
         for method in ("histogram_pallas", "histogram"):
-            def run():
+            def run(method=method):
                 return _plan_step(st, perm, 0.3, method=method, tau=0.7,
                                   drop_top=drop, moveback=True, adjust_lr=True)
             outs[method] = run()
-            times = []
-            for _ in range(reps):
-                sync(dev)
-                t0 = time.perf_counter()
-                run()
-                sync(dev)
-                times.append((time.perf_counter() - t0) * 1e3)
-            ms[method] = sorted(times)[len(times) // 2]
+            ms[method] = median_ms(dev, run, reps)
         for a, b in zip(outs["histogram_pallas"], outs["histogram"]):
             require(torch.equal(a, b), f"plan differs between methods (drop_top={drop})")
+        host = _plan_step(st_cpu, perm.cpu(), 0.3, method="histogram_pallas",
+                          tau=0.7, drop_top=drop, moveback=True, adjust_lr=True)
+        for name, a, b in zip(PLAN_FIELDS, outs["histogram_pallas"], host):
+            require(torch.equal(a.cpu(), b), f"histogram_pallas plan: {name} "
+                    f"differs between the card and the CPU (drop_top={drop})")
         hidden = int(outs["histogram"][3])
         require(hidden > 0, "plan hid nothing")
         row[f"drop_top={drop}"] = {"num_hidden": hidden,
                                    "f_star": float(outs["histogram"][4]),
                                    "kernel_plan_ms": ms["histogram_pallas"],
                                    "plain_plan_ms": ms["histogram"]}
-    row.update(radix_plans(dev, st, perm, reps))
+    row.update(radix_plans(dev, st, st_cpu, perm, reps))
     emit(row)
+
+
+#: The fields of ``_plan_step``'s result, in order.
+PLAN_FIELDS = ("hidden", "moved_back", "order", "num_hidden", "f_star",
+               "lr_scale")
 
 
 def median_ms(dev, fn, reps: int) -> float:
@@ -778,7 +888,7 @@ def median_ms(dev, fn, reps: int) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def radix_plans(dev, st, perm, reps: int) -> dict:
+def radix_plans(dev, st, st_cpu, perm, reps: int) -> dict:
     """The plans that run the radix select: ``"sort"`` + DropTop 0.02 and
     FORGET's prune at 0.3 N, on the card (the rank-select kernel) and on
     the CPU (its plain version).  Equal, and the prune equal to the stable-sort
@@ -791,17 +901,15 @@ def radix_plans(dev, st, perm, reps: int) -> dict:
     n = st.num_samples
     r = np.random.default_rng(2)
     st.forget_events.copy_(torch.from_numpy(r.integers(0, 4, n).astype(np.int32)))
+    st_cpu.forget_events.copy_(st.forget_events)
     cpu = torch.device("cpu")
-    st_cpu = dataclasses.replace(st, **{f.name: getattr(st, f.name).to(cpu)
-                                        for f in dataclasses.fields(st)})
 
     def plan(state, p):
         return _plan_step(state, p, 0.3, method="sort", tau=0.7, drop_top=0.02,
                           moveback=True, adjust_lr=True)
 
     card, host = plan(st, perm), plan(st_cpu, perm.cpu())
-    for name, a, b in zip(("hidden", "moved_back", "order", "num_hidden",
-                           "f_star", "lr_scale"), card, host):
+    for name, a, b in zip(PLAN_FIELDS, card, host):
         require(torch.equal(a.cpu(), b), f"sort+DropTop plan: {name} differs "
                 "between the card and the CPU")
     k = int(math.floor(0.3 * n))
@@ -838,26 +946,20 @@ def watch_fraction_bound(strategy, checks: list) -> None:
     floor(F_e * N) by half its boundary bin, and DropTop's top tail
     floor(F_top * N) by half of its own."""
     import torch
-    from repro_torch.core import planops
     from repro_torch.core.selection import select_hidden
     from repro_torch.kernels import threshold_select as ts
     inner = strategy._inner
     begin = inner.begin_epoch
 
-    def floor_fn(fraction, n):
-        return int(torch.floor(torch.tensor(fraction, dtype=torch.float32) * n))
-
     def checked(epoch):
         st = inner.state
         valid = (st.seen >= 0) & torch.isfinite(st.loss)
-        hist = ts.histogram_plain(st.loss, valid, ts.minmax_plain(st.loss, valid))
         f_e, c = float(inner._fraction_schedule(epoch)), inner.config
-        num_hide = floor_fn(f_e, st.num_samples)
-        num_top = floor_fn(c.drop_top_fraction, st.num_samples)
-        slack = 0
-        for h, count in ((hist, num_hide), (hist.flip(0), num_top)):
-            b, _ = planops._cdf_walk(h, torch.tensor(count, device=h.device))
-            slack += int(h[b]) // 2
+        _, _, hist, _, walk = ts.histogram_select_plain(
+            st.loss, st.seen >= 0, f_e, c.drop_top_fraction)
+        num_hide, b, _, num_top, b_top, _ = walk.tolist()
+        top = c.drop_top_fraction > 0.0
+        slack = int(hist[b]) // 2 + (int(hist[b_top]) // 2 if top else 0)
         # What the low tail alone would hide, by histogram and by sort.
         low_only = {m: int(select_hidden(st, f_e, method=m, tau=c.tau).sum())
                     for m in ("histogram", "sort")}
@@ -927,7 +1029,7 @@ def phase_train(dev, n: int = 50_000, n_test: int = 10_000, epochs: int = 3):
     bwd = {s: sum(h.bwd_samples for h in hs) for s, hs in hist.items()}
     require(bwd["kakurenbo"] < bwd["baseline"],
             f"kakurenbo backward samples {bwd['kakurenbo']} not below baseline")
-    for name in ("loss_confidence", "minmax", "histogram"):
+    for name in ("loss_confidence", "histogram_select"):
         require(launches.get(name, 0) > 0, f"kernel {name} never launched")
     emit({"phase": "train_summary", "model": CONFIG.name, "n": n,
           "n_test": n_test, "epochs": epochs, "bwd_samples": bwd,

@@ -34,6 +34,7 @@ from repro_torch.core.state import (SampleState, init_sample_state,
                                     scatter_observations)
 from repro_torch.core.strategy import EpochPlan, SampleStrategy, register_strategy
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.threshold_select import device_scalar
 
 
 @dataclasses.dataclass
@@ -59,7 +60,7 @@ def _plan_step(state: SampleState, perm: torch.Tensor, f_max: float, *,
     visible set first, hidden count, F*, Eq. 8 LR factor), all tensors.
     """
     dev = state.loss.device
-    f_max = torch.as_tensor(f_max, dtype=torch.float32, device=dev)
+    f_max = device_scalar(f_max, torch.float32, dev)
     hidden = sel.select_hidden(state, f_max, method=method, tau=tau,
                                drop_top_fraction=drop_top, moveback=moveback)
     # Move-back set (Sec. 3.1): hidden last epoch, visible again this epoch.
@@ -68,8 +69,8 @@ def _plan_step(state: SampleState, perm: torch.Tensor, f_max: float, *,
     # The reference's ``num_hidden / n`` compiles (XLA) to a product with the
     # float32 reciprocal of the constant n, which is not always the
     # correctly rounded quotient; multiply the same way to match it.
-    inv_n = torch.reciprocal(torch.tensor(float(state.num_samples),
-                                          dtype=torch.float32, device=dev))
+    inv_n = torch.reciprocal(device_scalar(float(state.num_samples),
+                                           torch.float32, dev))
     f_star = num_hidden.to(torch.float32) * inv_n
     one = torch.ones((), dtype=torch.float32, device=dev)
     lr_scale = kakurenbo_lr(one, f_star) if adjust_lr else one

@@ -26,7 +26,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import threshold_select as ts
 
 #: Histogram resolution of the threshold paths (shared with core/selection).
-HIST_BINS = 512
+HIST_BINS = ts.HIST_BINS
 
 
 def strategy_seed(seed: int, name: str) -> int:
@@ -70,7 +70,7 @@ def sort_low_mask(loss: torch.Tensor, fraction) -> torch.Tensor:
     """Mask of the ``floor(fraction * N)`` lowest losses (stable argsort,
     ``jnp.argsort``'s default).  The paper-faithful O(N log N) path."""
     n = loss.shape[0]
-    num_hide = torch.floor(_f32(fraction, loss.device) * n).to(torch.int32)
+    num_hide = ts.fraction_count(fraction, n, loss.device)
     order = torch.argsort(loss, stable=True)
     rank = torch.empty(n, dtype=torch.int64, device=loss.device)
     rank[order] = torch.arange(n, device=loss.device)
@@ -94,11 +94,6 @@ def topk_hide(scores: torch.Tensor, k) -> torch.Tensor:
     return kernel_ops.rank_select(scores, k)
 
 
-def _num_top(loss: torch.Tensor, fraction) -> torch.Tensor:
-    # floor(f32(fraction) * n) in float32, as the reference computes it.
-    return torch.floor(_f32(fraction, loss.device) * loss.shape[0]).to(torch.int32)
-
-
 def sort_high_mask(loss: torch.Tensor, valid: torch.Tensor,
                    fraction) -> torch.Tensor:
     """Mask of the highest-loss ``floor(fraction * N)`` among the valid
@@ -110,8 +105,8 @@ def sort_high_mask(loss: torch.Tensor, valid: torch.Tensor,
     """
     valid = valid & torch.isfinite(loss)
     keyed = torch.where(valid, loss, -torch.inf)
-    return kernel_ops.rank_select(keyed, _num_top(loss, fraction),
-                                  high=True) & valid
+    num_top = ts.fraction_count(fraction, loss.shape[0], loss.device)
+    return kernel_ops.rank_select(keyed, num_top, high=True) & valid
 
 
 def sort_high_mask_argsort(loss: torch.Tensor, valid: torch.Tensor,
@@ -119,7 +114,8 @@ def sort_high_mask_argsort(loss: torch.Tensor, valid: torch.Tensor,
     """The O(N log N) ``sort_high_mask``: the parity oracle."""
     valid = valid & torch.isfinite(loss)
     rank = stable_rank_order(torch.where(valid, loss, -torch.inf))
-    return (rank >= loss.shape[0] - _num_top(loss, fraction)) & valid
+    n = loss.shape[0]
+    return (rank >= n - ts.fraction_count(fraction, n, loss.device)) & valid
 
 
 def _valid_mean(loss: torch.Tensor, valid: torch.Tensor):
@@ -173,55 +169,25 @@ def weighted_keep(loss: torch.Tensor, valid: torch.Tensor, prune_ratio: float,
     return prune, weights
 
 
-def _cdf_walk(hist: torch.Tensor, count: torch.Tensor):
-    """Boundary bin ``b`` of the CDF walk to ``count`` samples, and whether
-    to include it: only if leaving it out would under-fill by more than half
-    its population."""
-    bins = hist.shape[0]
-    cdf = torch.cumsum(hist, 0)
-    b = torch.clamp(torch.searchsorted(cdf, count.reshape(1).to(cdf.dtype),
-                                       side="left")[0], 0, bins - 1)
-    below = torch.where(b > 0, cdf[torch.clamp(b - 1, min=0)],
-                        torch.zeros_like(cdf[0]))
-    return b, (count - below) * 2 >= hist[b]
-
-
 def histogram_masks(loss: torch.Tensor, valid: torch.Tensor, low_fraction,
                     high_fraction: float = 0.0, *, bins: int = HIST_BINS,
                     use_kernel: bool = False):
     """Histogram-CDF threshold masks ``(low_mask, high_mask)``.
 
-    One pass builds the histogram of the valid losses (with kernels B2/B3
-    when ``use_kernel``); the CDF walk gives the lowest-loss candidate mask
-    for ``low_fraction`` and, when ``high_fraction > 0``, the mirrored
-    top-tail mask (DropTop).  The boundary bin is included only if leaving it
-    out would under-fill by more than half its population, so the count can
-    pass ``floor(F * N)`` by at most half a bin.  Non-finite losses count as
-    invalid.
+    One pass builds the histogram of the valid losses; the CDF walk gives
+    the lowest-loss candidate mask for ``low_fraction`` and, when
+    ``high_fraction > 0``, the mirrored top-tail mask (DropTop; else
+    ``None``).  The boundary bin is included only if leaving it out would
+    under-fill by more than half its population, so the count can pass
+    ``floor(F * N)`` by at most half a bin.  Non-finite losses count as
+    invalid.  ``use_kernel`` goes through ``threshold_select.
+    histogram_select`` (the one histogram-select kernel on a CUDA tensor,
+    the plain version on a CPU one); ``False`` runs the plain composition
+    on any device.
     """
-    dev = loss.device
-    n = loss.shape[0]
-    valid = valid & torch.isfinite(loss)
-    num_hide = torch.floor(_f32(low_fraction, dev) * n).to(torch.int32)
-    if use_kernel:
-        lo, hi = kernel_ops.loss_minmax(loss, valid)
-    else:
-        lo, hi = ts.minmax_plain(loss, valid)
-    lo = torch.minimum(lo, hi)          # degenerate all-invalid input
-    idx = ts.bin_index(loss, lo, hi, bins)
-    if use_kernel:
-        hist = kernel_ops.loss_histogram(loss, valid, lo, hi, bins)
-    else:
-        hist = ts.histogram_plain(loss, valid, torch.stack([lo, hi]), bins)
-    b, include_b = _cdf_walk(hist, num_hide)
-    low_mask = torch.where(include_b, idx <= b, idx < b) & valid
-
-    high_mask = None
-    if high_fraction > 0.0:
-        num_top = torch.floor(_f32(high_fraction, dev) * n).to(torch.int32)
-        bt, include_bt = _cdf_walk(hist.flip(0), num_top)
-        b_top = bins - 1 - bt
-        high_mask = torch.where(include_bt, idx >= b_top, idx > b_top) & valid
+    select = ts.histogram_select if use_kernel else ts.histogram_select_plain
+    low_mask, high_mask, *_ = select(loss, valid, low_fraction, high_fraction,
+                                     bins)
     return low_mask, high_mask
 
 

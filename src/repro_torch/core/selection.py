@@ -6,9 +6,10 @@ by ``KakurenboConfig.selection``:
 1. ``"sort"`` — the paper's: rank every sample by lagging loss (O(N log N))
    and hide the lowest-loss fraction <= F;
 2. ``"histogram"`` — the histogram-CDF threshold in plain PyTorch (O(N));
-3. ``"histogram_pallas"`` — the same math with the range and histogram
-   passes in the CUDA kernels B2/B3 (the name is the JAX package's, kept so
-   configurations carry over).  Bit-identical masks to ``"histogram"``.
+3. ``"histogram_pallas"`` — the same math in one CUDA kernel on the card,
+   the histogram-select (B2 and B3 fused with the CDF walks and the masks;
+   the name is the JAX package's, kept so configurations carry over).
+   Bit-identical masks to ``"histogram"``.
 
 All honour the move-back rule: a candidate stays hidden only if it was
 correct with confidence >= tau at its last observation.  Never-seen samples

@@ -15,8 +15,8 @@ into one shared library with a plain C interface and loaded with ``ctypes``.
 The build runs at first use (never at import), one ``nvcc -c`` per source
 started together, then one link; the ``.so`` lands in ``build/repro_torch/``
 at the repository root, named by a hash of the sources and flags, so an
-unchanged tree reuses it.  No ``--use_fast_math``: the histogram kernel's
-bins must be bit-identical to the PyTorch formula.
+unchanged tree reuses it.  No ``--use_fast_math``: the histogram-select
+kernel's bins must be bit-identical to the PyTorch formula.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``launch`` turns a non-zero code into an exception.  ``LAUNCHES`` counts the
@@ -118,15 +118,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
 _I64P = ctypes.POINTER(ctypes.c_longlong)
 #: C signatures: every device pointer and the stream are c_void_p, sizes and
-#: the device index c_int, a scale c_float, a 64-bit value c_longlong, an
-#: array of element strides a pointer to int64.
+#: the device index c_int, a scale or a fraction c_float, a 64-bit value
+#: c_longlong, an array of element strides a pointer to int64.
 #: Each entry sets the device, launches on the stream and returns
 #: cudaGetLastError().
 _SIGNATURES = {
     "lc_forward_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "lc_forward_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "ts_minmax": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "ts_histogram": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "hs_histogram_select": [_P, _P, _P, _F, _F, _I, _P, _I, _P, _P, _I, _I, _P],
     "rs_rank_select": [_P, _P, _I, _LL, _I, _P, _I, _P, _I, _I, _P],
     # Not a launch: the floats of B6's scratch (-1 if too large).
     "ssd_scan_scratch_floats": [_I] * 6,

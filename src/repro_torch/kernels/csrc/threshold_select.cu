@@ -1,162 +1,382 @@
-// Range and histogram passes of the histogram-CDF hidden-sample selection.
+// The histogram-CDF hidden-sample selection in one persistent kernel.
 //
-// Replaces two Pallas kernels of repro/kernels/threshold_select.py:
+// Replaces two Pallas kernels of repro/kernels/threshold_select.py and the
+// ops that ran around them in repro/core/planops.py::histogram_masks:
 //
-// - minmax_kernel: masked min/max of the valid losses.  Returns the raw
-//   [lo, hi], i.e. [BIG, -BIG] with BIG = 3.4e38 when nothing is valid;
-//   the caller folds the degenerate case.
-// - histogram_kernel: the count of valid losses in each of `bins` bins over
-//   [lo, hi], bin = clip(int((x - lo) / max(hi - lo, 1e-12) * bins), 0,
-//   bins - 1), with lo = min(lo, hi) folded as histogram_with_range does.
+// - minmax_kernel: the raw [lo, hi] of the valid losses, [BIG, -BIG] with
+//   BIG = 3.4e38 when nothing is valid;
+// - histogram_kernel: the count of valid losses in each of `bins` bins,
+//   bin = clip(int((x - lo) / max(hi - lo, 1e-12) * bins), 0, bins - 1),
+//   with lo = min(lo, hi) folded first;
+// - the CDF walk: num_hide = floor(f32(low_fraction) * f32(N)), the first
+//   bin b whose running count reaches it (searchsorted, side="left",
+//   clamped to bins - 1), and whether to include it:
+//   (num_hide - count below b) * 2 >= hist[b]; for high_fraction > 0 the
+//   same walk mirrored from the top bin (DropTop);
+// - the masks: low = valid && (include_b ? bin <= b : bin < b), high the
+//   mirror.
+// Non-finite losses count as invalid.  threshold_select.py::
+// histogram_select_plain is the plain version, stage by stage.
 //
-// What bounds them on an H100: bytes.  Both stream N losses (4 bytes) and N
-// valid flags (1 byte) once and do a few operations on each; at the
-// selection's sizes (N = 5e4 to 1.3e6) a pass moves 0.25 to 6.4 MB, so the
-// launch and the tail of the grid weigh as much as the stream itself.
+// What bounds it on an H100: not the bytes.  At the plan's sizes (N = 5e4
+// to 1.3e6) the losses and flags are 0.25 to 6.4 MB, 0.1 to 1.9 us at 3.35
+// TB/s.  The stages depend on each other through grid-wide results (the
+// range, then the histogram), so the time is the latency of two grid
+// barriers and of the walk.  Earlier each stage was a launch, and the walk
+// and masks some 50 PyTorch ops, all paced by the host.
 //
-// Design: the TPU kernels carry one accumulator across a sequential grid.
-// Here blocks run in parallel, so each pass is a grid-stride loop with the
-// reduction inside the block and a second step across blocks:
-// - min/max: every block writes its partial (min, max) to a scratch array,
-//   and a second one-block kernel reduces the partials.  min and max are
-//   exact in any order, so the result equals the sequential one.
-// - histogram: each block counts into its own bins in shared memory with
-//   atomicAdd, then adds every non-zero bin to the output with one global
-//   atomicAdd.  Integer counts make the result independent of the order.
-//   The output is zeroed by a small kernel launched first on the same
-//   stream.  lo and hi are read from a 2-float device array (the min/max
-//   output), so no host round trip sits between the two passes.
-// The bin index is computed with __fsub_rn, __fdiv_rn and __fmul_rn (no
-// fast-math contraction or approximate division), then truncated toward
-// zero and clamped: bit-identical to the PyTorch and XLA formula.
+// Design:
+// - One cooperative launch (cudaLaunchCooperativeKernel), at most one block
+//   of kThreads per SM on the shared-memory path, so that every block is
+//   resident and may wait on the others.  Each block owns one contiguous
+//   slice of [0, N).
+// - The block loads its slice once, as x = valid && finite ? loss : NaN, so
+//   NaN stands for "not valid" in every later pass.  Where the slice fits
+//   beside the bins (kSmemBytes: 54,784 losses at 512 bins, so N up to
+//   7,231,488 on 132 SMs) x stays in dynamic shared memory and HBM is read
+//   once; above it each pass reads the slice again from global memory,
+//   which L2 mostly serves.
+// - Range: each block posts the min and max of its slice (invalid elements
+//   count as BIG and -BIG, as the plain version's masked reduction has
+//   them), a grid barrier, and every block reduces all the posts itself.
+//   min and max are exact in any order, so [lo, hi] is the sequential one.
+// - Histogram: each block counts its slice into shared bins (lanes of a
+//   warp that hit one bin merge by __match_any_sync and add once: equal
+//   losses are common), adds its non-zero bins to the global histogram
+//   with atomics (integer counts: exact in any order), a grid barrier.
+// - Walks: every block scans the same global counts (int64) and does both
+//   walks itself, so all agree with no third barrier.  Then each writes
+//   its slice's masks from the same bin arithmetic.
+// - The bin index is __fsub_rn, __fdiv_rn, __fmul_rn (no contraction, no
+//   approximate division), truncated toward zero and clamped: bit-identical
+//   to the PyTorch and XLA formula.
+// - The grid barrier is cooperative_groups' this_grid().sync(), which nvcc
+//   12.x builds without -rdc for a cooperative launch.  A call is the
+//   memset of the histogram and the kernel, two launches; the kernel
+//   allocates nothing and reads low_fraction from a device scalar or by
+//   value, so nothing in a call waits on the host.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kBig = 3.4e38f;
-constexpr int kThreads = 256;
-constexpr int kMaxBins = 8192;   // 32 KB of shared-memory counters
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;       // elements a thread has in flight in a pass
+constexpr int kMaxBins = 8192;
+// Dynamic shared memory a block uses at most: the bins' int64 CDF and int32
+// counts (12 bytes a bin), then the slice's losses on the shared path
+// (220 KiB of the 227 KiB a block may use on sm_90, beside the static).
+constexpr int kSmemBytes = 220 * 1024;
+// Scratch layout in 32-bit words (threshold_select.py mirrors it): the (6,)
+// int64 walk (num_hide, b, include_b, num_top, b_top, include_bt), the (2,)
+// f32 raw [lo, hi], the (bins,) i32 histogram, then (lo, hi) per block.
+constexpr int kLoHiWord = 12;
+constexpr int kHistWord = 14;
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ void block_minmax(float& lo, float& hi) {
-  __shared__ float slo[kThreads / 32], shi[kThreads / 32];
+__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+__device__ __forceinline__ float load_x(const float* loss,
+                                        const unsigned char* valid, int i) {
+  const float v = loss[i];
+  const bool finite = (__float_as_uint(v) & 0x7F800000u) != 0x7F800000u;
+  return valid[i] && finite ? v : nan_f();
+}
+
+__device__ __forceinline__ int bin_of(float x, float lo, float span,
+                                      float fbins, int bins) {
+  const int b = __float2int_rz(__fmul_rn(__fdiv_rn(__fsub_rn(x, lo), span), fbins));
+  return min(max(b, 0), bins - 1);
+}
+
+// floor(f32(fraction) * f32(n)) as the int32 the reference casts it to.
+__device__ __forceinline__ long long count_of(float fraction, int n) {
+  return static_cast<int>(floorf(__fmul_rn(fraction, static_cast<float>(n))));
+}
+
+// Block-wide min and max; every thread gets both.
+__device__ __forceinline__ void block_minmax(float& lo, float& hi, float* wlo,
+                                             float* whi) {
   for (int off = 16; off > 0; off >>= 1) {
-    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    lo = fminf(lo, __shfl_xor_sync(0xFFFFFFFFu, lo, off));
+    hi = fmaxf(hi, __shfl_xor_sync(0xFFFFFFFFu, hi, off));
   }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) { slo[warp] = lo; shi[warp] = hi; }
+  if (threadIdx.x % 32 == 0) {
+    wlo[threadIdx.x / 32] = lo;
+    whi[threadIdx.x / 32] = hi;
+  }
   __syncthreads();
-  if (warp == 0) {
-    lo = lane < kThreads / 32 ? slo[lane] : kBig;
-    hi = lane < kThreads / 32 ? shi[lane] : -kBig;
-    for (int off = 16; off > 0; off >>= 1) {
-      lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-      hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  lo = wlo[0];
+  hi = whi[0];
+  for (int w = 1; w < kWarps; ++w) {
+    lo = fminf(lo, wlo[w]);
+    hi = fmaxf(hi, whi[w]);
+  }
+  __syncthreads();                      // wlo, whi are reused
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads, 1)
+histogram_select_kernel(const float* __restrict__ loss,
+                        const unsigned char* __restrict__ valid,
+                        const float* frac_ptr, float frac_value,
+                        float high_fraction, int bins, int* __restrict__ scratch,
+                        unsigned char* __restrict__ low,
+                        unsigned char* __restrict__ high, int n, int slice) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long* cdf = reinterpret_cast<long long*>(smem);        // (bins,)
+  int* counts = reinterpret_cast<int*>(cdf + bins);            // (bins,)
+  float* xs = reinterpret_cast<float*>(counts + bins);         // (slice,)
+  __shared__ float wlo[kWarps], whi[kWarps];
+  __shared__ long long wsum[kWarps];
+  __shared__ int picked[2];
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const long long start = static_cast<long long>(blockIdx.x) * slice;
+  const int len = static_cast<int>(
+      start >= n ? 0 : (n - start < slice ? n - start : slice));
+  const float* lp = loss + start;
+  const unsigned char* vp = valid + start;
+  int* hist = scratch + kHistWord;
+  float* posts = reinterpret_cast<float*>(hist + bins);
+  const cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+
+  // 1. Load the slice; the block's min and max, invalid as BIG and -BIG.
+  float lo = inf_f(), hi = -inf_f();
+  for (int base = 0; base < len; base += kThreads * kUnroll) {
+    float v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = base + u * kThreads + tid;
+      v[u] = i < len ? load_x(lp, vp, i) : nan_f();
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = base + u * kThreads + tid;
+      if (i < len) {
+        if (kShared) xs[i] = v[u];
+        const bool ok = v[u] == v[u];
+        lo = fminf(lo, ok ? v[u] : kBig);
+        hi = fmaxf(hi, ok ? v[u] : -kBig);
+      }
     }
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-minmax_partial(const float* __restrict__ loss,
-               const unsigned char* __restrict__ valid,
-               float* __restrict__ partial, int n) {
-  float lo = kBig, hi = -kBig;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += gridDim.x * kThreads) {
-    if (valid[i]) {
-      float x = loss[i];
-      lo = fminf(lo, x);
-      hi = fmaxf(hi, x);
-    }
+  for (int j = tid; j < bins; j += kThreads) counts[j] = 0;
+  block_minmax(lo, hi, wlo, whi);
+  if (tid == 0) {
+    posts[2 * blockIdx.x] = lo;
+    posts[2 * blockIdx.x + 1] = hi;
   }
-  block_minmax(lo, hi);
-  if (threadIdx.x == 0) {
-    partial[2 * blockIdx.x] = lo;
-    partial[2 * blockIdx.x + 1] = hi;
-  }
-}
+  grid.sync();
 
-__global__ void __launch_bounds__(kThreads)
-minmax_final(const float* __restrict__ partial, float* __restrict__ out,
-             int num_partials) {
-  float lo = kBig, hi = -kBig;
-  for (int i = threadIdx.x; i < num_partials; i += kThreads) {
-    lo = fminf(lo, partial[2 * i]);
-    hi = fmaxf(hi, partial[2 * i + 1]);
+  // 2. The range: every block reduces all the posts.
+  lo = inf_f();
+  hi = -inf_f();
+  for (int j = tid; j < static_cast<int>(gridDim.x); j += kThreads) {
+    lo = fminf(lo, __ldcg(&posts[2 * j]));
+    hi = fmaxf(hi, __ldcg(&posts[2 * j + 1]));
   }
-  block_minmax(lo, hi);
-  if (threadIdx.x == 0) {
-    out[0] = lo;
-    out[1] = hi;
-  }
-}
-
-__global__ void zero_bins(int* __restrict__ out, int bins) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < bins;
-       i += gridDim.x * blockDim.x)
-    out[i] = 0;
-}
-
-__global__ void __launch_bounds__(kThreads)
-histogram_bins(const float* __restrict__ loss,
-               const unsigned char* __restrict__ valid,
-               const float* __restrict__ range, int* __restrict__ out, int n,
-               int bins) {
-  extern __shared__ int counts[];
-  for (int b = threadIdx.x; b < bins; b += kThreads) counts[b] = 0;
-  __syncthreads();
-  const float hi = range[1];
-  const float lo = fminf(range[0], hi);
-  const float span = fmaxf(__fsub_rn(hi, lo), 1e-12f);
+  block_minmax(lo, hi, wlo, whi);
+  const float lo_b = fminf(lo, hi);     // nothing valid: [BIG, -BIG]
+  const float span = fmaxf(__fsub_rn(hi, lo_b), 1e-12f);
   const float fbins = static_cast<float>(bins);
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += gridDim.x * kThreads) {
-    if (valid[i]) {
-      float t = __fmul_rn(__fdiv_rn(__fsub_rn(loss[i], lo), span), fbins);
-      int b = __float2int_rz(t);
-      b = min(max(b, 0), bins - 1);
-      atomicAdd(&counts[b], 1);
+
+  // 3. The histogram.  The trip count is the same for every thread, so
+  // whole warps vote.
+  for (int base = 0; base < len; base += kThreads * kUnroll) {
+    float v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = base + u * kThreads + tid;
+      v[u] = i >= len ? nan_f() : kShared ? xs[i] : load_x(lp, vp, i);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const bool ok = v[u] == v[u];
+      const unsigned voters = __ballot_sync(0xFFFFFFFFu, ok);
+      if (ok) {
+        const int b = bin_of(v[u], lo_b, span, fbins, bins);
+        const unsigned peers = __match_any_sync(voters, b);
+        if (lane == __ffs(peers) - 1) atomicAdd(&counts[b], __popc(peers));
+      }
     }
   }
   __syncthreads();
-  for (int b = threadIdx.x; b < bins; b += kThreads)
-    if (counts[b]) atomicAdd(&out[b], counts[b]);
+  for (int j = tid; j < bins; j += kThreads)
+    if (counts[j]) atomicAdd(&hist[j], counts[j]);
+  grid.sync();
+
+  // 4. The walks, in every block: inclusive int64 scan of the counts in
+  // rounds of kThreads bins, then the first bin whose running count reaches
+  // the target (none: bins - 1).  rcdf[j], the count in the top j + 1 bins,
+  // is total - cdf[bins - 2 - j].
+  long long total = 0;
+  for (int base = 0; base < bins; base += kThreads) {
+    const int j = base + tid;
+    const int h = j < bins ? __ldcg(&hist[j]) : 0;
+    if (j < bins) counts[j] = h;
+    long long c = h;
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long up = __shfl_up_sync(0xFFFFFFFFu, c, off);
+      if (lane >= off) c += up;
+    }
+    if (lane == 31) wsum[warp] = c;
+    __syncthreads();
+    long long before = total;
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) before += wsum[w];
+      total += wsum[w];
+    }
+    if (j < bins) cdf[j] = c + before;
+    __syncthreads();                    // wsum is reused
+  }
+  const bool want_high = high != nullptr;
+  const long long num_hide = count_of(frac_ptr ? *frac_ptr : frac_value, n);
+  const long long num_top = want_high ? count_of(high_fraction, n) : 0;
+  if (tid == 0) picked[0] = picked[1] = bins - 1;
+  __syncthreads();
+  // Running counts never fall, so at most one thread writes each.
+  for (int j = tid; j < bins; j += kThreads) {
+    if (cdf[j] >= num_hide && (j == 0 || cdf[j - 1] < num_hide)) picked[0] = j;
+    if (want_high) {
+      const long long r = total - (j < bins - 1 ? cdf[bins - 2 - j] : 0);
+      if (r >= num_top && (j == 0 || total - cdf[bins - 1 - j] < num_top))
+        picked[1] = j;
+    }
+  }
+  __syncthreads();
+  const int b = picked[0];
+  const bool include_b = (num_hide - (b > 0 ? cdf[b - 1] : 0)) * 2 >= counts[b];
+  int b_top = 0;
+  bool include_bt = false;
+  if (want_high) {
+    const int bt = picked[1];
+    b_top = bins - 1 - bt;
+    include_bt = (num_top - (bt > 0 ? total - cdf[bins - 1 - bt] : 0)) * 2 >=
+                 counts[b_top];
+  }
+  if (blockIdx.x == 0 && tid == 0) {
+    long long* walk = reinterpret_cast<long long*>(scratch);
+    walk[0] = num_hide;
+    walk[1] = b;
+    walk[2] = include_b;
+    walk[3] = num_top;
+    walk[4] = b_top;
+    walk[5] = include_bt;
+    float* lo_hi = reinterpret_cast<float*>(scratch + kLoHiWord);
+    lo_hi[0] = lo;
+    lo_hi[1] = hi;
+  }
+
+  // 5. The masks, from the same bin arithmetic.
+  for (int base = 0; base < len; base += kThreads) {
+    const int i = base + tid;
+    if (i < len) {
+      const float x = kShared ? xs[i] : load_x(lp, vp, i);
+      bool l = false, h = false;
+      if (x == x) {
+        const int idx = bin_of(x, lo_b, span, fbins, bins);
+        l = include_b ? idx <= b : idx < b;
+        h = include_bt ? idx >= b_top : idx > b_top;
+      }
+      low[start + i] = l;
+      if (want_high) high[start + i] = h;
+    }
+  }
+}
+
+struct DeviceInfo {
+  bool ready = false;
+  int sms = 0;
+  bool shared_fits = false;   // a block with kSmemBytes is resident
+};
+
+cudaError_t device_info(int device, DeviceInfo** out) {
+  static DeviceInfo infos[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  DeviceInfo& d = infos[device];
+  if (!d.ready) {
+    cudaError_t err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount,
+                                             device);
+    if (err != cudaSuccess) return err;
+    int blocks = 0;
+    if (cudaFuncSetAttribute(histogram_select_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes) == cudaSuccess &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, histogram_select_kernel<true>, kThreads, kSmemBytes) ==
+            cudaSuccess)
+      d.shared_fits = blocks >= 1;
+    cudaGetLastError();                 // a card without the room: global path
+    err = cudaFuncSetAttribute(histogram_select_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxBins * 12);
+    if (err != cudaSuccess) return err;
+    d.ready = true;
+  }
+  *out = &d;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// loss (n,) f32, valid (n,) bool, partial (2 * num_blocks,) f32 scratch,
-// out (2,) f32.  num_blocks in [1, 1024].
-extern "C" int ts_minmax(const void* loss, const void* valid, void* partial,
-                         void* out, int n, int num_blocks, int device,
-                         void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  minmax_partial<<<num_blocks, kThreads, 0, s>>>(
-      static_cast<const float*>(loss), static_cast<const unsigned char*>(valid),
-      static_cast<float*>(partial), n);
-  minmax_final<<<1, kThreads, 0, s>>>(static_cast<const float*>(partial),
-                                      static_cast<float*>(out), num_blocks);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// loss (n,) f32, valid (n,) bool, range (2,) f32 raw [lo, hi], out (bins,)
-// i32.  bins in [1, kMaxBins].
-extern "C" int ts_histogram(const void* loss, const void* valid,
-                            const void* range, void* out, int n, int bins,
-                            int device, void* stream) {
-  if (bins < 1 || bins > kMaxBins)
+// loss (n,) f32, valid (n,) bool; low_fraction from frac_ptr (a device f32)
+// or, when it is null, the value frac_value; high_fraction by value, used
+// when high is not null.  scratch (scratch_words,) i32: on return it holds
+// the (6,) int64 walk, the (2,) f32 raw [lo, hi] and the (bins,) i32
+// histogram (layout above).  low and high (n,) bool.
+extern "C" int hs_histogram_select(const void* loss, const void* valid,
+                                   const void* frac_ptr, float frac_value,
+                                   float high_fraction, int bins, void* scratch,
+                                   int scratch_words, void* low, void* high,
+                                   int n, int device, void* stream) {
+  if (n < 1 || bins < 1 || bins > kMaxBins)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  DeviceInfo* d = nullptr;
+  err = device_info(device, &d);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // Never more blocks than N has rows of kThreads elements; one a SM on the
+  // shared-memory path, as many as are resident on the global one.
+  const long long rows = (static_cast<long long>(n) + kThreads - 1) / kThreads;
+  long long grid = rows < d->sms ? rows : d->sms;
+  long long slice = (n + grid - 1) / grid;
+  const long long bin_bytes = 12LL * bins;
+  const bool shared = d->shared_fits && bin_bytes + 4 * slice <= kSmemBytes;
+  if (!shared) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, histogram_select_kernel<false>, kThreads, bin_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long cap = static_cast<long long>(per_sm) * d->sms;
+    grid = rows < cap ? rows : cap;
+    if (grid < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    slice = (n + grid - 1) / grid;
+  }
+  if (kHistWord + bins + 2 * grid > scratch_words)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  zero_bins<<<(bins + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<int*>(out), bins);
-  int grid = (n + kThreads - 1) / kThreads;
-  grid = grid < 1 ? 1 : (grid > 1024 ? 1024 : grid);
-  histogram_bins<<<grid, kThreads, bins * sizeof(int), s>>>(
-      static_cast<const float*>(loss), static_cast<const unsigned char*>(valid),
-      static_cast<const float*>(range), static_cast<int*>(out), n, bins);
+  int* scr = static_cast<int*>(scratch);
+  err = cudaMemsetAsync(scr + kHistWord, 0, bins * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* lp = static_cast<const float*>(loss);
+  const unsigned char* vp = static_cast<const unsigned char*>(valid);
+  const float* fp = static_cast<const float*>(frac_ptr);
+  unsigned char* lm = static_cast<unsigned char*>(low);
+  unsigned char* hm = static_cast<unsigned char*>(high);
+  int slice_i = static_cast<int>(slice);
+  void* args[] = {&lp, &vp, &fp, &frac_value, &high_fraction, &bins, &scr,
+                  &lm, &hm, &n, &slice_i};
+  const size_t smem = bin_bytes + (shared ? 4 * slice : 0);
+  // A grid the card cannot hold at once is refused here, never run.
+  err = cudaLaunchCooperativeKernel(
+      shared ? reinterpret_cast<const void*>(histogram_select_kernel<true>)
+             : reinterpret_cast<const void*>(histogram_select_kernel<false>),
+      dim3(static_cast<unsigned>(grid)), dim3(kThreads), args, smem, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,18 +28,6 @@ def loss_confidence(logits: torch.Tensor, labels: torch.Tensor):
     return ce.reshape(shape), (cor != 0).reshape(shape), pmax.reshape(shape)
 
 
-def loss_minmax(loss: torch.Tensor, valid: torch.Tensor):
-    """Raw (lo, hi) 0-d tensors of the valid losses (no degeneracy fold)."""
-    mm = _ts.minmax(loss, valid)
-    return mm[0], mm[1]
-
-
-def loss_histogram(loss: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
-                   hi: torch.Tensor, bins: int = 512) -> torch.Tensor:
-    """(bins,) i32 histogram of the valid losses over ``[lo, hi]``."""
-    return _ts.histogram(loss, valid, torch.stack([lo, hi]).float(), bins)
-
-
 def rank_select(scores: torch.Tensor, k, high: bool = False) -> torch.Tensor:
     """Exact (N,) bool mask of the ``k`` smallest (or largest) scores by
     count-then-select, equal to the stable-argsort rank masks (see

@@ -1,11 +1,16 @@
-"""Threshold selection: the histogram-CDF passes and the exact radix select.
+"""Threshold selection: the histogram-CDF selection and the exact radix select.
 
 Port of ``repro/kernels/threshold_select.py``:
 
-- ``minmax`` (B2) and ``histogram`` (B3), the range and histogram passes of
-  the histogram-CDF selection (CUDA in ``csrc/threshold_select.cu``).  Both
-  return *raw* reductions: ``minmax`` gives ``[BIG, -BIG]`` when nothing is
-  valid, and callers fold ``lo = min(lo, hi)``;
+- ``histogram_select`` (B2 and B3 in one kernel, with the CDF walks and
+  the masks of ``repro/core/planops.py::histogram_masks``): one persistent
+  CUDA kernel in ``csrc/threshold_select.cu`` takes the range of the valid
+  losses (B2's function), their ``bins``-bin histogram (B3's), walks the
+  histogram's CDF to ``floor(F * N)`` from the bottom (and, for DropTop,
+  from the top) and writes the masks.  Its plain version
+  ``histogram_select_plain`` composes the per-stage specs ``minmax_plain``
+  (the *raw* ``[lo, hi]``: ``[BIG, -BIG]`` when nothing is valid),
+  ``bin_index``, ``histogram_plain`` and ``cdf_walk``;
 - ``rank_select`` (B4 and B5 in one kernel), the exact count-then-select
   that replaces a stable argsort where a plan needs only a rank window
   (FORGET's prune, DropTop's top tail): one persistent CUDA kernel in
@@ -34,9 +39,8 @@ from repro_torch.kernels import backend
 
 #: Sentinel of the masked min/max (finite, so lo - hi stays finite).
 BIG = 3.4e38
-#: Partial results of the min/max range pass: at most this many blocks.
-_MINMAX_BLOCKS = 1024
-_THREADS = 256
+#: Histogram resolution of the threshold paths.
+HIST_BINS = 512
 
 
 def minmax_plain(loss: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -55,69 +59,159 @@ def bin_index(loss: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     return torch.clamp(((loss - lo) / span * bins).to(torch.int32), 0, bins - 1)
 
 
-def histogram_plain(loss: torch.Tensor, valid: torch.Tensor,
-                    lo_hi: torch.Tensor, bins: int = 512) -> torch.Tensor:
-    """(bins,) i32 count of the valid losses over the raw ``[lo, hi]``."""
-    hi = lo_hi[1]
-    lo = torch.minimum(lo_hi[0], hi)
-    idx = bin_index(loss, lo, hi, bins)
-    hist = torch.zeros(bins, dtype=torch.int32, device=loss.device)
+def _count_bins(idx: torch.Tensor, valid: torch.Tensor, bins: int) -> torch.Tensor:
+    hist = torch.zeros(bins, dtype=torch.int32, device=idx.device)
     return hist.index_add_(0, idx, valid.to(torch.int32))
 
 
-def _check(name: str, loss: torch.Tensor, valid: torch.Tensor,
-           **extra: torch.Tensor) -> torch.device:
+def histogram_plain(loss: torch.Tensor, valid: torch.Tensor,
+                    lo_hi: torch.Tensor, bins: int = HIST_BINS) -> torch.Tensor:
+    """(bins,) i32 count of the valid losses over the raw ``[lo, hi]``."""
+    hi = lo_hi[1]
+    return _count_bins(bin_index(loss, torch.minimum(lo_hi[0], hi), hi, bins),
+                       valid, bins)
+
+
+def device_scalar(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``x`` (a Python number or a tensor) as a 0-d ``dtype`` tensor on
+    ``device``.  A Python number is written there by a fill kernel:
+    ``torch.as_tensor`` would copy it from host memory, which waits for the
+    device's stream to drain."""
+    if isinstance(x, (int, float)):
+        return torch.full((), x, dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def fraction_count(fraction, n: int, device: torch.device) -> torch.Tensor:
+    """``floor(f32(fraction) * f32(n))`` as a 0-d int32 tensor, as the
+    reference computes a count from a fraction (``f32(n)`` rounds above
+    2**24)."""
+    f = device_scalar(fraction, torch.float32, device).reshape(())
+    return torch.floor(f * n).to(torch.int32)
+
+
+def cdf_walk(hist: torch.Tensor, count: torch.Tensor):
+    """Boundary bin ``b`` of the CDF walk to ``count`` samples, and whether
+    to include it: only if leaving it out would under-fill by more than half
+    its population."""
+    bins = hist.shape[0]
+    cdf = torch.cumsum(hist, 0)
+    b = torch.clamp(torch.searchsorted(cdf, count.reshape(1).to(cdf.dtype),
+                                       side="left")[0], 0, bins - 1)
+    below = torch.where(b > 0, cdf[torch.clamp(b - 1, min=0)],
+                        torch.zeros_like(cdf[0]))
+    return b, (count - below) * 2 >= hist[b]
+
+
+def histogram_select_plain(loss: torch.Tensor, valid: torch.Tensor,
+                           low_fraction, high_fraction: float = 0.0,
+                           bins: int = HIST_BINS):
+    """The histogram-CDF selection's plain version, on the loss's device:
+    ``(low_mask, high_mask, hist, lo_hi, walk)``.
+
+    ``low_mask`` holds the lowest-loss candidates for ``low_fraction``;
+    ``high_mask`` the mirrored top tail for ``high_fraction > 0`` (else
+    ``None``).  ``hist`` is the (bins,) i32 histogram of the valid losses,
+    ``lo_hi`` their raw (2,) f32 range, ``walk`` the (6,) int64 ``(num_hide,
+    b, include_b, num_top, b_top, include_bt)`` (the last three 0 without a
+    top tail).  Non-finite losses count as invalid.
+    """
+    dev = loss.device
+    n = loss.shape[0]
+    valid = valid & torch.isfinite(loss)
+    num_hide = fraction_count(low_fraction, n, dev)
+    lo_hi = minmax_plain(loss, valid)
+    hi = lo_hi[1]
+    idx = bin_index(loss, torch.minimum(lo_hi[0], hi), hi, bins)
+    hist = _count_bins(idx, valid, bins)
+    b, include_b = cdf_walk(hist, num_hide)
+    low_mask = torch.where(include_b, idx <= b, idx < b) & valid
+    high_mask = None
+    top = (torch.zeros((), dtype=torch.int64, device=dev),) * 3
+    if high_fraction > 0.0:
+        num_top = fraction_count(high_fraction, n, dev)
+        bt, include_bt = cdf_walk(hist.flip(0), num_top)
+        b_top = bins - 1 - bt
+        high_mask = torch.where(include_bt, idx >= b_top, idx > b_top) & valid
+        top = (num_top, b_top, include_bt)
+    walk = torch.stack([t.to(torch.int64)
+                        for t in (num_hide, b, include_b, *top)])
+    return low_mask, high_mask, hist, lo_hi, walk
+
+
+#: Scratch of the histogram-select kernel, in int32 words
+#: (``csrc/threshold_select.cu`` lays it out): the (6,) int64 walk, the (2,)
+#: f32 raw range, the (bins,) histogram, then a (lo, hi) pair per block.
+_HS_LOHI_WORD = 12
+_HS_HIST_WORD = 14
+#: (lo, hi) slots in the scratch: more than the blocks the kernel runs (at
+#: most the co-resident ones: 132 on an H100's shared-memory path).
+_HS_MAX_BLOCKS = 4096
+#: Most bins the kernel takes (12 bytes each of shared memory).
+HS_MAX_BINS = 8192
+
+
+def _fraction_argument(f, dev: torch.device) -> tuple[int | None, float]:
+    """``(pointer, value)`` of ``low_fraction`` for the kernel: a float32
+    CUDA tensor is read on the device, a number or a CPU tensor is passed by
+    value (rounded to float32, as the plain version rounds it)."""
+    if isinstance(f, torch.Tensor):
+        if f.numel() != 1 or not f.is_floating_point():
+            raise ValueError("histogram_select: low_fraction must be one float "
+                             f"value; got {tuple(f.shape)} {f.dtype}")
+        if f.device.type != "cpu":
+            if f.device != dev or f.dtype != torch.float32:
+                raise ValueError("histogram_select: a device low_fraction must "
+                                 f"be float32 on {dev}; got {f.dtype} on {f.device}")
+            return f.data_ptr(), 0.0
+        f = f.item()
+    return None, float(f)
+
+
+def histogram_select(loss: torch.Tensor, valid: torch.Tensor, low_fraction,
+                     high_fraction: float = 0.0, bins: int = HIST_BINS):
+    """Kernel B2+B3: the histogram-CDF selection in one launch,
+    ``(low_mask, high_mask, hist, lo_hi, walk)`` as
+    ``histogram_select_plain`` gives them.
+
+    ``loss`` (N,) float32 and ``valid`` (N,) bool, contiguous;
+    ``low_fraction`` a number, a CPU tensor or a one-element float32 tensor
+    on the loss's device (read there, never copied to the host);
+    ``high_fraction`` a number.  A call is two CUDA launches, the memset of
+    the histogram and the kernel.  CPU tensors take the plain version.
+    """
+    if (loss.device.type == "cpu" and valid.device.type == "cpu" and not (
+            isinstance(low_fraction, torch.Tensor)
+            and low_fraction.device.type != "cpu")):
+        return histogram_select_plain(loss, valid, low_fraction, high_fraction,
+                                      bins)
     if loss.dim() != 1 or valid.shape != loss.shape:
-        raise ValueError(f"{name}: want loss (N,) and valid (N,); got "
+        raise ValueError("histogram_select: want loss (N,) and valid (N,); got "
                          f"{tuple(loss.shape)} and {tuple(valid.shape)}")
-    dev = backend.check_cuda(name, {"loss": loss, "valid": valid, **extra})
+    dev = backend.check_cuda("histogram_select", {"loss": loss, "valid": valid})
     if loss.dtype != torch.float32 or valid.dtype != torch.bool:
-        raise ValueError(f"{name}: want float32 loss and bool valid; got "
-                         f"{loss.dtype} and {valid.dtype}")
-    if loss.numel() >= 2 ** 31:
-        raise ValueError(f"{name}: N={loss.numel()} too large")
-    return dev
-
-
-def minmax(loss: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Kernel B2: (2,) f32 raw ``[lo, hi]`` on the loss's device."""
-    if loss.device.type == "cpu" and valid.device.type == "cpu":
-        return minmax_plain(loss, valid)
-    dev = _check("minmax", loss, valid)
+        raise ValueError("histogram_select: want float32 loss and bool valid; "
+                         f"got {loss.dtype} and {valid.dtype}")
     n = loss.numel()
-    blocks = max(1, min(_MINMAX_BLOCKS, -(-n // (_THREADS * 4))))
-    partial = torch.empty(2 * blocks, dtype=torch.float32, device=dev)
-    out = torch.empty(2, dtype=torch.float32, device=dev)
-    backend.launch("ts_minmax", "minmax", dev, loss.data_ptr(),
-                   valid.data_ptr(), partial.data_ptr(), out.data_ptr(), n,
-                   blocks)
-    return out
-
-
-def histogram(loss: torch.Tensor, valid: torch.Tensor, lo_hi: torch.Tensor,
-              bins: int = 512) -> torch.Tensor:
-    """Kernel B3: (bins,) i32 histogram over the (2,) f32 raw ``[lo, hi]``
-    device array (``lo = min(lo, hi)`` is folded inside, as
-    ``histogram_with_range`` does)."""
-    if all(t.device.type == "cpu" for t in (loss, valid, lo_hi)):
-        return histogram_plain(loss, valid, lo_hi, bins)
-    dev = _check("histogram", loss, valid, lo_hi=lo_hi)
-    if lo_hi.shape != (2,) or lo_hi.dtype != torch.float32:
-        raise ValueError("histogram: lo_hi must be a (2,) float32 tensor")
-    if not 1 <= bins <= 8192:
-        raise ValueError(f"histogram: bins={bins} outside [1, 8192]")
-    out = torch.empty(bins, dtype=torch.int32, device=dev)
-    backend.launch("ts_histogram", "histogram", dev, loss.data_ptr(),
-                   valid.data_ptr(), lo_hi.data_ptr(), out.data_ptr(),
-                   loss.numel(), bins)
-    return out
-
-
-def histogram_with_range(loss: torch.Tensor, valid: torch.Tensor,
-                         bins: int = 512):
-    """Both passes chained on the device: ``(hist, lo_raw, hi_raw)``."""
-    mm = minmax(loss, valid)
-    return histogram(loss, valid, mm, bins), mm[0], mm[1]
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"histogram_select: N={n} outside [1, 2**31)")
+    if not 1 <= bins <= HS_MAX_BINS:
+        raise ValueError(f"histogram_select: bins={bins} outside [1, {HS_MAX_BINS}]")
+    f_ptr, f_value = _fraction_argument(low_fraction, dev)
+    scratch = torch.empty(_HS_HIST_WORD + bins + 2 * _HS_MAX_BLOCKS,
+                          dtype=torch.int32, device=dev)
+    low = torch.empty(n, dtype=torch.bool, device=dev)
+    high = (torch.empty(n, dtype=torch.bool, device=dev)
+            if high_fraction > 0.0 else None)
+    backend.launch("hs_histogram_select", "histogram_select", dev,
+                   loss.data_ptr(), valid.data_ptr(), f_ptr, f_value,
+                   float(high_fraction), bins, scratch.data_ptr(),
+                   scratch.numel(), low.data_ptr(),
+                   None if high is None else high.data_ptr(), n)
+    walk = scratch[:_HS_LOHI_WORD].view(torch.int64)
+    lo_hi = scratch[_HS_LOHI_WORD:_HS_HIST_WORD].view(torch.float32)
+    hist = scratch[_HS_HIST_WORD:_HS_HIST_WORD + bins]
+    return low, high, hist, lo_hi, walk
 
 
 # ---------------------------------------------------------------------------
@@ -181,16 +275,6 @@ def select_mask_plain(keys: torch.Tensor, thresh: torch.Tensor,
     tie = k == thresh
     cum = torch.cumsum(tie.to(torch.int64), 0)
     return (k < thresh) | (tie & (cum > tie_lo) & (cum <= tie_hi))
-
-
-def device_scalar(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """``x`` (a Python number or a tensor) as a 0-d ``dtype`` tensor on
-    ``device``.  A Python number is written there by a fill kernel:
-    ``torch.as_tensor`` would copy it from host memory, which waits for the
-    device's stream to drain."""
-    if isinstance(x, (int, float)):
-        return torch.full((), x, dtype=dtype, device=device)
-    return torch.as_tensor(x, dtype=dtype, device=device)
 
 
 def radix_threshold(keys: torch.Tensor, k, hist_fn):

@@ -121,7 +121,7 @@ def test_minmax_plain_matches_pallas_kernel(n, invalid, kind):
     loss, valid = _selection(n, invalid, kind)
     want = np.asarray(jops.loss_minmax(jnp.asarray(loss), jnp.asarray(valid),
                                        interpret=True))
-    got = ts.minmax(torch.from_numpy(loss), torch.from_numpy(valid))
+    got = ts.minmax_plain(torch.from_numpy(loss), torch.from_numpy(valid))
     assert got.dtype == torch.float32 and got.shape == (2,)
     assert np.array_equal(got.numpy(), want)
     if n % 2048 == 0:               # the kernel itself, unpadded
@@ -140,8 +140,8 @@ def test_histogram_plain_matches_pallas_kernel(n, invalid, kind, bins):
     want = np.asarray(jops.loss_histogram(
         jnp.asarray(loss), jnp.asarray(valid), jnp.float32(lo),
         jnp.float32(lo_hi[1]), bins, interpret=True))
-    got = ts.histogram(torch.from_numpy(loss), torch.from_numpy(valid),
-                       torch.from_numpy(lo_hi), bins)
+    got = ts.histogram_plain(torch.from_numpy(loss), torch.from_numpy(valid),
+                             torch.from_numpy(lo_hi), bins)
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), want)
     assert int(got.sum()) == int(valid.sum())
@@ -154,26 +154,31 @@ def test_histogram_plain_matches_pallas_kernel(n, invalid, kind, bins):
 
 @pytest.mark.parametrize("n", [2048, 4096])
 def test_histogram_with_range_matches_pallas(n):
+    """The histogram-select's range and histogram stages against the
+    reference's two kernels chained on the device."""
     loss, valid = _selection(n, 0.3, "exp", seed=2)
     h, lo, hi = histogram_with_range(jnp.asarray(loss), jnp.asarray(valid),
                                      interpret=True)
-    h_t, lo_t, hi_t = ts.histogram_with_range(torch.from_numpy(loss),
-                                              torch.from_numpy(valid))
+    _, _, h_t, lo_hi, _ = ts.histogram_select_plain(
+        torch.from_numpy(loss), torch.from_numpy(valid), 0.3)
     assert np.array_equal(h_t.numpy(), np.asarray(h))
-    assert float(lo_t) == float(lo) and float(hi_t) == float(hi)
+    assert float(lo_hi[0]) == float(lo) and float(lo_hi[1]) == float(hi)
 
 
 def test_ops_wrappers_match_jax_ops():
+    """``histogram_select`` on CPU tensors (its plain version) against the
+    reference's ``ops.loss_minmax`` and ``ops.loss_histogram``."""
     loss, valid = _selection(1500, 0.25, "exp", seed=3)
     lo, hi = jops.loss_minmax(jnp.asarray(loss), jnp.asarray(valid),
                               interpret=True)
-    lo_t, hi_t = tops.loss_minmax(torch.from_numpy(loss), torch.from_numpy(valid))
-    assert float(lo_t) == float(lo) and float(hi_t) == float(hi)
-    want = jops.loss_histogram(jnp.asarray(loss), jnp.asarray(valid), lo, hi,
-                               512, interpret=True)
-    got = tops.loss_histogram(torch.from_numpy(loss), torch.from_numpy(valid),
-                              lo_t, hi_t, 512)
-    assert np.array_equal(got.numpy(), np.asarray(want))
+    _, high, hist, lo_hi, _ = ts.histogram_select(
+        torch.from_numpy(loss), torch.from_numpy(valid), 0.3, 0.02)
+    assert float(lo_hi[0]) == float(lo) and float(lo_hi[1]) == float(hi)
+    want = jops.loss_histogram(jnp.asarray(loss), jnp.asarray(valid),
+                               jnp.minimum(lo, hi), hi, 512, interpret=True)
+    assert np.array_equal(hist.numpy(), np.asarray(want))
+    assert high is not None and high.shape == (1500,)
+    assert backend.LAUNCHES["histogram_select"] == 0
 
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
@@ -186,12 +191,15 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     loss = torch.zeros(8, device="meta")
     valid = torch.zeros(8, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        ts.minmax(loss, valid)
+        ts.histogram_select(loss, valid, 0.3)
     with pytest.raises(ValueError, match="CUDA"):
-        ts.histogram(loss, valid, torch.zeros(2, device="meta"))
+        ts.histogram_select(loss, valid, 0.3, 0.02, bins=64)
+    with pytest.raises(ValueError, match="want loss"):
+        ts.histogram_select(loss, valid[:4], 0.3)
     with pytest.raises(ValueError, match="logits"):
         lc.loss_confidence(torch.zeros(4), torch.zeros(4, dtype=torch.int32))
     assert backend.LAUNCHES["loss_confidence"] == 0
+    assert backend.LAUNCHES["histogram_select"] == 0
 
 
 # ---------------------------------------------------------------------------
