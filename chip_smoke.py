@@ -81,6 +81,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -134,21 +135,68 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: Host calls that put one activity on the device's timeline.
+DEVICE_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC",
+                "cudaLaunchCooperativeKernel", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync"}
+
+
+def profiled(warm, active, tries: int = 3):
+    """Run ``warm`` and then ``active`` in one ``torch.profiler`` session,
+    keeping only ``active``'s events: ``warm`` runs in the schedule's
+    warm-up step, while the profiler sets up its buffers.  A trace with
+    fewer device activities than the host calls that launched them lost
+    some (seen on the card, at random): it is taken again, up to ``tries``
+    times.  Returns (profile, wall ms of ``active`` with the profiler's own
+    host cost, whether the trace holds every launch)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    # No CUDA: the phases' rehearsal on the CPU.
+    sync_all = (torch.cuda.synchronize if torch.cuda.is_available()
+                else lambda: None)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     acc_events=True) as prof:
+            warm()
+            sync_all()
+            prof.step()
+            t0 = time.perf_counter()
+            active()
+            sync_all()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+        launched = sum(e.name in DEVICE_CALLS for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CPU)
+        complete = len(device_events(prof)) >= launched
+        if complete:
+            break
+    return prof, wall_ms, complete
+
+
+def device_events(prof) -> list:
+    """The device activities of a profile: kernels, copies and memsets, not
+    the ranges a ``record_function`` (as ``Optimizer.step`` or the
+    profiler's own step) marks on the device's timeline."""
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("ProfilerStep")]
+
+
 def device_profile(fn, reps: int) -> tuple[float, float, list]:
     """``fn``'s device activities (kernels, copies, memsets) under
     ``torch.profiler`` over ``reps`` calls: their summed duration a call
     (ms), their number a call, and their names.  Beside ``time_ms``, which
     also holds the host's cost of each call where the device waits for it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def calls():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    prof, _, complete = profiled(fn, calls)
+    require(complete, "the profiler lost device activities in three traces")
+    events = device_events(prof)
     return (sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps,
             len(events) / reps, sorted({e.name for e in events}))
 
@@ -163,31 +211,53 @@ def device_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def check_loss_confidence(dev, t: int, v: int, dtype, tol: float, reps: int,
-                          seed: int = 0) -> dict:
+def lc_inputs(dev, t: int, v: int, dtype, seed: int = 0):
+    """Seeded (T, V) logits at scale 3, int32 labels and a per-row g."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import loss_confidence as lc
     g = torch.Generator(device=dev).manual_seed(seed)
     logits = (torch.randn(t, v, generator=g, device=dev) * 3).to(dtype)
     labels = torch.randint(0, v, (t,), generator=g, device=dev,
                            dtype=torch.int32)
+    return logits, labels, torch.randn(t, generator=g, device=dev)
+
+
+def check_loss_confidence(dev, t: int, v: int, dtype, tol: float, reps: int,
+                          seed: int = 0) -> dict:
+    """B1's forward against its plain version (ce, pmax within ``tol``,
+    correct exactly), its call, its C entry alone on buffers allocated
+    once, and ``F.cross_entropy`` (ce alone) as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import backend
+    from repro_torch.kernels import loss_confidence as lc
+    logits, labels, _ = lc_inputs(dev, t, v, dtype, seed)
     ce, cor, pm = lc.loss_confidence(logits, labels)
     ce_p, cor_p, pm_p = lc.loss_confidence_plain(logits, labels)
     torch.cuda.synchronize()
     err = max(float((ce - ce_p).abs().max()), float((pm - pm_p).abs().max()))
-    require(torch.equal(cor, cor_p), f"loss_confidence correct differs at {(t, v)}")
+    require(cor.dtype == torch.bool and torch.equal(cor, cor_p),
+            f"loss_confidence correct differs at {(t, v)}")
     require(err <= tol, f"loss_confidence err {err} > {tol} at {(t, v, dtype)}")
     elt = logits.element_size()
-    b_ms, b_by = bound(t * v * elt + t * 4 + t * 12, 5.0 * t * v)
+    # Read the logits and labels once; write ce, pmax (f32) and correct (1 B).
+    b_ms, b_by = bound(t * v * elt + t * 4 + t * 9, 5.0 * t * v)
     # Yardstick: F.cross_entropy gives ce alone (not correct or pmax).
     labels64 = labels.long()
     ce_lib = F.cross_entropy(logits, labels64, reduction="none")
+    entry = lc._FORWARD[logits.dtype]
+
+    def entry_only():
+        backend.launch(entry, lc.NAME, dev, logits.data_ptr(),
+                       labels.data_ptr(), ce.data_ptr(), cor.data_ptr(),
+                       pm.data_ptr(), t, v)
+
+    dev_ms, activities, _ = device_profile(
+        lambda: lc.loss_confidence(logits, labels), min(reps, 20))
     return {"shape": [t, v], "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "tol": tol,
             "ms": time_ms(lambda: lc.loss_confidence(logits, labels), reps),
-            "device_ms": device_ms(lambda: lc.loss_confidence(logits, labels),
-                                   min(reps, 20)),
+            "entry_only_ms": time_ms(entry_only, reps),
+            "device_ms": dev_ms, "device_activities": activities,
             "plain_ms": time_ms(lambda: lc.loss_confidence_plain(logits, labels),
                                 reps),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -195,6 +265,129 @@ def check_loss_confidence(dev, t: int, v: int, dtype, tol: float, reps: int,
                 logits, labels64, reduction="none"), reps),
             "library_backend": "F.cross_entropy(reduction='none'): ce only",
             "library_ce_err": float((ce_lib.float() - ce_p).abs().max())}
+
+
+def bf16_ulps(a, b):
+    """Elementwise distance in bf16 ulps (sign-magnitude bits mapped to a
+    monotone integer; +0 and -0 both to 0)."""
+    import torch
+
+    def key(x):
+        i = x.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+    return (key(a) - key(b)).abs()
+
+
+def parent_scoring():
+    """The fused scoring without the backward kernel, as an autograd
+    Function: the forward kernel, a second launch for ``correct != 0``
+    (for a forward that writes an int32 ``correct``), and the backward as
+    PyTorch ops (``loss_confidence_backward_plain``, ten launches): the
+    composition ``lc_backward`` replaces, as a yardstick on the card."""
+    import torch
+    from repro_torch.kernels import loss_confidence as lc
+
+    class ParentScoring(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, logits, labels):
+            ce, cor, pmax = lc.loss_confidence(logits, labels)
+            correct = cor != 0
+            ctx.save_for_backward(logits, labels, ce)
+            ctx.mark_non_differentiable(correct, pmax)
+            return ce, correct, pmax
+
+        @staticmethod
+        def backward(ctx, g_ce, _g_correct, _g_pmax):
+            logits, labels, ce = ctx.saved_tensors
+            return lc.loss_confidence_backward_plain(logits, labels, ce,
+                                                     g_ce), None
+
+    return ParentScoring
+
+
+def check_loss_confidence_bwd(dev, t: int, v: int, dtype, reps: int,
+                              seed: int = 0) -> dict:
+    """B1's backward against its plain version on the forward kernel's ce,
+    for a per-row g and for the mean's stride-0 g: float32 within 1e-6,
+    bf16 within one ulp.  Timed beside the plain version; the fused
+    forward plus backward (through ``ops.fused_loss_metrics`` and
+    ``torch.autograd.grad``) beside ``F.cross_entropy``'s forward plus its
+    autograd backward on the same g, and beside ``parent_scoring``
+    (forward kernel, a ``!= 0`` and the plain backward on the card); with
+    the device activities of each."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import loss_confidence as lc
+    from repro_torch.kernels import ops
+    logits, labels, g = lc_inputs(dev, t, v, dtype, seed)
+    ce, _, _ = lc.loss_confidence(logits, labels)
+    g_mean = torch.full((), 1.0 / t, device=dev).expand(t)
+    err, ulps = 0.0, 0
+    for gg in (g, g_mean):
+        got = lc.loss_confidence_backward(logits, labels, ce, gg)
+        want = lc.loss_confidence_backward_plain(logits, labels, ce, gg)
+        torch.cuda.synchronize()
+        require(got.dtype == dtype and got.shape == (t, v),
+                f"loss_confidence_bwd gave {got.dtype} {tuple(got.shape)}")
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        if dtype == torch.bfloat16:
+            ulps = max(ulps, int(bf16_ulps(got, want).max()))
+        del got, want
+    if dtype == torch.bfloat16:
+        require(ulps <= 1, f"loss_confidence_bwd {ulps} bf16 ulps off at {(t, v)}")
+    else:
+        require(err <= 1e-6, f"loss_confidence_bwd err {err} > 1e-6 at {(t, v)}")
+    elt = logits.element_size()
+    b_ms, b_by = bound(2 * t * v * elt + 16 * t, 5.0 * t * v)
+    x = logits.detach().requires_grad_(True)
+    labels64 = labels.long()
+
+    def fused():
+        c, _, _ = ops.fused_loss_metrics(x, labels)
+        return torch.autograd.grad(c, x, g)
+
+    parent_fn = parent_scoring()
+
+    def parent():
+        c, _, _ = parent_fn.apply(x, labels)
+        return torch.autograd.grad(c, x, g)
+
+    def library():
+        c = F.cross_entropy(x, labels64, reduction="none")
+        return torch.autograd.grad(c, x, g)
+
+    lib_err = float((library()[0].float() - fused()[0].float()).abs().max())
+    # Fused, parent and library are host-paced at small shapes: each is the
+    # median of turns taken in rotation (11 there, 5 at device-bound sizes).
+    turns = collections.defaultdict(list)
+    for _ in range(11 if t * v < 2 ** 24 else 5):
+        for name, fn in (("fused", fused), ("parent", parent),
+                         ("library", library)):
+            turns[name].append(time_ms(fn, reps))
+    med = {k: sorted(v)[len(v) // 2] for k, v in turns.items()}
+    row = {"shape": [t, v], "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": err, "tol": "1e-6" if dtype == torch.float32
+           else "1 bf16 ulp", "max_bf16_ulps": ulps,
+           "ms": time_ms(lambda: lc.loss_confidence_backward(
+               logits, labels, ce, g), reps),
+           "plain_ms": time_ms(lambda: lc.loss_confidence_backward_plain(
+               logits, labels, ce, g), reps),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "fused_fwd_bwd_ms": med["fused"],
+           "parent_fwd_bwd_ms": med["parent"],
+           "library_ms": med["library"],
+           "min_ms": {k: min(v) for k, v in turns.items()},
+           "library_backend": "F.cross_entropy(reduction='none') forward + "
+                              "torch.autograd.grad on the same g",
+           "library_grad_err": lib_err}
+    for key, fn in (("", lambda: lc.loss_confidence_backward(
+                        logits, labels, ce, g)),
+                    ("fused_fwd_bwd_", fused), ("parent_fwd_bwd_", parent),
+                    ("library_", library)):
+        dev_ms, activities, _ = device_profile(fn, min(reps, 20))
+        row[f"{key}device_ms"] = dev_ms
+        row[f"{key}device_activities"] = activities
+    return row
 
 
 def selection_inputs(dev, n: int, invalid: float, seed: int, kind: str = "exp"):
@@ -618,13 +811,8 @@ ATTN_SHAPE = (4, 2048, 9, 3, 64)
 
 def sdpa_kernels(fn) -> list:
     """The CUDA kernels one call of ``fn`` runs (which SDPA backend ran)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.name[:90] for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+    prof, _, _ = profiled(fn, fn)
+    return sorted({e.name[:90] for e in device_events(prof)})
 
 
 def attention_f64(q, k, v, causal: bool):
@@ -746,9 +934,20 @@ def phase_kernels(dev) -> dict:
     import torch
     main = {"loss_confidence": check_loss_confidence(dev, 128, 10, torch.float32,
                                                      1e-5, 200)}
-    big = [check_loss_confidence(dev, 4096, 151936, torch.float32, 1e-4, 5),
+    big = [check_loss_confidence(dev, 1024, 8192, torch.float32, 1e-4, 50),
+           check_loss_confidence(dev, 4096, 151936, torch.float32, 1e-4, 5),
            check_loss_confidence(dev, 4096, 151936, torch.bfloat16, 1e-4, 5),
            check_loss_confidence(dev, 1000, 50257, torch.float32, 1e-4, 10)]
+    # B1's backward: the CNN's batch, a ragged one, the wide-head model's
+    # (benchmarks/step_throughput.py::fused_scoring_main), GPT-2's and
+    # Qwen's vocabularies, in float32 and bf16.
+    bwd = [check_loss_confidence_bwd(dev, t, v, dtype, reps)
+           for t, v, reps in ((128, 10, 200), (7, 33, 50), (1024, 8192, 50),
+                              (1000, 50257, 10), (4096, 151936, 5))
+           for dtype in (torch.float32, torch.bfloat16)]
+    main["loss_confidence_bwd"] = dict(bwd[0], max_abs_err=max(
+        r["max_abs_err"] for r in bwd if r["dtype"] == "float32"))
+    big.extend(bwd)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # One loss; an N no slice size divides; an N past the shared-memory
     # path; an N past 2**24, where f32(N) rounds.
@@ -1029,7 +1228,7 @@ def phase_train(dev, n: int = 50_000, n_test: int = 10_000, epochs: int = 3):
     bwd = {s: sum(h.bwd_samples for h in hs) for s, hs in hist.items()}
     require(bwd["kakurenbo"] < bwd["baseline"],
             f"kakurenbo backward samples {bwd['kakurenbo']} not below baseline")
-    for name in ("loss_confidence", "histogram_select"):
+    for name in ("loss_confidence", "loss_confidence_bwd", "histogram_select"):
         require(launches.get(name, 0) > 0, f"kernel {name} never launched")
     emit({"phase": "train_summary", "model": CONFIG.name, "n": n,
           "n_test": n_test, "epochs": epochs, "bwd_samples": bwd,
@@ -1037,6 +1236,204 @@ def phase_train(dev, n: int = 50_000, n_test: int = 10_000, epochs: int = 3):
           "fraction_checks": checks, "launches": launches,
           "seconds": time.perf_counter() - t0})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# One train step, and where an epoch's time goes
+# ---------------------------------------------------------------------------
+
+#: The reference's wide-head fused-scoring model and batch
+#: (benchmarks/step_throughput.py::fused_scoring_main): 8,192 classes on a
+#: small conv front end, batch 1024 of 4 x 1024 samples.
+WIDE_HEAD = {"model": dict(name="wide_head_cnn", image_size=8, widths=(8,),
+                           hidden=32, num_classes=8192),
+             "batch": 1024, "n": 4 * 1024}
+
+
+def step_trainer(dev, model_cfg, n: int, batch: int, fused: bool):
+    """A KAKURENBO ``Trainer`` as the train phase builds it (histogram-select
+    plan, DropTop 0.02), scoring with the fused pass (B1) or, unfused, with
+    ``cnn.per_sample_metrics`` as the ``loss_fn``."""
+    import torch
+    from repro_torch.core import KakurenboConfig, LRSchedule
+    from repro_torch.data import SyntheticClassification
+    from repro_torch.experiments.table2 import _loss_fn
+    from repro_torch.models.cnn import CNN
+    from repro_torch.train import Trainer, TrainConfig
+    ds = SyntheticClassification(num_samples=n, image_size=model_cfg.image_size,
+                                 num_classes=model_cfg.num_classes, seed=0)
+    tc = TrainConfig(epochs=3, batch_size=batch, strategy="kakurenbo",
+                     fused_scoring=fused, lr=LRSchedule(0.05, "cosine", 3, 1),
+                     kakurenbo=KakurenboConfig(max_fraction=0.3, tau=0.7,
+                                               selection="histogram_pallas",
+                                               drop_top_fraction=0.02))
+    model = CNN(model_cfg, torch.Generator().manual_seed(0))
+    return Trainer(tc, model, None if fused else _loss_fn, ds, None,
+                   logits_fn=_logits_fn, device=dev), ds
+
+
+#: How a ``train_step`` scores its batch: B1's two kernels; B1's forward
+#: with the backward as PyTorch ops (``parent_scoring``); or
+#: ``cnn.per_sample_metrics`` as the ``loss_fn`` (no B1).
+STEP_SCORING = ("fused", "parent_scoring", "per_sample_metrics")
+
+
+def time_train_step(dev, model_cfg, n: int, batch: int, rounds: int = 5,
+                    steps: int = 10, warmup: int = 5) -> dict:
+    """``Trainer.train_step`` under each of ``STEP_SCORING``, on batches
+    built once (``ds.get`` and ``Trainer.to_device``, outside the timed
+    loop): ``warmup`` steps each, then ``rounds`` turns in rotation of
+    ``steps`` synchronised steps each (the host's pace drifts: rotation
+    shares it out); the median step, launches a step, and one step under
+    the profiler."""
+    import numpy as np
+    from repro_torch.kernels import backend
+    from repro_torch.kernels import ops
+    parent = parent_scoring()
+    runs = {}
+    for scoring in STEP_SCORING:
+        tr, ds = step_trainer(dev, model_cfg, n, batch,
+                              scoring != "per_sample_metrics")
+        batches = [(idx, tr.to_device(ds.get(idx))) for idx in
+                   (np.arange(k * batch, (k + 1) * batch) % n for k in range(4))]
+        runs[scoring] = {"tr": tr, "batches": batches, "turn": itertools.count(),
+                         "state": tr.strategy.get_device_state(), "times": [],
+                         "launches": collections.Counter()}
+
+    def step(run):
+        idx, b = run["batches"][next(run["turn"]) % len(run["batches"])]
+        run["state"], _, _ = run["tr"].train_step(run["state"], b, idx, 0, 0.05)
+
+    def scored(scoring):
+        if scoring == "parent_scoring":
+            return patched_attr(ops, "_FusedLossMetrics", parent)
+        return contextlib.nullcontext()
+
+    for scoring, run in runs.items():
+        with scored(scoring):
+            for _ in range(warmup):
+                step(run)
+    for _ in range(rounds):
+        for scoring, run in runs.items():
+            with scored(scoring):
+                sync(dev)
+                backend.reset_launches()
+                for _ in range(steps):
+                    sync(dev)
+                    t0 = time.perf_counter()
+                    step(run)
+                    sync(dev)
+                    run["times"].append((time.perf_counter() - t0) * 1e3)
+                run["launches"].update(backend.LAUNCHES)
+    out = {}
+    for scoring, run in runs.items():
+        with scored(scoring):
+            prof = device_breakdown(dev, lambda: step(run), top=100)
+        g = prof["groups_ms"]
+        g["conv or GEMM"] = g.get("GEMM (cuBLAS)", 0.0) + g.get("conv (cuDNN)", 0.0)
+        times = sorted(run["times"])
+        out[scoring] = {"step_ms": times[len(times) // 2], "min_ms": times[0],
+                        "steps": len(times),
+                        "launches_per_step": {k: c / len(times) for k, c
+                                              in run["launches"].items()},
+                        "breakdown": prof}
+    return out
+
+
+def phase_train_step(dev) -> dict:
+    """One train step of the paper CNN (batch 128) and of the wide-head
+    model (batch 1024), each scored three ways; B1's forward and backward
+    must be one device activity each in a fused step, and absent from an
+    unfused one."""
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.models.cnn import CNNConfig
+    out = {}
+    for name, cfg, n, batch in (
+            ("paper_cnn", CONFIG, 50_000, 128),
+            ("wide_head", CNNConfig(**WIDE_HEAD["model"]), WIDE_HEAD["n"],
+             WIDE_HEAD["batch"])):
+        rows = time_train_step(dev, cfg, n, batch)
+        emit({"phase": "train_step", "config": name,
+              "model": dataclasses.asdict(cfg), "batch": batch, **rows})
+        calls = {s: r["breakdown"]["groups_calls"] for s, r in rows.items()}
+        require(calls["fused"].get("B1 fwd") == 1 and calls["fused"].get("B1 bwd") == 1,
+                f"{name}: a fused step ran B1 as {calls['fused']}")
+        require(calls["parent_scoring"].get("B1 bwd", 0) == 0
+                and "B1 fwd" not in calls["per_sample_metrics"]
+                and "B1 bwd" not in calls["per_sample_metrics"],
+                f"{name}: B1 ran where it should not: {calls}")
+        out[name] = rows
+    return out
+
+
+class HostSplit:
+    """Exclusive seconds spent inside each wrapped callable, synchronising
+    the device before and after each call so that its device work lands in
+    its own bucket; nested calls count only in the innermost."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.seconds = collections.Counter()
+        self.calls = collections.Counter()
+        self._stack = []        # seconds of the inner calls of each open call
+
+    def wrap(self, name: str, fn):
+        def timed(*args, **kw):
+            sync(self.dev)
+            t0 = time.perf_counter()
+            self._stack.append(0.0)
+            try:
+                return fn(*args, **kw)
+            finally:
+                sync(self.dev)
+                dt = time.perf_counter() - t0
+                inner = self._stack.pop()
+                self.seconds[name] += dt - inner
+                self.calls[name] += 1
+                if self._stack:
+                    self._stack[-1] += dt
+        return timed
+
+
+def epoch_split(dev, n: int = 50_000, n_test: int = 10_000) -> dict:
+    """The paper CNN's KAKURENBO epoch (fused scoring) at the train phase's
+    settings: epochs 0 and 1 as they run, then epoch 2 with the dataset's
+    ``get``, ``Trainer.to_device``, ``train_step``, the plan, the refresh
+    and ``evaluate`` wrapped by ``HostSplit`` (here, never in the
+    package)."""
+    import torch
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.core import KakurenboConfig, LRSchedule
+    from repro_torch.data import SyntheticClassification
+    from repro_torch.models.cnn import CNN
+    from repro_torch.train import Trainer, TrainConfig
+    ds = SyntheticClassification(num_samples=n, seed=0)
+    test = ds.test_split(n_test)
+    tc = TrainConfig(epochs=3, batch_size=128, strategy="kakurenbo",
+                     fused_scoring=True, lr=LRSchedule(0.05, "cosine", 3, 1),
+                     kakurenbo=KakurenboConfig(max_fraction=0.3, tau=0.7,
+                                               selection="histogram_pallas",
+                                               drop_top_fraction=0.02))
+    tr = Trainer(tc, CNN(CONFIG, torch.Generator().manual_seed(0)), None, ds,
+                 test, logits_fn=_logits_fn, device=dev)
+    walls = [tr.run_epoch(e).wall_time for e in range(2)]
+    split = HostSplit(dev)
+    tr.pipeline.get_fn = split.wrap("get", tr.pipeline.get_fn)
+    ds.get = split.wrap("get", ds.get)
+    test.get = split.wrap("get", test.get)
+    tr.to_device = split.wrap("to_device", tr.to_device)
+    tr.train_step = split.wrap("train_step", tr.train_step)
+    tr.strategy.plan = split.wrap("plan", tr.strategy.plan)
+    tr.strategy.on_epoch_end = split.wrap("refresh", tr.strategy.on_epoch_end)
+    tr.evaluate = split.wrap("evaluate", tr.evaluate)
+    st = tr.run_epoch(2)
+    sec = dict(split.seconds)
+    sec["other"] = st.wall_time - sum(sec.values())
+    return {"phase": "epoch_split", "model": CONFIG.name, "n": n,
+            "n_test": n_test, "strategy": "kakurenbo", "fused_scoring": True,
+            "epoch_wall_s": walls, "split_epoch": 2,
+            "split_epoch_wall_s": st.wall_time, "hidden_fraction": st.hidden_fraction,
+            "seconds": sec, "calls": dict(split.calls)}
 
 
 def watch_table2(tr, log: dict) -> None:
@@ -1108,7 +1505,8 @@ def phase_table2(dev, n: int = 50_000, n_test: int = 10_000, epochs: int = 3):
     require(launches.get("rank_select", 0) > 0, "kernel rank_select never launched")
     # Table 2 scores with cnn.per_sample_metrics (argmax), as the reference
     # harness does: the fused pass (B1) is the train phase's.
-    require(launches.get("loss_confidence", 0) == 0,
+    require(launches.get("loss_confidence", 0) == 0
+            and launches.get("loss_confidence_bwd", 0) == 0,
             "Table 2 went through the fused scoring pass (B1)")
     emit({"phase": "table2_summary", "model": CONFIG.name, "n": n,
           "n_test": n_test, "epochs": epochs, "kakurenbo": dataclasses.asdict(kcfg),
@@ -1170,35 +1568,44 @@ def phase_card_vs_cpu(dev, n: int = 2048, epochs: int = 2) -> None:
 SERVE_KERNEL = {"mamba2-130m": "ssd_scan", "smollm-135m": "flash_attention"}
 
 
+def kernel_group(name: str) -> str:
+    """The group of a device activity, by its name: this port's kernels,
+    cuBLAS GEMMs, cuDNN convolutions, and the rest."""
+    low = name.lower()
+    for group, keys in (("B1 fwd", ("lc_warp_rows", "lc_block_rows")),
+                        ("B1 bwd", ("lc_backward",)),
+                        ("B6 ssd_scan", ("ssd_",)),
+                        ("B7 flash_attention", ("flash_attention",)),
+                        ("GEMM (cuBLAS)", ("gemm", "gemv")),
+                        ("conv (cuDNN)", ("convolve", "conv2d", "convolution",
+                                          "cudnn", "fprop", "dgrad", "wgrad",
+                                          "nchwtonhwc", "nhwctonchw"))):
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
 def device_breakdown(dev, fn, top: int = 12) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: device time by kernel,
-    grouped into B6, B7, cuBLAS GEMMs and the rest, and the device's busy time
-    against the call's wall time (the profiler's own host cost included)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """One call of ``fn`` under ``torch.profiler``: device time and
+    activities by kernel, grouped by ``kernel_group``, and the device's busy
+    time against the call's wall time (the profiler's own host cost
+    included)."""
     fn()
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        sync(dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms, complete = profiled(fn, fn)
+    require(complete, "the profiler lost device activities in three traces")
     per = collections.defaultdict(lambda: [0, 0.0])
     spans = []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in device_events(prof):
         t = e.time_range.elapsed_us() / 1e3
         per[e.name][0] += 1
         per[e.name][1] += t
         spans.append((e.time_range.start, e.time_range.end))
-    groups = collections.Counter()
-    for name, (_, ms) in per.items():
-        low = name.lower()
-        groups["B6 ssd_scan" if "ssd_" in low else
-               "B7 flash_attention" if "flash_attention" in low else
-               "GEMM (cuBLAS)" if "gemm" in low or "gemv" in low else
-               "other"] += ms
+    groups, group_calls = collections.Counter(), collections.Counter()
+    for name, (calls, ms) in per.items():
+        group = kernel_group(name)
+        groups[group] += ms
+        group_calls[group] += calls
     busy = 0.0
     end = None
     for a, b in sorted(spans):        # union of the device's intervals
@@ -1209,21 +1616,26 @@ def device_breakdown(dev, fn, top: int = 12) -> dict:
     ranked = sorted(per.items(), key=lambda kv: -kv[1][1])[:top]
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
             "device_kernels": sum(c for c, _ in per.values()),
-            "groups_ms": dict(groups),
+            "groups_ms": dict(groups), "groups_calls": dict(group_calls),
             "top": [{"name": k[:90], "calls": c, "ms": ms}
                     for k, (c, ms) in ranked]}
 
 
 @contextlib.contextmanager
-def patched_op(op: str, wrap):
-    """Within the block, ``kernels/ops.<op>`` is ``wrap(original)``."""
-    from repro_torch.kernels import ops as kops
-    orig = getattr(kops, op)
-    setattr(kops, op, wrap(orig))
+def patched_attr(obj, name: str, value):
+    """Within the block, ``obj.<name>`` is ``value``."""
+    orig = getattr(obj, name)
+    setattr(obj, name, value)
     try:
         yield
     finally:
-        setattr(kops, op, orig)
+        setattr(obj, name, orig)
+
+
+def patched_op(op: str, wrap):
+    """Within the block, ``kernels/ops.<op>`` is ``wrap(original)``."""
+    from repro_torch.kernels import ops as kops
+    return patched_attr(kops, op, wrap(getattr(kops, op)))
 
 
 def kernel_share(dev, fn, op: str) -> float:
@@ -1474,6 +1886,9 @@ def phase_serve(dev, arch: str = "mamba2-130m", batch: int = 4,
 KERNELS = {
     "loss_confidence": ("src/repro_torch/kernels/csrc/loss_confidence.cu",
                         "src/repro/kernels/loss_confidence.py:63"),
+    # Not a pallas_call: the jnp custom_vjp bwd of the fused scoring.
+    "loss_confidence_bwd": ("src/repro_torch/kernels/csrc/loss_confidence.cu",
+                            "src/repro/kernels/ops.py:206"),
     "minmax": ("src/repro_torch/kernels/csrc/threshold_select.cu",
                "src/repro/kernels/threshold_select.py:114"),
     "histogram": ("src/repro_torch/kernels/csrc/threshold_select.cu",
@@ -1524,6 +1939,8 @@ def main() -> int:
     phase_plan(dev)
     launches = collections.Counter(phase_train(dev))
     launches.update(phase_table2(dev))
+    phase_train_step(dev)
+    emit(epoch_split(dev))
     phase_card_vs_cpu(dev)
     launches.update(phase_serve(dev, "mamba2-130m"))
     launches.update(phase_serve(dev, "smollm-135m"))

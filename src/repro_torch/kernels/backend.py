@@ -118,13 +118,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
 _I64P = ctypes.POINTER(ctypes.c_longlong)
 #: C signatures: every device pointer and the stream are c_void_p, sizes and
-#: the device index c_int, a scale or a fraction c_float, a 64-bit value
-#: c_longlong, an array of element strides a pointer to int64.
+#: the device index c_int, a scale or a fraction c_float, a 64-bit value or
+#: an element stride c_longlong, an array of element strides a pointer to
+#: int64.
 #: Each entry sets the device, launches on the stream and returns
 #: cudaGetLastError().
 _SIGNATURES = {
     "lc_forward_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "lc_forward_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "lc_backward_f32": [_P, _P, _P, _P, _LL, _P, _I, _I, _I, _P],
+    "lc_backward_bf16": [_P, _P, _P, _P, _LL, _P, _I, _I, _I, _P],
     "hs_histogram_select": [_P, _P, _P, _F, _F, _I, _P, _I, _P, _P, _I, _I, _P],
     "rs_rank_select": [_P, _P, _I, _LL, _I, _P, _I, _P, _I, _I, _P],
     # Not a launch: the floats of B6's scratch (-1 if too large).
@@ -146,13 +149,26 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+#: (entry, device) -> (C function, device index), resolved at first use.
+_BOUND: dict = {}
+
+
+def _bind(entry: str, device: torch.device) -> tuple:
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    bound = (getattr(library(), entry), index)
+    if device.index is not None:         # "cuda" alone follows the current device
+        _BOUND[entry, device] = bound
+    return bound
+
+
 def launch(entry: str, name: str, device: torch.device, *args) -> None:
     """Call C entry ``entry`` on ``device``'s current stream; count it under
-    ``name``; raise on a non-zero ``cudaError_t``."""
-    fn = getattr(library(), entry)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    code = fn(*args, device.index if device.index is not None
-              else torch.cuda.current_device(), stream)
+    ``name``; raise on a non-zero ``cudaError_t``.  The C function and the
+    device index are looked up once per (entry, device); the stream is read
+    as a raw handle, with no ``torch.cuda.Stream`` made for it."""
+    fn, index = _BOUND.get((entry, device)) or _bind(entry, device)
+    code = fn(*args, index, torch._C._cuda_getCurrentRawStream(index))
     if code != 0:
         raise RuntimeError(
             f"CUDA kernel {name} ({entry}) failed to launch: cudaError {code}")
@@ -164,13 +180,15 @@ def check_cuda(name: str, tensors: dict[str, torch.Tensor],
     """The common device/contiguity checks of a kernel wrapper: every tensor
     on one CUDA device and (unless the kernel takes strides) contiguous.
     Returns that device."""
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(
-            f"{name}: inputs must all lie on one CUDA device (or all on the "
-            f"CPU for the plain version); got "
-            f"{ {k: str(t.device) for k, t in tensors.items()} }")
+    dev = None
     for k, t in tensors.items():
+        d = t.device
+        dev = d if dev is None else dev
+        if d != dev or d.type != "cuda":
+            raise ValueError(
+                f"{name}: inputs must all lie on one CUDA device (or all on "
+                f"the CPU for the plain version); got "
+                f"{ {k: str(t.device) for k, t in tensors.items()} }")
         if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
-    return next(iter(devices))
+    return dev

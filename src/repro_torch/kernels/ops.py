@@ -25,7 +25,7 @@ def loss_confidence(logits: torch.Tensor, labels: torch.Tensor):
     ce, cor, pmax = _lc.loss_confidence(
         logits.reshape(-1, logits.shape[-1]).contiguous(),
         labels.reshape(-1).contiguous())
-    return ce.reshape(shape), (cor != 0).reshape(shape), pmax.reshape(shape)
+    return ce.reshape(shape), cor.reshape(shape), pmax.reshape(shape)
 
 
 def rank_select(scores: torch.Tensor, k, high: bool = False) -> torch.Tensor:
@@ -61,30 +61,26 @@ def flash_attention(q, k, v, causal: bool = True):
 
 
 class _FusedLossMetrics(torch.autograd.Function):
-    """Forward: kernel B1 (or its plain version on the CPU).  Backward: the
-    analytic ``(softmax - onehot) * g`` with lse rebuilt as ``ce + gold``
-    from the saved forward result, one elementwise pass over the logits.
-    Only ``ce`` carries gradient; PA/PC are selection bookkeeping."""
+    """Forward: kernel B1, one launch (its plain version on the CPU).
+    Backward: B1's backward kernel, one launch (its plain version on the
+    CPU): the analytic ``(softmax - onehot) * g`` with lse rebuilt as
+    ``ce + gold`` from the saved forward result, one elementwise pass over
+    the logits.  Only ``ce`` carries gradient; PA/PC are selection
+    bookkeeping."""
 
     @staticmethod
     def forward(ctx, logits, labels):
-        ce, cor, pmax = _lc.loss_confidence(logits, labels)
-        correct = cor != 0
+        ce, correct, pmax = _lc.loss_confidence(logits, labels)
         ctx.save_for_backward(logits, labels, ce)
         ctx.mark_non_differentiable(correct, pmax)
+        # PA/PC never get a gradient: make (and launch) no zeros for them.
+        ctx.set_materialize_grads(False)
         return ce, correct, pmax
 
     @staticmethod
     def backward(ctx, g_ce, _g_correct, _g_pmax):
         logits, labels, ce = ctx.saved_tensors
-        lf = logits.float()
-        lab = labels.long()[:, None]
-        gold = lf.gather(1, lab)[:, 0]
-        lse = ce + gold
-        probs = torch.exp(lf - lse[:, None])
-        onehot = lab == torch.arange(lf.shape[1], device=lf.device)
-        dlogits = ((probs - onehot.float()) * g_ce[:, None]).to(logits.dtype)
-        return dlogits, None
+        return _lc.loss_confidence_backward(logits, labels, ce, g_ce), None
 
 
 def fused_loss_metrics(logits: torch.Tensor, labels: torch.Tensor):

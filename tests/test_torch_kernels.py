@@ -49,8 +49,8 @@ def test_loss_confidence_plain_matches_pallas_kernel(t, v):
                                          interpret=True)
     ce_t, cor_t, pm_t = lc.loss_confidence_plain(torch.from_numpy(lg),
                                                  torch.from_numpy(lab))
-    assert cor_t.dtype == torch.int32
-    assert np.array_equal(cor_t.numpy(), np.asarray(cor))
+    assert cor_t.dtype == torch.bool
+    assert np.array_equal(cor_t.numpy().astype(np.int32), np.asarray(cor))
     _close(ce_t, ce)
     _close(pm_t, pm)
 
@@ -89,7 +89,8 @@ def test_loss_confidence_bf16_and_ties():
     ce, cor, pm = loss_confidence_kernel(lb, jnp.asarray(lab), interpret=True)
     ce_t, cor_t, pm_t = lc.loss_confidence_plain(
         torch.from_numpy(lg).to(torch.bfloat16), torch.from_numpy(lab))
-    assert np.array_equal(cor_t.numpy(), np.asarray(cor)) and cor_t[0] == 1
+    assert (np.array_equal(cor_t.numpy().astype(np.int32), np.asarray(cor))
+            and cor_t[0] == 1)
     _close(ce_t, ce)
     _close(pm_t, pm)
     assert abs(float(pm_t[0]) - 1 / 50) < 1e-7
