@@ -47,7 +47,11 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    the plans must be equal;
 5. train: the paper CNN at the full width of ``configs/paper_cnn.py`` on
    ``SyntheticClassification(50_000)``, 3 epochs of ``baseline`` then of
-   ``kakurenbo`` (``histogram_pallas`` with DropTop 0.02, fused scoring);
+   ``kakurenbo`` (``histogram_pallas`` with DropTop 0.02, fused scoring),
+   through the default engine: the dataset on the device, each block of 8
+   train steps one CUDA graph replay (``train/engines.py``), whose kernel
+   launches the engine counts a replay (B1's backward must count at least
+   one launch a train step);
 6. table 2: ``repro_torch.experiments.table2`` at the same width and size,
    3 epochs of each of its seven strategies, KAKURENBO under ``"sort"`` with
    DropTop 0.02; FORGET must prune floor(0.3 N) and restart, ISWR must draw
@@ -55,9 +59,23 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    scores as the reference harness does (PA by argmax), so B1 must not run
    there.  The launch counts of phases 5 and 6, each set to 0 just before
    it, show that the main path went through every kernel;
-7. card vs CPU: the same small run on ``cuda`` and on ``cpu`` from the same
+7. train step and epoch: ``Trainer.train_step`` timed and profiled (paper
+   CNN; the wide-head model) and one replay of the scanned engine's 8-step
+   graph under the profiler (device activities, busy vs wall); one
+   KAKURENBO epoch split on the host under each engine (the host loop:
+   ``get``, ``to_device``, ``train_step``; the scanned engine: the one-time
+   materialize and captures, replays, the plan's copy, the epoch-end
+   fetch; both: plan, refresh, ``evaluate``);
+8. engines: the host loop and the scanned engine from the same weights,
+   3 KAKURENBO epochs of the main path and one epoch of each Table 2
+   strategy, with ``cudnn.deterministic``: losses, plans and the whole
+   train state bit-identical (and whether two host loops are without it);
+9. restart: KAKURENBO and SB under the scanned engine crash before epoch 2
+   and between two blocks of epoch 2; each restore into a trainer built
+   from other weights and seeds ends bit-identical to the uninterrupted run;
+10. card vs CPU: the same small run on ``cuda`` and on ``cpu`` from the same
    params and permutations, TF32 off; per-epoch losses within 1e-4;
-8. serve: ``repro_torch.launch.serve`` at full width and depth in f32
+11. serve: ``repro_torch.launch.serve`` at full width and depth in f32
    with seeded weights, prefill of 4 x 2,048 tokens then 32 greedy
    tokens, first on mamba2-130m (24 layers; the SSD scan must run through
    kernel B6, 24 launches for the one prefill), then on smollm-135m (30
@@ -1176,8 +1194,11 @@ def watch_fraction_bound(strategy, checks: list) -> None:
     inner.begin_epoch = checked
 
 
-def train(dev, strategy: str, n: int, n_test: int, epochs: int, model,
-          perms=None, checks=None, lr: float = 0.05, tau: float = 0.7):
+def main_trainer(dev, strategy: str, n: int, n_test: int, epochs: int, model,
+                 lr: float = 0.05, tau: float = 0.7, **tc_kw):
+    """The main path's ``Trainer`` (``examples/torch_quickstart.py --full``):
+    SGD 0.9, cosine LR, KAKURENBO on ``"histogram_pallas"`` with DropTop
+    0.02, fused scoring, the default engine unless ``tc_kw`` says."""
     from repro_torch.core import KakurenboConfig, LRSchedule
     from repro_torch.data import SyntheticClassification
     from repro_torch.train import Trainer, TrainConfig
@@ -1192,8 +1213,14 @@ def train(dev, strategy: str, n: int, n_test: int, epochs: int, model,
                      lr=LRSchedule(lr, "cosine", epochs, 1),
                      kakurenbo=KakurenboConfig(max_fraction=0.3, tau=tau,
                                                selection="histogram_pallas",
-                                               drop_top_fraction=0.02))
-    tr = Trainer(tc, model, None, ds, test, logits_fn=_logits_fn, device=dev)
+                                               drop_top_fraction=0.02),
+                     **tc_kw)
+    return Trainer(tc, model, None, ds, test, logits_fn=_logits_fn, device=dev)
+
+
+def train(dev, strategy: str, n: int, n_test: int, epochs: int, model,
+          perms=None, checks=None, lr: float = 0.05, tau: float = 0.7):
+    tr = main_trainer(dev, strategy, n, n_test, epochs, model, lr, tau)
     if perms is not None:
         it = iter(perms)
         tr.strategy._inner.draw_permutation = lambda: next(it)
@@ -1230,7 +1257,13 @@ def phase_train(dev, n: int = 50_000, n_test: int = 10_000, epochs: int = 3):
             f"kakurenbo backward samples {bwd['kakurenbo']} not below baseline")
     for name in ("loss_confidence", "loss_confidence_bwd", "histogram_select"):
         require(launches.get(name, 0) > 0, f"kernel {name} never launched")
-    emit({"phase": "train_summary", "model": CONFIG.name, "n": n,
+    # Every train step's backward ran B1's backward: under graph replay the
+    # engine adds each graph's launches a replay (ScanEpochEngine).
+    steps = sum(h.bwd_samples for hs in hist.values() for h in hs) // 128
+    require(launches["loss_confidence_bwd"] >= steps,
+            f"B1 bwd counted {launches['loss_confidence_bwd']} launches for "
+            f"{steps} train steps")
+    emit({"phase": "train_summary", "train_steps": steps, "model": CONFIG.name, "n": n,
           "n_test": n_test, "epochs": epochs, "bwd_samples": bwd,
           "final_test_acc": {s: hs[-1].test_acc for s, hs in hist.items()},
           "fraction_checks": checks, "launches": launches,
@@ -1300,9 +1333,14 @@ def time_train_step(dev, model_cfg, n: int, batch: int, rounds: int = 5,
                          "state": tr.strategy.get_device_state(), "times": [],
                          "launches": collections.Counter()}
 
+    for run in runs.values():
+        run["tr"].lr_dev.fill_(0.05)
+
     def step(run):
+        tr = run["tr"]
         idx, b = run["batches"][next(run["turn"]) % len(run["batches"])]
-        run["state"], _, _ = run["tr"].train_step(run["state"], b, idx, 0, 0.05)
+        run["state"], _, _ = tr.train_step(run["state"], b, idx, tr.epoch_dev,
+                                           tr.lr_dev)
 
     def scored(scoring):
         if scoring == "parent_scoring":
@@ -1363,7 +1401,45 @@ def phase_train_step(dev) -> dict:
                 and "B1 bwd" not in calls["per_sample_metrics"],
                 f"{name}: B1 ran where it should not: {calls}")
         out[name] = rows
+    row = replay_profile(dev)
+    emit({"phase": "train_step", "config": "paper_cnn_replay", **row})
+    out["paper_cnn_replay"] = row
     return out
+
+
+def replay_profile(dev, n: int = 50_000, reps: int = 20) -> dict:
+    """One replay of the scanned engine's ``scan_steps``-step graph (the
+    main path's KAKURENBO trainer after one epoch, which captured it):
+    synchronised wall ms of ``reps`` replays (median) and one replay under
+    the profiler: device activities by group and busy vs wall ms."""
+    import torch
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.models.cnn import CNN
+    tr = main_trainer(dev, "kakurenbo", n, 0, 1,
+                      CNN(CONFIG, torch.Generator().manual_seed(0)))
+    tr.run(1)
+    eng = tr.engine
+    graph = eng._graphs[eng.scan_steps, False].graph
+    times = []
+    for _ in range(reps):
+        sync(dev)
+        t0 = time.perf_counter()
+        graph.replay()
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    prof = device_breakdown(dev, graph.replay, top=100)
+    row = {"engine": eng.name, "steps_per_replay": eng.scan_steps,
+           "replay_ms": times[len(times) // 2], "replay_min_ms": times[0],
+           "step_ms": times[len(times) // 2] / eng.scan_steps,
+           "breakdown": prof}
+    if prof["device_kernels"] == 0:
+        row["note"] = "torch.profiler shows no device activity inside a replay"
+    else:
+        row["activities_per_step"] = prof["device_kernels"] / eng.scan_steps
+        row["device_busy_share"] = (prof["device_busy_ms"]
+                                    / prof["profiled_wall_ms"])
+    return row
 
 
 class HostSplit:
@@ -1395,44 +1471,52 @@ class HostSplit:
         return timed
 
 
-def epoch_split(dev, n: int = 50_000, n_test: int = 10_000) -> dict:
-    """The paper CNN's KAKURENBO epoch (fused scoring) at the train phase's
-    settings: epochs 0 and 1 as they run, then epoch 2 with the dataset's
-    ``get``, ``Trainer.to_device``, ``train_step``, the plan, the refresh
-    and ``evaluate`` wrapped by ``HostSplit`` (here, never in the
-    package)."""
+def epoch_split(dev, engine: str, n: int = 50_000,
+                n_test: int = 10_000) -> dict:
+    """The paper CNN's KAKURENBO epoch (the main path's trainer) under
+    ``engine``: epochs 0 and 1 as they run, then epoch 2 with its parts
+    wrapped by ``HostSplit`` (here, never in the package).  The host loop:
+    the dataset's ``get``, ``Trainer.to_device``, ``train_step``, the plan,
+    the refresh and ``evaluate`` (its ``get`` inside it).  The scanned
+    engine: the one-time ``materialize`` (``Trainer.device_data``, at epoch
+    0) and captures (epoch 0, ``first_epoch_s``), then the plan, the
+    plan's copy to the device, the replays (a sync after each), the
+    epoch-end fetch, the refresh and ``evaluate``."""
     import torch
     from repro_torch.configs.paper_cnn import CONFIG
-    from repro_torch.core import KakurenboConfig, LRSchedule
-    from repro_torch.data import SyntheticClassification
     from repro_torch.models.cnn import CNN
-    from repro_torch.train import Trainer, TrainConfig
-    ds = SyntheticClassification(num_samples=n, seed=0)
-    test = ds.test_split(n_test)
-    tc = TrainConfig(epochs=3, batch_size=128, strategy="kakurenbo",
-                     fused_scoring=True, lr=LRSchedule(0.05, "cosine", 3, 1),
-                     kakurenbo=KakurenboConfig(max_fraction=0.3, tau=0.7,
-                                               selection="histogram_pallas",
-                                               drop_top_fraction=0.02))
-    tr = Trainer(tc, CNN(CONFIG, torch.Generator().manual_seed(0)), None, ds,
-                 test, logits_fn=_logits_fn, device=dev)
-    walls = [tr.run_epoch(e).wall_time for e in range(2)]
-    split = HostSplit(dev)
-    tr.pipeline.get_fn = split.wrap("get", tr.pipeline.get_fn)
-    ds.get = split.wrap("get", ds.get)
-    test.get = split.wrap("get", test.get)
-    tr.to_device = split.wrap("to_device", tr.to_device)
-    tr.train_step = split.wrap("train_step", tr.train_step)
+    tr = main_trainer(dev, "kakurenbo", n, n_test, 3,
+                      CNN(CONFIG, torch.Generator().manual_seed(0)),
+                      engine=engine)
+    split, first = HostSplit(dev), {}
+    if engine == "scan":
+        eng = tr.engine
+        tr.device_data = split.wrap("materialize", tr.device_data)
+        eng._capture = split.wrap("capture", eng._capture)
+        walls = [tr.run_epoch(0).wall_time]
+        first = dict(split.seconds)
+        split.seconds.clear()
+        walls.append(tr.run_epoch(1).wall_time)
+        eng._dispatch = split.wrap("replays", eng._dispatch)
+        eng._fetch = split.wrap("fetch", eng._fetch)
+        eng._place = split.wrap("plan_to_device", eng._place)
+    else:
+        walls = [tr.run_epoch(e).wall_time for e in range(2)]
+        tr.pipeline.get_fn = split.wrap("get", tr.pipeline.get_fn)
+        tr.to_device = split.wrap("to_device", tr.to_device)
+        tr.train_step = split.wrap("train_step", tr.train_step)
     tr.strategy.plan = split.wrap("plan", tr.strategy.plan)
     tr.strategy.on_epoch_end = split.wrap("refresh", tr.strategy.on_epoch_end)
     tr.evaluate = split.wrap("evaluate", tr.evaluate)
     st = tr.run_epoch(2)
     sec = dict(split.seconds)
     sec["other"] = st.wall_time - sum(sec.values())
-    return {"phase": "epoch_split", "model": CONFIG.name, "n": n,
-            "n_test": n_test, "strategy": "kakurenbo", "fused_scoring": True,
-            "epoch_wall_s": walls, "split_epoch": 2,
+    return {"phase": "epoch_split", "engine": tr.engine.name,
+            "model": CONFIG.name, "n": n, "n_test": n_test,
+            "strategy": "kakurenbo", "fused_scoring": True,
+            "epoch_wall_s": walls, "first_epoch_s": first, "split_epoch": 2,
             "split_epoch_wall_s": st.wall_time, "hidden_fraction": st.hidden_fraction,
+            "train_steps": st.bwd_samples // 128,
             "seconds": sec, "calls": dict(split.calls)}
 
 
@@ -1557,6 +1641,223 @@ def phase_card_vs_cpu(dev, n: int = 2048, epochs: int = 2) -> None:
           "max_rel_diff": rel,
           "perturbed_max_rel_diff": max_rel("cpu_perturbed", "cpu")})
     require(rel <= 1e-4, f"card vs CPU losses differ by {rel} relative")
+
+
+# ---------------------------------------------------------------------------
+# Engines and restart: the scanned engine's contract on the card
+# ---------------------------------------------------------------------------
+
+
+def train_state(tr) -> dict:
+    """Copies of every tensor of the train state, by name: parameters,
+    momentum, the strategy's checkpoint arrays (its device state and its
+    generators' states)."""
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    out = {}
+    for path, v in ckpt.flatten(tr._ckpt_tree()):
+        out[path] = (v.detach().clone() if isinstance(v, torch.Tensor)
+                     else torch.from_numpy(v.copy()))
+    return out
+
+
+def state_diff(a: dict, b: dict) -> list:
+    """Names whose tensors differ in any bit (or are missing on one side)."""
+    import torch
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b or not torch.equal(a[k], b[k]))
+
+
+def recorded_run(tr, epochs=None, fail_at_epoch=None):
+    """``tr.run`` with every plan recorded as (visible, hidden, moved back,
+    restart flag)."""
+    plans, plan = [], tr.strategy.plan
+
+    def planned(epoch):
+        p = plan(epoch)
+        plans.append((p.visible_indices, p.hidden_indices, p.moveback_indices,
+                      p.reinit_model))
+        return p
+
+    tr.strategy.plan = planned
+    return tr.run(epochs, fail_at_epoch), plans
+
+
+def same_plans(a: list, b: list) -> bool:
+    import numpy as np
+    return len(a) == len(b) and all(
+        all(np.array_equal(x, y) for x, y in zip(pa[:3], pb[:3]))
+        and pa[3] == pb[3] for pa, pb in zip(a, b))
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(flag: bool):
+    import torch
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = flag
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def phase_engines(dev, n: int = 50_000, epochs: int = 3) -> dict:
+    """The host loop against the scanned engine (CUDA graphs) from the same
+    initial weights: the main path's KAKURENBO trainer for ``epochs``
+    epochs, then each Table 2 strategy for one epoch.  Losses, plans and
+    the whole train state must be bit-identical, with
+    ``cudnn.deterministic`` on (cuDNN may pick atomics-based convolution
+    gradients otherwise); whether two host loops are bit-identical without
+    it is reported, not required."""
+    import torch
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.experiments import table2
+    from repro_torch.models.cnn import CNN
+    t0 = time.perf_counter()
+
+    def model():
+        return CNN(CONFIG, torch.Generator().manual_seed(0))
+
+    def kakurenbo(engine, ep):
+        tr = main_trainer(dev, "kakurenbo", n, 0, epochs, model(), engine=engine)
+        hist, plans = recorded_run(tr, ep)
+        return [h.train_loss for h in hist], plans, train_state(tr), hist
+
+    with cudnn_deterministic(False):
+        loose = [kakurenbo("host", 1) for _ in range(2)]
+    loose_same = (loose[0][0] == loose[1][0]
+                  and not state_diff(loose[0][2], loose[1][2]))
+    with cudnn_deterministic(True):
+        runs = {e: kakurenbo(e, epochs) for e in ("host", "scan")}
+    (lh, ph, sh, hh), (ls, ps, ss, hs) = runs["host"], runs["scan"]
+    diff = state_diff(sh, ss)
+    row = {"phase": "engines", "model": CONFIG.name, "n": n, "epochs": epochs,
+           "strategy": "kakurenbo", "cudnn.deterministic": True,
+           "loss": {"host": lh, "scan": ls},
+           "wall_s": {"host": [h.wall_time for h in hh],
+                      "scan": [h.wall_time for h in hs]},
+           "hidden": [len(p[1]) for p in ps],
+           "losses_equal": lh == ls, "plans_equal": same_plans(ph, ps),
+           "state_tensors": len(ss), "state_differs": diff,
+           "host_vs_host_without_deterministic_bit_identical": loose_same,
+           "host_vs_host_without_deterministic_loss": [r[0] for r in loose]}
+    require(lh == ls, f"engines: losses differ {lh} vs {ls}")
+    require(same_plans(ph, ps), "engines: plans differ")
+    require(not diff, f"engines: train state differs in {diff}")
+    require(any(len(p[1]) for p in ps), "engines: kakurenbo hid nothing")
+    kcfg = dataclasses.replace(table2.kakurenbo_config(1),
+                               drop_top_fraction=0.02)
+    row["table2"] = {}
+    for strategy in table2.STRATEGIES:
+        got = {}
+        for engine in ("host", "scan"):
+            tr = table2.make_trainer(strategy, model_cfg=CONFIG, n=n,
+                                     n_test=128, epochs=1, kakurenbo=kcfg,
+                                     engine=engine, device=dev)
+            with cudnn_deterministic(True):
+                hist, plans = recorded_run(tr)
+            got[engine] = (hist[0].train_loss, hist[0].bwd_samples, plans,
+                           train_state(tr), tr.engine.name)
+        (lh, bh, ph, sh, eh), (ls, bs, ps, ss, es) = got["host"], got["scan"]
+        diff = state_diff(sh, ss)
+        row["table2"][strategy] = {"loss": [lh, ls], "bwd_samples": [bh, bs],
+                                   "engines": [eh, es], "state_differs": diff}
+        require((eh, es) == ("host", "scan"), f"{strategy}: engines {eh}, {es}")
+        require(lh == ls and bh == bs and same_plans(ph, ps) and not diff,
+                f"engines: {strategy} host vs scan differ: loss {lh} vs {ls}, "
+                f"bwd {bh} vs {bs}, state {diff}")
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+def phase_restart(dev, n: int = 50_000, epochs: int = 3) -> dict:
+    """Restart under the scanned engine (CUDA graphs), KAKURENBO and SB on
+    the main path's trainer: a crash before epoch 2 (an epoch boundary)
+    and one between two blocks of epoch 2, each restored from the epoch-2
+    checkpoint into a trainer built from other weights and seeds, must end
+    bit-identical to the uninterrupted run."""
+    import shutil
+    import torch
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.models.cnn import CNN
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(strategy, seed, ckpt_dir=None):
+        return main_trainer(dev, strategy, n, 0, epochs,
+                            CNN(CONFIG, torch.Generator().manual_seed(seed)),
+                            seed=seed, engine="scan",
+                            checkpoint_dir=str(ckpt_dir) if ckpt_dir else None,
+                            checkpoint_every=1 if ckpt_dir else 0)
+
+    with cudnn_deterministic(True):
+        rows = restart_runs(trainer, root)
+    row = {"phase": "restart", "model": CONFIG.name, "n": n, "epochs": epochs,
+           "engine": "scan", "cudnn.deterministic": True, "runs": rows,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+def restart_runs(trainer, root) -> dict:
+    """For KAKURENBO and SB: the uninterrupted run, then the two crashes
+    and their restores; the rows of ``phase_restart``."""
+    import shutil
+    rows = {}
+    try:
+        for strategy in ("kakurenbo", "sb"):
+            ref = trainer(strategy, 0)
+            ref.run()
+            want, last = train_state(ref), ref.history[-1].train_loss
+            out = {}
+            # An epoch boundary: the run dies before epoch 2.
+            d = root / strategy / "boundary"
+            try:
+                trainer(strategy, 0, d).run(fail_at_epoch=2)
+            except RuntimeError as e:
+                require("injected" in str(e), f"restart: {e}")
+            tr = trainer(strategy, 7, d)
+            require(tr.restore_latest() and tr.epoch == 2,
+                    f"{strategy}: boundary restore")
+            tr.run()
+            out["boundary"] = {"state_differs": state_diff(train_state(tr), want),
+                               "last_loss": [tr.history[-1].train_loss, last]}
+            # Between blocks: epoch 2 dies after its first replay.
+            d = root / strategy / "between_blocks"
+            tr = trainer(strategy, 0, d)
+            tr.run(2)
+            dispatch, calls = tr.engine._dispatch, [0]
+
+            def bomb(size, weighted):
+                if calls[0] == 1:
+                    raise RuntimeError("injected failure between blocks")
+                calls[0] += 1
+                dispatch(size, weighted)
+
+            tr.engine._dispatch = bomb
+            try:
+                tr.run_epoch(2)
+            except RuntimeError as e:
+                require("between blocks" in str(e), f"restart: {e}")
+            live = train_state(tr)      # checkpoint on fault: state readable
+            tr2 = trainer(strategy, 7, d)
+            require(tr2.restore_latest() and tr2.epoch == 2,
+                    f"{strategy}: between-blocks restore")
+            tr2.run()
+            out["between_blocks"] = {
+                "replays_before_crash": calls[0],
+                "fault_state_tensors": len(live),
+                "state_differs": state_diff(train_state(tr2), want),
+                "last_loss": [tr2.history[-1].train_loss, last]}
+            for case, r in out.items():
+                require(not r["state_differs"] and r["last_loss"][0] == last,
+                        f"restart {strategy}/{case}: {r}")
+            rows[strategy] = out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1940,7 +2241,10 @@ def main() -> int:
     launches = collections.Counter(phase_train(dev))
     launches.update(phase_table2(dev))
     phase_train_step(dev)
-    emit(epoch_split(dev))
+    for engine in ("host", "scan"):
+        emit(epoch_split(dev, engine))
+    phase_engines(dev)
+    phase_restart(dev)
     phase_card_vs_cpu(dev)
     launches.update(phase_serve(dev, "mamba2-130m"))
     launches.update(phase_serve(dev, "smollm-135m"))

@@ -10,10 +10,9 @@ comes from loss-ranked selection.  Both draw on the device from their own
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
+from repro_torch.checkpoint.checkpoint import copy_into
 from repro_torch.core import planops
 from repro_torch.core.kakurenbo import KakurenboConfig, KakurenboStrategy
 from repro_torch.core.state import SampleState
@@ -39,16 +38,24 @@ class BaselineStrategy(SampleStrategy):
                          visible_indices=self.draw_permutation().cpu().numpy(),
                          host_syncs=1)
 
+    def state_dict(self) -> dict:
+        return {"arrays": {"rng_key": planops.generator_state(self._gen)},
+                "host": {}}
 
+    def load_state_dict(self, state: dict) -> None:
+        planops.load_generator_state(self._gen, state["arrays"]["rng_key"])
+
+
+@torch.no_grad()
 def randomize_importance(state: SampleState, u: torch.Tensor) -> SampleState:
     """iid-uniform "losses" ``u``, every sample seen and move-back-eligible:
-    a pure coin flip for the KAKURENBO plan."""
-    n, dev = state.num_samples, state.loss.device
-    return dataclasses.replace(
-        state, loss=u.to(torch.float32),
-        pa=torch.ones(n, dtype=torch.bool, device=dev),
-        pc=torch.ones(n, dtype=torch.float32, device=dev),
-        seen=torch.zeros(n, dtype=torch.int32, device=dev))
+    a pure coin flip for the KAKURENBO plan.  Written into ``state`` in
+    place (a captured train step holds its tensors)."""
+    state.loss.copy_(u)
+    state.pa.fill_(True)
+    state.pc.fill_(1.0)
+    state.seen.zero_()
+    return state
 
 
 @register_strategy("random")
@@ -67,6 +74,18 @@ class RandomStrategy(KakurenboStrategy):
         return planops.uniform(self._gen, self.num_samples)
 
     def plan(self, epoch: int) -> EpochPlan:
-        self._inner.state = randomize_importance(self._inner.state,
-                                                 self.draw_uniform())
+        randomize_importance(self._inner.state, self.draw_uniform())
         return self._inner.begin_epoch(epoch)
+
+    def state_dict(self) -> dict:
+        inner = self._inner
+        return {"arrays": {"state": inner.state,
+                           "inner_key": planops.generator_state(inner._gen),
+                           "rng_key": planops.generator_state(self._gen)},
+                "host": {}}
+
+    def load_state_dict(self, state: dict) -> None:
+        a = state["arrays"]
+        copy_into(self._inner.state, a["state"])
+        planops.load_generator_state(self._inner._gen, a["inner_key"])
+        planops.load_generator_state(self._gen, a["rng_key"])

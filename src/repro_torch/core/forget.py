@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from repro_torch.checkpoint.checkpoint import copy_into
 from repro_torch.core import planops
 from repro_torch.core.state import (SampleState, init_sample_state,
                                     scatter_observations)
@@ -66,9 +67,6 @@ class ForgetStrategy(SampleStrategy):
     def get_device_state(self) -> SampleState:
         return self.state
 
-    def set_device_state(self, state: SampleState) -> None:
-        self.state = state
-
     def plan(self, epoch: int) -> EpochPlan:
         """``epoch`` counts every epoch run, warmup included."""
         c = self.config
@@ -90,3 +88,15 @@ class ForgetStrategy(SampleStrategy):
     def observe(self, indices, loss, pa, pc, epoch: int) -> None:
         self.state = scatter_observations(self.state, indices, loss, pa, pc,
                                           epoch)
+
+    def state_dict(self) -> dict:
+        return {"arrays": {"state": self.state, "pruned": self.pruned_mask,
+                           "rng_key": planops.generator_state(self._gen)},
+                "host": {"restarted": bool(self.restarted)}}
+
+    def load_state_dict(self, state: dict) -> None:
+        a = state["arrays"]
+        copy_into({"state": self.state, "pruned": self.pruned_mask},
+                  {"state": a["state"], "pruned": a["pruned"]})
+        self.restarted = bool(state["host"]["restarted"])
+        planops.load_generator_state(self._gen, a["rng_key"])

@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import copy_into
 from repro_torch.core import planops
 from repro_torch.core.state import (SampleState, init_sample_state,
                                     scatter_observations)
@@ -76,9 +77,6 @@ class InfoBatchStrategy(SampleStrategy):
     def get_device_state(self) -> SampleState:
         return self.state
 
-    def set_device_state(self, state: SampleState) -> None:
-        self.state = state
-
     def plan(self, epoch: int) -> EpochPlan:
         c, n = self.config, self.num_samples
         annealed = epoch >= int(c.anneal * c.total_epochs)
@@ -96,6 +94,16 @@ class InfoBatchStrategy(SampleStrategy):
     def observe(self, indices, loss, pa, pc, epoch: int) -> None:
         self.state = scatter_observations(self.state, indices, loss, pa, pc,
                                           epoch)
+
+    def state_dict(self) -> dict:
+        # The weights are not saved: plan() rebuilds them before any lookup.
+        return {"arrays": {"state": self.state,
+                           "rng_key": planops.generator_state(self._gen)},
+                "host": {}}
+
+    def load_state_dict(self, state: dict) -> None:
+        copy_into(self.state, state["arrays"]["state"])
+        planops.load_generator_state(self._gen, state["arrays"]["rng_key"])
 
     def batch_weights(self, indices: np.ndarray) -> np.ndarray:
         return self.weights[indices]

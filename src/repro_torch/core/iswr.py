@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import copy_into
 from repro_torch.core import planops
 from repro_torch.core.state import (SampleState, init_sample_state,
                                     scatter_observations)
@@ -58,9 +59,6 @@ class ISWRStrategy(SampleStrategy):
     def get_device_state(self) -> SampleState:
         return self.state
 
-    def set_device_state(self, state: SampleState) -> None:
-        self.state = state
-
     def plan(self, epoch: int) -> EpochPlan:
         draw, p = _plan_step(self.state, self.draw_uniform(),
                              self.config.smoothing)
@@ -72,6 +70,16 @@ class ISWRStrategy(SampleStrategy):
     def observe(self, indices, loss, pa, pc, epoch: int) -> None:
         self.state = scatter_observations(self.state, indices, loss, pa, pc,
                                           epoch)
+
+    def state_dict(self) -> dict:
+        # _last_p is not saved: plan() recomputes it before any lookup.
+        return {"arrays": {"state": self.state,
+                           "rng_key": planops.generator_state(self._gen)},
+                "host": {}}
+
+    def load_state_dict(self, state: dict) -> None:
+        copy_into(self.state, state["arrays"]["state"])
+        planops.load_generator_state(self._gen, state["arrays"]["rng_key"])
 
     def batch_weights(self, indices: np.ndarray) -> np.ndarray:
         if not self.config.unbiased:

@@ -27,6 +27,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import copy_into
 from repro_torch.core import planops
 from repro_torch.core import selection as sel
 from repro_torch.core.schedule import FractionSchedule, kakurenbo_lr
@@ -170,9 +171,6 @@ class KakurenboStrategy(SampleStrategy):
     def get_device_state(self) -> SampleState:
         return self._inner.state
 
-    def set_device_state(self, state: SampleState) -> None:
-        self._inner.state = state
-
     def plan(self, epoch: int) -> EpochPlan:
         return self._inner.begin_epoch(epoch)
 
@@ -181,3 +179,13 @@ class KakurenboStrategy(SampleStrategy):
 
     def on_epoch_end(self, plan: EpochPlan, eval_forward, batch_size: int) -> int:
         return self._inner.refresh_hidden(plan, eval_forward, batch_size)
+
+    def state_dict(self) -> dict:
+        return {"arrays": {"state": self._inner.state,
+                           "rng_key": planops.generator_state(self._inner._gen)},
+                "host": {}}
+
+    def load_state_dict(self, state: dict) -> None:
+        copy_into(self._inner.state, state["arrays"]["state"])
+        planops.load_generator_state(self._inner._gen,
+                                     state["arrays"]["rng_key"])

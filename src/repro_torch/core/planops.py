@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import zlib
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
@@ -46,6 +47,18 @@ def make_generator(seed: int, name: str, device: torch.device) -> torch.Generato
     gen = torch.Generator(device=device)
     gen.manual_seed(strategy_seed(seed, name))
     return gen
+
+
+def generator_state(gen: torch.Generator) -> np.ndarray:
+    """``gen``'s state as a uint8 array (a checkpoint leaf): the port's
+    ``key_data``."""
+    return gen.get_state().numpy().copy()
+
+
+def load_generator_state(gen: torch.Generator, arr) -> None:
+    """Set ``gen`` to a state from ``generator_state`` (``load_key``): the
+    same object, so whatever holds ``gen`` (a captured graph) sees it."""
+    gen.set_state(torch.as_tensor(np.asarray(arr, np.uint8)).cpu())
 
 
 def device_permutation(gen: torch.Generator, n: int) -> torch.Tensor:

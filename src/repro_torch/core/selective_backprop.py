@@ -8,9 +8,10 @@ percentile is taken against a ring buffer of the last ``history`` losses.
 The flow is the protocol's in-step ``fused_select`` hook: the trainer runs
 a forward-only loss, ``select_step`` turns it into per-sample backward
 weights (0 = dropped, survivors rescaled by ``B / kept``) and updates the
-device-resident ring buffer.  The per-step uniforms are an input: the
-strategy draws them from its own ``torch.Generator``, and the parity tests
-hand in the reference's.
+device-resident ring buffer in place.  The per-step uniforms are an input:
+the strategy draws them from its own ``torch.Generator`` (a step generator,
+registered with every captured graph), and the parity tests hand in the
+reference's.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.checkpoint.checkpoint import copy_into
 from repro_torch.core import planops
 from repro_torch.core.strategy import EpochPlan, SampleStrategy, register_strategy
 from repro_torch.kernels.backend import resolve_device
@@ -47,7 +49,8 @@ def select_step(state: dict, loss: torch.Tensor, u: torch.Tensor, *,
     Each loss's percentile within the history drives a Bernoulli keep; the
     kept samples are weighted by ``B / kept`` so the batch loss stays
     unbiased.  Until ``bootstrap`` losses are seen everything trains.  The
-    batch is then written into the ring buffer (in place).
+    batch is then written into the ring buffer, and the count and write
+    position advanced, all in place (a captured step holds the tensors).
     """
     hist = state["hist"]
     h, b = hist.shape[0], loss.shape[0]
@@ -64,8 +67,8 @@ def select_step(state: dict, loss: torch.Tensor, u: torch.Tensor, *,
     pos = (state["ptr"] + torch.arange(b, dtype=torch.int32,
                                        device=loss.device)) % h
     hist[pos.long()] = loss
-    state["count"] = torch.clamp(state["count"] + b, max=1 << 30)
-    state["ptr"] = (state["ptr"] + b) % h
+    state["count"].copy_(torch.clamp(state["count"] + b, max=1 << 30))
+    state["ptr"].copy_((state["ptr"] + b) % h)
     return weights, state
 
 
@@ -102,5 +105,19 @@ class SBStrategy(SampleStrategy):
     def get_device_state(self) -> dict:
         return self._sel
 
-    def set_device_state(self, state: dict) -> None:
-        self._sel = state
+    def step_generators(self) -> list[torch.Generator]:
+        return [self._sel_gen]
+
+    def state_dict(self) -> dict:
+        sel = self._sel
+        return {"arrays": {"hist": sel["hist"], "count": sel["count"],
+                           "ptr": sel["ptr"],
+                           "sel_key": planops.generator_state(self._sel_gen),
+                           "rng_key": planops.generator_state(self._gen)},
+                "host": {}}
+
+    def load_state_dict(self, state: dict) -> None:
+        a = state["arrays"]
+        copy_into(self._sel, {k: a[k] for k in ("hist", "count", "ptr")})
+        planops.load_generator_state(self._sel_gen, a["sel_key"])
+        planops.load_generator_state(self._gen, a["rng_key"])

@@ -6,7 +6,9 @@ was last seen, as ``(N,)`` tensors on the training device.
 
 Unlike the JAX package, ``scatter_observations`` updates the tensors in
 place (and returns the same state), which saves an (N,)-sized copy per
-batch.  The numeric guard's ``valid=`` path belongs to a later slice.
+batch and lets a captured train step (CUDA graphs) hold their addresses;
+a checkpoint restore copies into them too.  The numeric guard's ``valid=``
+path belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -37,6 +39,12 @@ class SampleState:
     @property
     def num_samples(self) -> int:
         return self.loss.shape[0]
+
+
+#: The fields ``scatter_observations`` reads or writes: what a captured
+#: train step holds by address (``hidden`` is the epoch plan's).
+OBSERVED_FIELDS = ("loss", "pa", "pc", "seen", "forget_events",
+                   "prev_correct")
 
 
 def init_sample_state(num_samples: int, device: torch.device | str,
@@ -78,8 +86,13 @@ def last_occurrence(idx: torch.Tensor) -> torch.Tensor:
 def scatter_observations(state: SampleState,
                          indices: np.ndarray | torch.Tensor,
                          loss: torch.Tensor, pa: torch.Tensor,
-                         pc: torch.Tensor, epoch: int) -> SampleState:
+                         pc: torch.Tensor,
+                         epoch: int | torch.Tensor) -> SampleState:
     """Record (loss, PA, PC) for the samples at ``indices``, in place.
+
+    ``epoch`` is a Python int or a 0-dim int32 tensor on the state's device
+    (the trainer's, as the reference passes ``jnp.int32(epoch)``), read
+    there: nothing crosses to the host.
 
     Repeated indices (ISWR draws with replacement) keep the reference's
     meaning: loss, PA, PC, ``seen`` and ``prev_correct`` take the batch's

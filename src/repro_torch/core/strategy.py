@@ -16,10 +16,18 @@ driven by ``train/trainer.py``:
 3. ``observe(indices, loss, pa, pc, epoch)`` — lagging-loss bookkeeping
    outside the train step (the step-D refresh);
 4. ``on_epoch_end(plan, eval_forward, batch_size) -> int`` — end-of-epoch
-   work (the hidden-list refresh); returns extra forward samples.
+   work (the hidden-list refresh); returns extra forward samples;
+5. ``state_dict()`` / ``load_state_dict(sd)`` — checkpoint and restore,
+   ``{"arrays": ..., "host": ...}`` as in the reference.
 
-Checkpointing (``state_dict``) and Grad-Match's ``prepare`` hook belong to
-a later slice.
+The scanned engine captures the train step in CUDA graphs, which hold the
+addresses of everything the step touches.  So the in-step hooks update the
+strategy's device state in place, ``step_tensors`` names the tensors they
+touch (the engine checks before every replay that they are still the
+strategy's), ``step_generators`` the ``torch.Generator``s they draw from
+(registered with each graph), and ``load_state_dict`` and
+``set_device_state`` copy into the existing tensors, never rebind them.
+Grad-Match's ``prepare`` hook belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -28,6 +36,10 @@ import inspect
 from typing import Any, Callable
 
 import numpy as np
+import torch
+
+from repro_torch.checkpoint.checkpoint import copy_into, flatten
+from repro_torch.core.state import OBSERVED_FIELDS, SampleState
 
 
 @dataclasses.dataclass
@@ -82,6 +94,15 @@ class SampleStrategy:
     def observe(self, indices, loss, pa, pc, epoch: int) -> None:
         """Record lagging (loss, PA, PC) outside the train step."""
 
+    @property
+    def supports_scan(self) -> bool:
+        """Can an epoch run as captured multi-step blocks (the scanned
+        engine) with no host work between steps?  True unless the strategy
+        observes on the host without a ``fused_observe``; ``batch_weights``
+        is a plan-time lookup, pre-gathered into the epoch plan."""
+        observes = type(self).observe is not SampleStrategy.observe
+        return not observes or self.fused_observe is not None
+
     def batch_weights(self, indices: np.ndarray) -> np.ndarray | None:
         """(B,) f32 host loss weights for this batch (None = uniform),
         looked up from plan-time decisions; never touches device state."""
@@ -91,12 +112,42 @@ class SampleStrategy:
         return None
 
     def set_device_state(self, state) -> None:
-        raise NotImplementedError(
-            f"{type(self).__name__} declares no device-resident state")
+        """Take the state back from the trainer: the same object (the hooks
+        update it in place), or another whose tensors are copied in."""
+        own = self.get_device_state()
+        if own is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} declares no device-resident state")
+        if state is not own:
+            copy_into(own, state)
+
+    def step_tensors(self) -> list[torch.Tensor]:
+        """The device tensors the in-step hooks read or write: what a
+        captured train step holds by address (a ``SampleState``'s
+        ``OBSERVED_FIELDS``, not the plan's ``hidden``)."""
+        state = self.get_device_state()
+        if isinstance(state, SampleState):
+            return [getattr(state, f) for f in OBSERVED_FIELDS]
+        return [t for _, t in flatten(state)]
+
+    def step_generators(self) -> list[torch.Generator]:
+        """The generators the in-step hooks draw from."""
+        return []
 
     def on_epoch_end(self, plan: EpochPlan, eval_forward: EvalForward,
                      batch_size: int) -> int:
         return 0
+
+    def state_dict(self) -> dict:
+        """``{"arrays": <nested dict of tensors and arrays>, "host":
+        <json-able dict>}``; the arrays' structure is fixed at construction
+        (it becomes checkpoint leaves) and restoring must be bit-exact."""
+        return {"arrays": {}, "host": {}}
+
+    def load_state_dict(self, state: dict) -> None:
+        if state.get("arrays") or state.get("host"):
+            raise ValueError(
+                f"{type(self).__name__} has no state to restore into")
 
 
 STRATEGIES: dict[str, type[SampleStrategy]] = {}

@@ -1,8 +1,10 @@
 """Host-side batch assembly.
 
-A copy of ``repro/data/pipeline.py::{epoch_index_plan, Pipeline}``: maps an
-epoch's global sample indices to batches, padding the trailing partial batch
-by cycling from the front of the (already shuffled) epoch.
+A copy of ``repro/data/pipeline.py::{epoch_index_plan, Pipeline,
+materialize}``: maps an epoch's global sample indices to batches, padding
+the trailing partial batch by cycling from the front of the (already
+shuffled) epoch, and assembles a whole dataset once for the scanned
+engine's device-resident copy.
 """
 from __future__ import annotations
 
@@ -29,6 +31,21 @@ def epoch_index_plan(indices: np.ndarray, batch_size: int,
         rows.append(np.concatenate(
             [indices[n_full * bs :], indices[: bs - rem]])[None])
     return np.concatenate(rows, axis=0) if len(rows) > 1 else rows[0]
+
+
+def materialize(get_fn: Callable[[np.ndarray], dict], num_samples: int,
+                chunk: int = 4096) -> dict:
+    """The whole dataset as host arrays, assembled in ``chunk``-row pieces
+    (which bound the transient memory of a generator-style ``get``).  Every
+    dataset whose rows are per-index deterministic (the ``get`` contract)
+    can be materialised once and then batched by a gather on the device."""
+    parts = []
+    for start in range(0, num_samples, chunk):
+        parts.append(get_fn(np.arange(start, min(start + chunk, num_samples))))
+    if len(parts) == 1:
+        return parts[0]
+    return {k: np.concatenate([p[k] for p in parts], axis=0)
+            for k in parts[0]}
 
 
 @dataclasses.dataclass

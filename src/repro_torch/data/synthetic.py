@@ -15,6 +15,8 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.data.pipeline import materialize
+
 
 @dataclasses.dataclass
 class SyntheticClassification:
@@ -41,6 +43,13 @@ class SyntheticClassification:
         self.true_labels = self.labels.copy()
         self.labels[flip] = rng.integers(0, c, flip.sum())
         self.is_noisy = flip
+
+    def arrays(self, chunk: int = 4096) -> dict:
+        """The whole dataset as host arrays (the scanned engine's
+        device-resident copy).  Each image depends only on its own
+        ``noise_seed``, so gathering rows from these arrays is byte-identical
+        to ``get`` of the same indices."""
+        return materialize(self.get, self.num_samples, chunk)
 
     def get(self, indices: np.ndarray) -> dict:
         """Host numpy batch: images (B, H, W, C) f32, labels (B,) i32."""

@@ -66,13 +66,16 @@ def make_trainer(strategy: str, *, model_cfg: CNNConfig = MODEL_CFG,
                  epochs: int = EPOCHS, seed: int = 0,
                  kakurenbo: KakurenboConfig | None = None,
                  base_lr: float = 0.03, fused_scoring: bool = False,
+                 engine: str = "auto",
                  device: str | torch.device | None = None) -> Trainer:
-    """The Table 2 trainer of ``strategy`` (``device=None`` means CUDA)."""
+    """The Table 2 trainer of ``strategy`` (``device=None`` means CUDA),
+    on the default engine (``"auto"``: scanned, CUDA graphs on the card) as
+    ``benchmarks/common.py::run_strategy`` builds the JAX trainer."""
     ds = SyntheticClassification(num_samples=n, image_size=model_cfg.image_size,
                                  seed=seed)
     tc = TrainConfig(
         epochs=epochs, batch_size=BATCH, strategy=strategy,
-        fused_scoring=fused_scoring,
+        fused_scoring=fused_scoring, engine=engine,
         lr=LRSchedule(base_lr, "cosine", epochs, 1),
         kakurenbo=kakurenbo or kakurenbo_config(epochs),
         # FORGET's warmup must fit inside the run so that prune + restart

@@ -17,27 +17,44 @@ the card) and needs ``logits_fn(model, batch) -> (B, V) logits``; otherwise
 
 The objective is the weighted mean ``mean(ce * w)`` when the batch carries
 a ``"weight"`` (the fused-scoring loss does this; a caller's ``loss_fn``
-must too).  Left for later slices: checkpointing, the numeric guard, the
-mesh and straggler code, gradient compression and the scanned engine.
+must too).
+
+The epoch engine (``train/engines.py``) is chosen as the reference's
+``_make_engine`` does: ``engine="auto"`` runs every strategy that
+``supports_scan`` through the scanned engine (device-resident data, CUDA
+graphs on the card) and the rest through the host loop.  The LR and the
+epoch reach the step as 0-dim device tensors (``lr_dev``, ``epoch_dev``),
+filled before each epoch, under both engines.  Checkpoints
+(``save_checkpoint``/``restore_latest``, every ``checkpoint_every`` epochs)
+hold the parameters, the momentum, the initial weights (FORGET's restart
+point) and the strategy's arrays with its generators' states, and a
+restore copies them into the live tensors in place, so a restart is
+bit-exact under both engines.  Left for later slices: the numeric guard,
+the legacy host-observe path, the mesh and straggler code and gradient
+compression.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import logging
 import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core import (ForgetConfig, InfoBatchConfig, ISWRConfig,
                               KakurenboConfig, LRSchedule, SampleStrategy,
                               SBConfig, make_strategy)
-from repro_torch.data.pipeline import Pipeline
+from repro_torch.data.pipeline import Pipeline, materialize
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.optim import make_optimizer
-from repro_torch.train.engines import HostLoopEngine
+from repro_torch.train.engines import HostLoopEngine, ScanEpochEngine
+
+logger = logging.getLogger("repro_torch.train")
 
 
 @dataclasses.dataclass
@@ -61,6 +78,21 @@ class TrainConfig:
     # Per-sample (loss, PA, PC) from the logits in one streaming pass
     # (kernel B1 on the card) instead of the model's separate reductions.
     fused_scoring: bool = False
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 0          # epochs; 0 = only on demand
+    # Save checkpoints on a background thread; a failed save re-raises at
+    # the next checkpoint boundary, and older checkpoints are only GC'd
+    # after the newer save is confirmed.
+    async_checkpoint: bool = False
+    # Epoch engine: "auto" scans every strategy that supports_scan (all
+    # seven ported ones), "scan"/"host" force one (forcing "scan" on a
+    # strategy that cannot raises).
+    engine: str = "auto"
+    # Scanned engine: the dataset placed on the device once, batches
+    # gathered there (False makes "auto" pick the host loop).
+    device_data: bool = True
+    # Scanned engine: train steps in one block (one CUDA graph replay).
+    scan_steps: int = 8
 
 
 @dataclasses.dataclass
@@ -121,12 +153,20 @@ class Trainer:
                 "from logits_fn")
         else:
             self.loss_fn = loss_fn
+        if cfg.engine not in ("auto", "scan", "host"):
+            raise ValueError(
+                f"TrainConfig.engine={cfg.engine!r}: must be 'auto', 'scan' "
+                "or 'host'")
         self.model = model.to(self.device)
         # FORGET restarts from the initial weights, as the reference re-inits
-        # from the same key: keep a copy of them.
+        # from the same key: keep a copy of them (checkpointed too).
         self._init_weights = copy.deepcopy(self.model.state_dict())
         self.opt = make_optimizer(cfg.optimizer, self.model.parameters(),
                                   **cfg.optimizer_hp)
+        # The step reads the LR and the epoch from the device (fill_ before
+        # each epoch): a captured step reads them at replay.
+        self.lr_dev = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.epoch_dev = torch.zeros((), dtype=torch.int32, device=self.device)
         self.pipeline = Pipeline(dataset.get, cfg.batch_size)
         self.num_samples = dataset.num_samples
         self.strategy = strategy or make_strategy(
@@ -137,18 +177,58 @@ class Trainer:
         has_state = self.strategy.get_device_state() is not None
         self._fuse = self.strategy.fused_observe if has_state else None
         self._fsel = self.strategy.fused_select if has_state else None
-        self.engine = HostLoopEngine(self)
+        self._device_data: dict | None = None    # lazy: see device_data()
+        self._pending_save = None    # async-checkpoint handle
+        self.engine = self._make_engine()
         self.epoch = 0
         self.history: list[EpochStats] = []
+
+    def _make_engine(self):
+        """The reference's engine choice: scanned when the strategy needs
+        nothing from the host between steps (``supports_scan`` and, if it
+        observes, an active fused observe) and the data may live on the
+        device; forcing ``"scan"`` where it cannot raises."""
+        s, c = self.strategy, self.cfg
+        observes = type(s).observe is not SampleStrategy.observe
+        scannable = s.supports_scan and (self._fuse is not None or not observes)
+        if c.engine == "scan" and not scannable:
+            raise ValueError(
+                f"engine='scan' but strategy {s.name!r} cannot run scanned "
+                "epochs (host-side observe without an active fused_observe): "
+                "use engine='auto' or 'host'")
+        if c.engine == "scan" and not c.device_data:
+            raise ValueError(
+                "engine='scan' requires device_data=True: the scanned engine "
+                "gathers its batches from the device-resident dataset")
+        use_scan = c.engine == "scan" or (c.engine == "auto" and scannable
+                                          and c.device_data
+                                          and c.scan_steps > 0)
+        return ScanEpochEngine(self) if use_scan else HostLoopEngine(self)
+
+    def device_data(self) -> dict:
+        """The whole dataset as device tensors, placed once at first use
+        (``dataset.arrays()``, or ``materialize`` of its ``get``): the
+        scanned engine's gather source."""
+        if self._device_data is None:
+            ds = self.dataset
+            arrays = (ds.arrays() if hasattr(ds, "arrays")
+                      else materialize(ds.get, self.num_samples))
+            self._device_data = {k: torch.from_numpy(v).to(self.device)
+                                 for k, v in arrays.items()}
+        return self._device_data
 
     def to_device(self, batch: dict) -> dict:
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
-    def train_step(self, state, batch: dict, indices: np.ndarray, epoch: int,
-                   lr: float):
+    def train_step(self, state, batch: dict, indices, epoch, lr):
         """One update; returns (strategy state, loss scalar on the device,
-        backward samples as a device scalar, or None for the whole batch)."""
+        backward samples as a device scalar, or None for the whole batch).
+
+        ``indices`` are host or device sample ids, ``epoch`` and ``lr`` the
+        trainer's device scalars (``epoch_dev``, ``lr_dev``) or numbers.
+        Everything it changes it changes in place, so that one call can be
+        captured into a CUDA graph (the scanned engine)."""
         self.model.train()
         bwd = None
         if self._fsel is not None:
@@ -181,11 +261,13 @@ class Trainer:
         t0 = time.perf_counter()
         plan = self.strategy.plan(epoch)
         if plan.reinit_model:
-            # FORGET: restart from the initial weights with fresh momentum.
+            # FORGET: restart from the initial weights with fresh momentum,
+            # both copied in place (a captured step holds the tensors).
             self.model.load_state_dict(self._init_weights)
-            self.opt = make_optimizer(c.optimizer, self.model.parameters(),
-                                      **c.optimizer_hp)
+            self.opt.reset()
         lr = float(c.lr(epoch)) * plan.lr_scale
+        self.lr_dev.fill_(lr)
+        self.epoch_dev.fill_(epoch)
         res = self.engine.run_epoch(epoch, plan.visible_indices, plan, lr)
         fwd, bwd = res.fwd_samples, res.bwd_samples
         if plan.needs_refresh:
@@ -205,12 +287,22 @@ class Trainer:
             host_syncs=plan.host_syncs, engine=self.engine.name)
         self.history.append(stats)
         self.epoch = epoch + 1
+        if (c.checkpoint_dir and c.checkpoint_every
+                and (epoch + 1) % c.checkpoint_every == 0):
+            self.save_checkpoint()
         return stats
 
-    def run(self, epochs: int | None = None) -> list[EpochStats]:
+    def run(self, epochs: int | None = None,
+            fail_at_epoch: int | None = None) -> list[EpochStats]:
+        """Run the remaining epochs; ``fail_at_epoch`` raises before that
+        epoch (a simulated crash, for the restart tests)."""
         total = epochs or self.cfg.epochs
         while self.epoch < total:
+            if fail_at_epoch is not None and self.epoch == fail_at_epoch:
+                raise RuntimeError(f"injected failure at epoch {self.epoch}")
             self.run_epoch(self.epoch)
+        # Surface a failed trailing async save before reporting success.
+        self.finish_checkpoints()
         return self.history
 
     def evaluate(self) -> float:
@@ -225,3 +317,72 @@ class Trainer:
             correct += pa.sum()
             total += len(idx)
         return int(correct) / max(total, 1)
+
+    # ------------------------------------------------------------ checkpoints
+
+    def _ckpt_tree(self, strategy_sd: dict | None = None) -> dict:
+        """The checkpoint's leaves: the live tensors themselves (a restore
+        copies into them) and the strategy's arrays."""
+        sd = strategy_sd or self.strategy.state_dict()
+        return {"params": self.model.state_dict(),
+                "opt_state": self.opt.state_dict(),
+                "strategy": sd["arrays"],
+                # FORGET's restart point: the same after a restore into a
+                # trainer built from other weights (the reference's key).
+                "init_params": self._init_weights}
+
+    def save_checkpoint(self) -> str | None:
+        """Checkpoint the epoch boundary: the tree and the host metadata
+        (the epoch, the strategy's host state)."""
+        if not self.cfg.checkpoint_dir:
+            return None
+        sd = self.strategy.state_dict()
+        meta = {"epoch": self.epoch, "strategy": sd["host"]}
+        if self.cfg.async_checkpoint:
+            # Join the previous save first (re-raising its failure); GC
+            # waits until the newer save is on disk.
+            self.finish_checkpoints()
+            self._pending_save = ckpt.save_async(
+                self.cfg.checkpoint_dir, self.epoch, self._ckpt_tree(sd),
+                metadata=meta, keep=None)
+            return self._pending_save.path
+        return ckpt.save(self.cfg.checkpoint_dir, self.epoch,
+                         self._ckpt_tree(sd), metadata=meta)
+
+    def finish_checkpoints(self) -> None:
+        """Join a pending async save (re-raising its failure), then GC the
+        superseded checkpoints."""
+        if self._pending_save is None:
+            return
+        self._pending_save.join()
+        self._pending_save = None
+        ckpt.gc(self.cfg.checkpoint_dir)
+
+    def restore_latest(self) -> bool:
+        """Restore the newest good checkpoint into this trainer, in place;
+        False when there is none."""
+        if not self.cfg.checkpoint_dir:
+            return False
+        like = self._ckpt_tree()
+        try:
+            res = ckpt.restore_latest(self.cfg.checkpoint_dir, like)
+        except ValueError as e:
+            raise ValueError(
+                f"incompatible checkpoint in {self.cfg.checkpoint_dir!r}: "
+                f"{e}") from e
+        if res is None:
+            return False
+        tree, meta, step = res
+        if "strategy" not in meta:
+            raise ValueError(f"checkpoint step {step} holds no strategy "
+                             "state: cannot restore its generators")
+        # Every tensor is copied into, none rebound (a graph holds them).
+        self.model.load_state_dict({k: torch.from_numpy(v)
+                                    for k, v in tree["params"].items()})
+        self.opt.load_state_dict(tree["opt_state"])
+        ckpt.copy_into(self._init_weights, tree["init_params"])
+        self.strategy.load_state_dict(
+            {"arrays": tree["strategy"], "host": meta["strategy"]})
+        self.epoch = meta["epoch"]
+        logger.info("restored checkpoint step %d (epoch %d)", step, self.epoch)
+        return True
