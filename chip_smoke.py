@@ -57,8 +57,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    DropTop 0.02; FORGET must prune floor(0.3 N) and restart, ISWR must draw
    repeated indices into a batch, SB must skip backward samples.  Table 2
    scores as the reference harness does (PA by argmax), so B1 must not run
-   there.  The launch counts of phases 5 and 6, each set to 0 just before
-   it, show that the main path went through every kernel;
+   there.  The launch counts of phases 5, 6, 10 and 11, each set to 0
+   just before it, show that each path went through its kernels (the
+   ``kernels`` line sums them, and the serve phases');
 7. train step and epoch: ``Trainer.train_step`` timed and profiled (paper
    CNN; the wide-head model) and one replay of the scanned engine's 8-step
    graph under the profiler (device activities, busy vs wall); one
@@ -68,14 +69,35 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    fetch; both: plan, refresh, ``evaluate``);
 8. engines: the host loop and the scanned engine from the same weights,
    3 KAKURENBO epochs of the main path and one epoch of each Table 2
-   strategy, with ``cudnn.deterministic``: losses, plans and the whole
-   train state bit-identical (and whether two host loops are without it);
+   strategy, under the trainer's defaults (it runs its epochs with
+   ``cudnn.deterministic``; the script sets no flag): losses, plans and
+   the whole train state bit-identical (and whether two host loops are
+   without the flag, ``trainer.CUDNN_DETERMINISTIC`` off, reported);
 9. restart: KAKURENBO and SB under the scanned engine crash before epoch 2
    and between two blocks of epoch 2; each restore into a trainer built
    from other weights and seeds ends bit-identical to the uninterrupted run;
-10. card vs CPU: the same small run on ``cuda`` and on ``cpu`` from the same
+10. resilience, on the main path with the numeric guard
+   (``guard_policy="skip_update"``): a clean run bit-identical to the
+   unguarded one under both engines and the 8-step graph's replay timed
+   guarded against unguarded in turns (its overhead beside the reference's
+   3% budget); a poisoned run (NaN features for a few ids) with finite
+   parameters, one held step a poisoned batch, the poisoned samples at the
+   never-seen sentinel and never hidden, the guard-off control going
+   non-finite; ``guard_abort_after`` raising a restartable
+   ``NonFiniteError``; a ``CrashAtStep`` in the middle of epoch 1
+   recovered by ``run_with_restarts`` bit-identical to the uninterrupted
+   run for the seven Table 2 strategies (scanned), Grad-Match at N =
+   1,024 and KAKURENBO on the host loop, with the recovery's times; the
+   host-observe path bit-identical to the fused one; AdamW, RMSProp and
+   Adafactor, one epoch, scanned = host loop.  Its launch counts, set to 0
+   before it, must hold B1 (forward and backward), the histogram-select
+   and the rank-select (FORGET's prune);
+11. table 3: ``repro_torch.experiments.table3`` at full width, N = 1,024,
+   16 epochs: baseline, Grad-Match (its OMP on the host, timed) and
+   KAKURENBO under ``"sort"`` with DropTop 0.02 (the rank-select);
+12. card vs CPU: the same small run on ``cuda`` and on ``cpu`` from the same
    params and permutations, TF32 off; per-epoch losses within 1e-4;
-11. serve: ``repro_torch.launch.serve`` at full width and depth in f32
+13. serve: ``repro_torch.launch.serve`` at full width and depth in f32
    with seeded weights, prefill of 4 x 2,048 tokens then 32 greedy
    tokens, first on mamba2-130m (24 layers; the SSD scan must run through
    kernel B6, 24 launches for the one prefill), then on smollm-135m (30
@@ -86,7 +108,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    layers the card's prefill (the kernel) against the CPU's (its plain
    version: logits and every cache tensor within 1e-4) and their greedy
    tokens.  The kernels themselves are held against their plain versions
-   in phase 3.
+   in phase 3, with B1 also on rows a poisoned sample gives (NaN ce and
+   pmax where the plain version has them).
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -283,6 +306,39 @@ def check_loss_confidence(dev, t: int, v: int, dtype, tol: float, reps: int,
                 logits, labels64, reduction="none"), reps),
             "library_backend": "F.cross_entropy(reduction='none'): ce only",
             "library_ce_err": float((ce_lib.float() - ce_p).abs().max())}
+
+
+def check_loss_confidence_nonfinite(dev) -> dict:
+    """B1 on rows a poisoned sample gives (the numeric guard's input): all
+    logits NaN, one NaN logit beside a finite maximum at the label, NaN at
+    the label.  The kernel must give NaN ce and pmax exactly where its
+    plain version does, the same ``correct``, and its backward a NaN row
+    there too; the finite rows agree within 1e-5."""
+    import torch
+    from repro_torch.kernels import loss_confidence as lc
+    logits, labels, g = lc_inputs(dev, 128, 10, torch.float32, seed=3)
+    logits[5] = float("nan")
+    logits[9, (int(labels[9]) + 1) % 10] = float("nan")
+    logits[9, int(labels[9])] = 100.0
+    logits[17, int(labels[17])] = float("nan")
+    ce, cor, pm = lc.loss_confidence(logits, labels)
+    ce_p, cor_p, pm_p = lc.loss_confidence_plain(logits, labels)
+    dl = lc.loss_confidence_backward(logits, labels, ce, g)
+    dl_p = lc.loss_confidence_backward_plain(logits, labels, ce_p, g)
+    torch.cuda.synchronize()
+    same_nan = all(torch.equal(torch.isnan(a), torch.isnan(b))
+                   for a, b in ((ce, ce_p), (pm, pm_p), (dl, dl_p)))
+    fin = torch.isfinite(ce_p)
+    err = max(float((ce - ce_p)[fin].abs().max()),
+              float((pm - pm_p)[fin].abs().max()))
+    row = {"rows": [5, 9, 17], "ce_nan_rows": torch.isnan(ce).nonzero()
+           .flatten().tolist(), "same_nan": same_nan,
+           "correct_equal": torch.equal(cor, cor_p), "finite_max_abs_err": err}
+    require(same_nan and row["ce_nan_rows"] == [5, 9, 17],
+            f"loss_confidence non-finite rows differ from the plain: {row}")
+    require(row["correct_equal"] and err <= 1e-5,
+            f"loss_confidence with NaN rows: {row}")
+    return row
 
 
 def bf16_ulps(a, b):
@@ -1017,7 +1073,8 @@ def phase_kernels(dev) -> dict:
         r["max_abs_err"] for r in fa_rows if r["dtype"] == "float32"))
     big.extend(fa_rows)
     emit({"phase": "kernel_checks", "main": main, "more": big,
-          "histogram_select_cases": hs_cases, "radix_cases": radix_cases})
+          "histogram_select_cases": hs_cases, "radix_cases": radix_cases,
+          "loss_confidence_nan_rows": check_loss_confidence_nonfinite(dev)})
     emit(time_histogram_select(dev, 1_281_167, 50))
     emit(time_rank_select(dev, 1_281_167, 50))
     return main
@@ -1195,14 +1252,15 @@ def watch_fraction_bound(strategy, checks: list) -> None:
 
 
 def main_trainer(dev, strategy: str, n: int, n_test: int, epochs: int, model,
-                 lr: float = 0.05, tau: float = 0.7, **tc_kw):
+                 lr: float = 0.05, tau: float = 0.7, ds=None, **tc_kw):
     """The main path's ``Trainer`` (``examples/torch_quickstart.py --full``):
     SGD 0.9, cosine LR, KAKURENBO on ``"histogram_pallas"`` with DropTop
-    0.02, fused scoring, the default engine unless ``tc_kw`` says."""
+    0.02, fused scoring, the default engine unless ``tc_kw`` says; ``ds``
+    replaces ``SyntheticClassification(n)`` (a poisoned copy)."""
     from repro_torch.core import KakurenboConfig, LRSchedule
     from repro_torch.data import SyntheticClassification
     from repro_torch.train import Trainer, TrainConfig
-    ds = SyntheticClassification(num_samples=n, seed=0)
+    ds = ds or SyntheticClassification(num_samples=n, seed=0)
     test = ds.test_split(n_test) if n_test else None
     # DropTop 0.02 (paper App. D; the data's 2% label-noise tail): without it
     # the histogram plan hides nothing here — after one epoch most lagging
@@ -1339,7 +1397,7 @@ def time_train_step(dev, model_cfg, n: int, batch: int, rounds: int = 5,
     def step(run):
         tr = run["tr"]
         idx, b = run["batches"][next(run["turn"]) % len(run["batches"])]
-        run["state"], _, _ = tr.train_step(run["state"], b, idx, tr.epoch_dev,
+        run["state"], _, _, _ = tr.train_step(run["state"], b, idx, tr.epoch_dev,
                                            tr.lr_dev)
 
     def scored(scoring):
@@ -1690,49 +1748,48 @@ def same_plans(a: list, b: list) -> bool:
         and pa[3] == pb[3] for pa, pb in zip(a, b))
 
 
-@contextlib.contextmanager
-def cudnn_deterministic(flag: bool):
-    import torch
-    old = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = flag
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = old
-
-
 def phase_engines(dev, n: int = 50_000, epochs: int = 3) -> dict:
     """The host loop against the scanned engine (CUDA graphs) from the same
     initial weights: the main path's KAKURENBO trainer for ``epochs``
     epochs, then each Table 2 strategy for one epoch.  Losses, plans and
-    the whole train state must be bit-identical, with
-    ``cudnn.deterministic`` on (cuDNN may pick atomics-based convolution
-    gradients otherwise); whether two host loops are bit-identical without
-    it is reported, not required."""
+    the whole train state must be bit-identical under the trainer's own
+    defaults (it runs its epochs with ``cudnn.deterministic``: cuDNN may
+    pick atomics-based convolution gradients otherwise); whether two host
+    loops are bit-identical without it (``trainer.CUDNN_DETERMINISTIC``
+    off, the global flags left off) is reported, not required."""
     import torch
     from repro_torch.configs.paper_cnn import CONFIG
     from repro_torch.experiments import table2
     from repro_torch.models.cnn import CNN
+    from repro_torch.train import trainer as trainer_mod
     t0 = time.perf_counter()
 
     def model():
         return CNN(CONFIG, torch.Generator().manual_seed(0))
 
-    def kakurenbo(engine, ep):
-        tr = main_trainer(dev, "kakurenbo", n, 0, epochs, model(), engine=engine)
+    def kakurenbo(engine, ep, **kw):
+        tr = main_trainer(dev, "kakurenbo", n, 0, epochs, model(),
+                          engine=engine, **kw)
         hist, plans = recorded_run(tr, ep)
         return [h.train_loss for h in hist], plans, train_state(tr), hist
 
-    with cudnn_deterministic(False):
+    require(not torch.backends.cudnn.deterministic,
+            "the caller's cudnn.deterministic is on")
+    trainer_mod.CUDNN_DETERMINISTIC = False
+    try:
         loose = [kakurenbo("host", 1) for _ in range(2)]
+    finally:
+        trainer_mod.CUDNN_DETERMINISTIC = True
     loose_same = (loose[0][0] == loose[1][0]
                   and not state_diff(loose[0][2], loose[1][2]))
-    with cudnn_deterministic(True):
-        runs = {e: kakurenbo(e, epochs) for e in ("host", "scan")}
+    runs = {e: kakurenbo(e, epochs) for e in ("host", "scan")}
+    require(not torch.backends.cudnn.deterministic,
+            "the trainer left cudnn.deterministic on")
     (lh, ph, sh, hh), (ls, ps, ss, hs) = runs["host"], runs["scan"]
     diff = state_diff(sh, ss)
     row = {"phase": "engines", "model": CONFIG.name, "n": n, "epochs": epochs,
-           "strategy": "kakurenbo", "cudnn.deterministic": True,
+           "strategy": "kakurenbo",
+           "cudnn.deterministic": "the trainer's (its default)",
            "loss": {"host": lh, "scan": ls},
            "wall_s": {"host": [h.wall_time for h in hh],
                       "scan": [h.wall_time for h in hs]},
@@ -1754,8 +1811,7 @@ def phase_engines(dev, n: int = 50_000, epochs: int = 3) -> dict:
             tr = table2.make_trainer(strategy, model_cfg=CONFIG, n=n,
                                      n_test=128, epochs=1, kakurenbo=kcfg,
                                      engine=engine, device=dev)
-            with cudnn_deterministic(True):
-                hist, plans = recorded_run(tr)
+            hist, plans = recorded_run(tr)
             got[engine] = (hist[0].train_loss, hist[0].bwd_samples, plans,
                            train_state(tr), tr.engine.name)
         (lh, bh, ph, sh, eh), (ls, bs, ps, ss, es) = got["host"], got["scan"]
@@ -1792,10 +1848,11 @@ def phase_restart(dev, n: int = 50_000, epochs: int = 3) -> dict:
                             checkpoint_dir=str(ckpt_dir) if ckpt_dir else None,
                             checkpoint_every=1 if ckpt_dir else 0)
 
-    with cudnn_deterministic(True):
-        rows = restart_runs(trainer, root)
+    rows = restart_runs(trainer, root)
     row = {"phase": "restart", "model": CONFIG.name, "n": n, "epochs": epochs,
-           "engine": "scan", "cudnn.deterministic": True, "runs": rows,
+           "engine": "scan",
+           "cudnn.deterministic": "the trainer's (its default)",
+           "runs": rows,
            "seconds": time.perf_counter() - t0}
     emit(row)
     return row
@@ -1858,6 +1915,409 @@ def restart_runs(trainer, root) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# The resilient runtime: guard, host-observe path, supervisor, optimizers
+# ---------------------------------------------------------------------------
+
+#: The poisoned samples of the resilience phase (NaN features).
+POISON_IDS = (7, 4_242, 31_337, 49_999)
+#: The reference's budget for the guard's cost on the scanned engine
+#: (benchmarks/step_throughput.py::guard_main).
+GUARD_BUDGET = 0.03
+
+
+def poisoned_batches(plans, ids, batch: int = 128) -> list:
+    """Train steps of each recorded plan whose batch holds one of ``ids``."""
+    import numpy as np
+    from repro_torch.data.pipeline import epoch_index_plan
+    return [int(sum(np.isin(row, ids).any()
+                    for row in epoch_index_plan(p[0], batch))) for p in plans]
+
+
+def replay_times(dev, trainers: dict, rounds: int = 4, reps: int = 20) -> dict:
+    """The ``scan_steps``-step graph of each trainer replayed in turns
+    (a, b, b, a per round), ``reps`` synchronised replays a turn; median ms
+    per trainer, and one replay of each under the profiler."""
+    graphs = {k: tr.engine._graphs[tr.engine.scan_steps, False].graph
+              for k, tr in trainers.items()}
+    times = {k: [] for k in graphs}
+    order = list(graphs)
+    for r in range(rounds):
+        for k in order + order[::-1]:
+            for _ in range(reps):
+                sync(dev)
+                t0 = time.perf_counter()
+                graphs[k].replay()
+                sync(dev)
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for k, ts in times.items():
+        ts.sort()
+        prof = device_breakdown(dev, graphs[k].replay, top=8)
+        out[k] = {"replay_ms": ts[len(ts) // 2], "replay_min_ms": ts[0],
+                  "replays": len(ts),
+                  "device_kernels": prof["device_kernels"],
+                  "device_busy_ms": prof["device_busy_ms"],
+                  "profiled_wall_ms": prof["profiled_wall_ms"]}
+    return out
+
+
+def supervised_crash(trainer, epochs: int, root, split_dev=None) -> dict:
+    """The uninterrupted run of ``trainer(ckpt_dir)``, then a run that a
+    ``CrashAtStep`` kills in the middle of epoch 1 (by the uninterrupted
+    run's step counts), recovered by ``run_with_restarts`` from its last
+    checkpoint: the recovered state must equal the uninterrupted one bit
+    for bit.  Times the recovery: the new trainer's build and restore, its
+    first epoch (with the materialize and the captures it pays, split when
+    ``split_dev`` is given) and the whole."""
+    import shutil
+    from repro_torch.data.pipeline import epoch_index_plan
+    from repro_torch.train import chaos, fault
+    ref = trainer(None)
+    _, plans = recorded_run(ref)
+    steps = [len(epoch_index_plan(p[0], ref.cfg.batch_size)) for p in plans]
+    crash_step = steps[0] + steps[1] // 2
+    want, last = train_state(ref), ref.history[-1].train_loss
+    del ref
+    shutil.rmtree(root, ignore_errors=True)
+    builds, t = [], {}
+    split = HostSplit(split_dev) if split_dev is not None else None
+    bomb = chaos.CrashAtStep(crash_step)
+
+    def make():
+        t0 = time.perf_counter()
+        tr = trainer(root)
+        builds.append(tr)
+        if len(builds) == 1:
+            bomb.install(tr)
+        else:
+            t["build_s"] = time.perf_counter() - t0
+            restore = tr.restore_latest
+
+            def timed_restore():
+                t1 = time.perf_counter()
+                ok = restore()
+                t["restore_s"] = time.perf_counter() - t1
+                return ok
+            tr.restore_latest = timed_restore
+            if split is not None and tr.engine.name == "scan":
+                tr.device_data = split.wrap("materialize", tr.device_data)
+                tr.engine._capture = split.wrap("capture", tr.engine._capture)
+        return tr
+
+    def on_restart(n, exc):
+        t["restart_at"] = time.perf_counter()
+        t["error"] = f"{type(exc).__name__}: {exc}"
+
+    try:
+        tr, restarts = fault.run_with_restarts(
+            make, epochs, sleep_fn=lambda s: None, on_restart=on_restart)
+        recover_s = time.perf_counter() - t.pop("restart_at")
+        crashed = builds[0]
+        diff = state_diff(train_state(tr), want)
+        row = {"restarts": restarts, "steps_per_epoch": steps,
+               "crash_step": crash_step,
+               "steps_done_at_crash": bomb.steps_done,
+               "crashed_in_epoch": crashed.epoch, "engine": tr.engine.name,
+               "recover_s": recover_s, "first_epoch_s": tr.history[0].wall_time,
+               "epochs_rerun": len(tr.history), "state_differs": diff,
+               "last_loss": [tr.history[-1].train_loss, last], **t}
+        if split is not None:
+            row["first_epoch_split_s"] = dict(split.seconds)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(restarts == 1 and bomb.fired and not diff
+            and row["last_loss"][0] == last,
+            f"supervised restart not bit-identical: {row}")
+    return row
+
+
+def phase_resilience(dev, n: int = 50_000, epochs: int = 3) -> dict:
+    """The resilient runtime on the main path (paper CNN, full width,
+    ``SyntheticClassification(50_000)``, KAKURENBO ``"histogram_pallas"`` +
+    DropTop 0.02, fused scoring), under the trainer's defaults (no cuDNN
+    flag set here):
+
+    - the guard (``skip_update``) on a clean run, scanned and host loop:
+      losses, plans and the whole train state bit-identical to the
+      unguarded run, one host sync an epoch scanned; the 8-step graph's
+      replay time guarded against unguarded, in turns, beside the
+      reference's 3% budget;
+    - a poisoned run (NaN features for ``POISON_IDS``): parameters finite,
+      ``nonfinite_steps`` = the batches holding a poisoned id, each
+      poisoned sample kept at the never-seen sentinel and never hidden, the
+      next plan finite; the guard-off control goes non-finite;
+    - every sample poisoned with ``guard_abort_after=2``: ``NonFiniteError``,
+      classified restartable;
+    - a ``CrashAtStep`` in the middle of epoch 1 recovered by
+      ``run_with_restarts`` bit-identical to the uninterrupted run: the
+      seven Table 2 strategies scanned (guard on; FORGET prunes at epoch 2,
+      through the rank-select), Grad-Match at N = 1,024, KAKURENBO on the
+      host loop;
+    - the host-observe path (``fused_observe=False``) bit-identical to the
+      fused one, ``host_syncs`` above 1 against 1;
+    - AdamW, RMSProp and Adafactor, one epoch scanned and on the host loop,
+      bit-identical.
+    Returns the kernel launches of the phase."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.core import ForgetConfig
+    from repro_torch.data import SyntheticClassification
+    from repro_torch.experiments import table2
+    from repro_torch.kernels import backend
+    from repro_torch.models.cnn import CNN
+    from repro_torch.train import chaos, fault, guard
+    backend.reset_launches()
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_chaos"
+    out = {"phase": "resilience", "model": CONFIG.name, "n": n,
+           "epochs": epochs}
+
+    def model(seed=0):
+        return CNN(CONFIG, torch.Generator().manual_seed(seed))
+
+    def finite(tr):
+        return all(bool(torch.isfinite(p).all()) for p in tr.model.parameters())
+
+    # The guard on a clean run.
+    clean, kept = {}, {}
+    for engine in ("scan", "host"):
+        runs = {}
+        for policy in ("off", "skip_update"):
+            tr = main_trainer(dev, "kakurenbo", n, 0, epochs, model(),
+                              engine=engine, guard_policy=policy)
+            hist, plans = recorded_run(tr)
+            runs[policy] = (tr, hist, plans, train_state(tr))
+        (t_off, h_off, p_off, s_off), (t_on, h_on, p_on, s_on) = (
+            runs["off"], runs["skip_update"])
+        diff = state_diff(s_off, s_on)
+        clean[engine] = {
+            "loss": {"off": [h.train_loss for h in h_off],
+                     "guarded": [h.train_loss for h in h_on]},
+            "wall_s": {"off": [h.wall_time for h in h_off],
+                       "guarded": [h.wall_time for h in h_on]},
+            "hidden": [len(p[1]) for p in p_on],
+            "host_syncs": [h.host_syncs for h in h_on],
+            "nonfinite_steps": [h.nonfinite_steps for h in h_on],
+            "state_tensors": len(s_on), "state_differs": diff}
+        require([h.train_loss for h in h_off] == [h.train_loss for h in h_on]
+                and same_plans(p_off, p_on) and not diff,
+                f"guarded clean run differs ({engine}): {clean[engine]}")
+        require(all(h.nonfinite_steps == h.quarantined_observations == 0
+                    for h in h_on), f"guard fired on clean data ({engine})")
+        require(any(len(p[1]) for p in p_on), f"kakurenbo hid nothing ({engine})")
+        if engine == "scan":
+            require(all(h.host_syncs == 1 for h in h_on),
+                    f"guarded scan host_syncs {clean[engine]['host_syncs']}")
+            g = t_on.engine._graphs[t_on.engine.scan_steps, False].launches
+            require(g["loss_confidence"] == g["loss_confidence_bwd"]
+                    == t_on.engine.scan_steps,
+                    f"a guarded replay's B1 launches {dict(g)}")
+            kept = {"off": t_off, "guarded": t_on, "plans": p_off,
+                    "state": s_off, "loss": [h.train_loss for h in h_off]}
+    out["clean"] = clean
+    rt = replay_times(dev, {"off": kept["off"], "guarded": kept["guarded"]})
+    rt["overhead"] = rt["guarded"]["replay_ms"] / rt["off"]["replay_ms"] - 1.0
+    rt["budget"] = GUARD_BUDGET
+    rt["within_budget"] = rt["overhead"] < GUARD_BUDGET
+    rt["extra_device_kernels_per_step"] = (
+        rt["guarded"]["device_kernels"] - rt["off"]["device_kernels"]
+    ) / kept["off"].engine.scan_steps
+    out["replay"] = rt
+    emit({"phase": "resilience_guard", "clean": clean, "replay": rt})
+    del kept["guarded"]
+
+    # The host-observe path against the fused (scanned, unguarded) run.
+    tr = main_trainer(dev, "kakurenbo", n, 0, epochs, model(),
+                      fused_observe=False)
+    hist, plans = recorded_run(tr)
+    diff = state_diff(train_state(tr), kept["state"])
+    out["host_observe"] = {
+        "engine": tr.engine.name, "host_syncs": [h.host_syncs for h in hist],
+        "fused_host_syncs": 1, "wall_s": [h.wall_time for h in hist],
+        "state_differs": diff,
+        "losses_equal": [h.train_loss for h in hist] == kept["loss"]}
+    require(tr.engine.name == "host" and not diff
+            and out["host_observe"]["losses_equal"]
+            and same_plans(plans, kept["plans"])
+            and all(h.host_syncs > 1 for h in hist),
+            f"host-observe path: {out['host_observe']}")
+    kept.clear()
+    del tr
+
+    # A poisoned run, guarded, and its control.
+    ids = np.asarray(POISON_IDS)
+    poisoned = {}
+    for policy in ("skip_update", "off"):
+        ds = chaos.poison_samples(SyntheticClassification(num_samples=n, seed=0),
+                                  POISON_IDS)
+        tr = main_trainer(dev, "kakurenbo", n, 0, epochs, model(), ds=ds,
+                          guard_policy=policy)
+        hist, plans = recorded_run(tr)
+        st = tr.strategy.state
+        row = {"finite_params": finite(tr)}
+        if policy == "skip_update":
+            row.update(
+                nonfinite_steps=[h.nonfinite_steps for h in hist],
+                poisoned_batches=poisoned_batches(plans, ids),
+                quarantined=[h.quarantined_observations for h in hist],
+                seen=st.seen[ids].tolist(), loss=st.loss[ids].tolist(),
+                ever_hidden=bool(any(np.isin(ids, p[1]).any() for p in plans)))
+            nxt = tr.strategy.plan(epochs)
+            row.update(
+                next_plan_f_star=nxt.hidden_fraction,
+                next_plan_hides_poisoned=bool(np.isin(ids, nxt.hidden_indices).any()),
+                hidden=[len(p[1]) for p in plans])
+            require(row["finite_params"]
+                    and row["nonfinite_steps"] == row["poisoned_batches"]
+                    and all(q >= 1 for q in row["quarantined"])
+                    and row["seen"] == [-1] * len(ids)
+                    and row["loss"] == [1e9] * len(ids)
+                    and not row["ever_hidden"]
+                    and math.isfinite(nxt.hidden_fraction)
+                    and not row["next_plan_hides_poisoned"],
+                    f"poisoned guarded run: {row}")
+        else:
+            require(not row["finite_params"],
+                    "the unguarded poisoned run kept finite parameters")
+        poisoned[policy] = row
+        del tr
+    out["poisoned"] = poisoned
+
+    # The abort: every sample poisoned.
+    ds = chaos.poison_samples(SyntheticClassification(num_samples=n, seed=0),
+                              range(n))
+    tr = main_trainer(dev, "kakurenbo", n, 0, epochs, model(), ds=ds,
+                      guard_policy="skip_update", guard_abort_after=2)
+    init = [p.detach().clone() for p in tr.model.parameters()]
+    err = None
+    try:
+        tr.run()
+    except guard.NonFiniteError as e:
+        err = e
+    out["abort"] = {"raised": err is not None, "message": str(err),
+                    "classified": fault.classify_failure(err) if err else None,
+                    "epoch": tr.epoch,
+                    "params_held": all(torch.equal(p, q) for p, q in
+                                       zip(tr.model.parameters(), init))}
+    require(out["abort"]["raised"] and out["abort"]["classified"] == "restartable"
+            and out["abort"]["params_held"], f"guard abort: {out['abort']}")
+    del tr
+    emit({"phase": "resilience_poison", "poisoned": poisoned,
+          "abort": out["abort"], "host_observe": out["host_observe"]})
+
+    # Crash and supervised recovery.
+    chaos_rows = {}
+    for strategy in table2.STRATEGIES:
+        def trainer(d, strategy=strategy):
+            return main_trainer(
+                dev, strategy, n, 0, epochs, model(), engine="scan",
+                guard_policy="skip_update",
+                forget=ForgetConfig(fraction=0.3, warmup_epochs=2),
+                checkpoint_dir=str(d) if d else None,
+                checkpoint_every=1 if d else 0)
+        chaos_rows[strategy] = supervised_crash(trainer, epochs,
+                                                root / strategy, dev)
+    gm_n = 1024
+
+    def gm_trainer(d):
+        return table2.make_trainer(
+            "gradmatch", model_cfg=CONFIG, n=gm_n, n_test=128, epochs=epochs,
+            device=dev, guard_policy="skip_update",
+            checkpoint_dir=str(d) if d else None,
+            checkpoint_every=1 if d else 0)
+    chaos_rows["gradmatch_n1024"] = supervised_crash(
+        gm_trainer, epochs, root / "gradmatch", dev)
+
+    def host_trainer(d):
+        return main_trainer(dev, "kakurenbo", n, 0, epochs, model(),
+                            engine="host", guard_policy="skip_update",
+                            checkpoint_dir=str(d) if d else None,
+                            checkpoint_every=1 if d else 0)
+    chaos_rows["kakurenbo_host"] = supervised_crash(
+        host_trainer, epochs, root / "host")
+    for name, r in chaos_rows.items():
+        require(r["crashed_in_epoch"] == 1, f"{name}: crash outside epoch 1: {r}")
+    out["crash_recovery"] = chaos_rows
+    emit({"phase": "resilience_crash", "rows": chaos_rows})
+
+    # The optimizers: one epoch, scanned against the host loop.
+    opt_rows = {}
+    for name in ("adamw", "rmsprop", "adafactor"):
+        got = {}
+        for engine in ("scan", "host"):
+            tr = main_trainer(dev, "kakurenbo", n, 0, 1, model(), lr=1e-3,
+                              engine=engine, optimizer=name, optimizer_hp={})
+            hist = tr.run()
+            got[engine] = (hist[0].train_loss, train_state(tr), tr.engine.name,
+                           hist[0].wall_time, finite(tr))
+            del tr
+        (ls, ss, es, ws, fs), (lh, sh, eh, wh, fh) = got["scan"], got["host"]
+        diff = state_diff(ss, sh)
+        opt_rows[name] = {"loss": [ls, lh], "engines": [es, eh],
+                          "wall_s": [ws, wh], "state_tensors": len(ss),
+                          "state_differs": diff, "finite": fs and fh}
+        require((es, eh) == ("scan", "host") and ls == lh and not diff
+                and fs and fh and math.isfinite(ls),
+                f"optimizer {name}: {opt_rows[name]}")
+    out["optimizers"] = opt_rows
+    launches = dict(backend.LAUNCHES)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    for name in ("loss_confidence", "loss_confidence_bwd", "histogram_select",
+                 "rank_select"):
+        require(launches.get(name, 0) > 0,
+                f"resilience: kernel {name} never launched")
+    emit({"phase": "resilience_summary", "optimizers": opt_rows,
+          "guard_overhead": rt["overhead"], "budget": GUARD_BUDGET,
+          "launches": launches, "seconds": out["seconds"]})
+    return launches
+
+
+def phase_table3(dev, n: int = 1024, n_test: int = 512, epochs: int = 16):
+    """``experiments/table3`` at the paper CNN's full width and the
+    reference's size (N = 1,024, 16 epochs, batch 128): baseline, Grad-Match
+    (its OMP on the host) and KAKURENBO, the latter under ``"sort"`` with
+    DropTop 0.02 as the Table 2 phase runs it (the rank-select kernel).
+    Wall time per strategy, accuracy, backward samples and OMP seconds."""
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.experiments import table2, table3
+    from repro_torch.kernels import backend
+    kcfg = dataclasses.replace(table2.kakurenbo_config(epochs),
+                               drop_top_fraction=0.02)
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    rows = table3.run_table(model_cfg=CONFIG, n=n, n_test=n_test, epochs=epochs,
+                            kakurenbo=kcfg, device=dev)
+    launches = dict(backend.LAUNCHES)
+    base = rows[0][1]
+    out = {}
+    for name, res in rows:
+        hist = res["history"]
+        out[name] = {"wall_s": res["wall_s"],
+                     "us_per_epoch": res["wall_s"] / epochs * 1e6,
+                     "time_vs_base": res["wall_s"] / base["wall_s"],
+                     "best_acc": res["best_acc"], "final_acc": res["final_acc"],
+                     "fwd": res["fwd"], "bwd": res["bwd"], "omp_s": res["omp_s"],
+                     "epoch_wall_s": [h.wall_time for h in hist],
+                     "hidden_fraction": [h.hidden_fraction for h in hist],
+                     "train_loss": [h.train_loss for h in hist]}
+        require(all(math.isfinite(h.train_loss) for h in hist),
+                f"{name}: non-finite loss")
+    gm, kk = out["table3/gradmatch-0.3"], out["table3/kakurenbo-0.3"]
+    require(gm["omp_s"] > 0 and gm["bwd"] < base["bwd"],
+            f"gradmatch trained no subset: {gm}")
+    require(any(h.hidden_fraction > 0 for h in rows[2][1]["history"]),
+            f"kakurenbo hid nothing: {kk}")
+    require(launches.get("rank_select", 0) > 0,
+            "Table 3: kernel rank_select never launched")
+    emit({"phase": "table3", "model": CONFIG.name, "n": n, "n_test": n_test,
+          "epochs": epochs, "kakurenbo": dataclasses.asdict(kcfg), "rows": out,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2245,6 +2705,8 @@ def main() -> int:
         emit(epoch_split(dev, engine))
     phase_engines(dev)
     phase_restart(dev)
+    launches.update(phase_resilience(dev))
+    launches.update(phase_table3(dev))
     phase_card_vs_cpu(dev)
     launches.update(phase_serve(dev, "mamba2-130m"))
     launches.update(phase_serve(dev, "smollm-135m"))

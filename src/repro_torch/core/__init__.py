@@ -14,7 +14,7 @@ from repro_torch.core.schedule import (  # noqa: F401
     FractionSchedule, LRSchedule, kakurenbo_lr,
 )
 from repro_torch.core.strategy import (  # noqa: F401
-    STRATEGIES, EpochPlan, SampleStrategy, available_strategies,
+    STRATEGIES, EpochPlan, FeatsFn, SampleStrategy, available_strategies,
     make_strategy, register_strategy,
 )
 from repro_torch.core.kakurenbo import (  # noqa: F401
@@ -26,4 +26,7 @@ from repro_torch.core.forget import ForgetConfig, ForgetStrategy  # noqa: F401
 from repro_torch.core.selective_backprop import SBConfig, SBStrategy  # noqa: F401
 from repro_torch.core.infobatch import (  # noqa: F401
     InfoBatchConfig, InfoBatchStrategy,
+)
+from repro_torch.core.gradmatch import (  # noqa: F401
+    GradMatchConfig, GradMatchStrategy,
 )

@@ -12,8 +12,9 @@ waits on it; the plan crosses to the host once per epoch, in the sampler.
 The JAX ops draw from a ``jax.random`` key (threefry), which has no PyTorch
 counterpart, so here the random numbers are inputs: a permutation, or
 uniforms in [0, 1).  Each sampler draws them from its own
-``torch.Generator`` (seeded by ``strategy_seed``), and the parity tests hand
-in the reference's.  Single-device only: the mesh's ``axis_names`` psum
+``torch.Generator`` (seeded by ``strategy_seed``), or, where a held step
+must hold the stream as a held key does, from ``counter_uniform``; the
+parity tests hand in the reference's.  Single-device only: the mesh's ``axis_names`` psum
 belongs to a later slice.
 """
 from __future__ import annotations
@@ -70,6 +71,42 @@ def device_permutation(gen: torch.Generator, n: int) -> torch.Tensor:
 def uniform(gen: torch.Generator, n: int) -> torch.Tensor:
     """(n,) float32 uniforms in [0, 1) on ``gen``'s device."""
     return torch.rand(n, generator=gen, device=gen.device)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A two-round multiply-xorshift hash of the 32-bit values held in the
+    int64 ``x``; both multipliers are below 2^31, so no product leaves
+    int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x21F0AAAD) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x735A2D97) & _M32
+    return x ^ (x >> 15)
+
+
+def counter_key(seed: int, name: str, device: torch.device) -> torch.Tensor:
+    """``counter_uniform``'s key for strategy ``name`` at ``seed``: the two
+    32-bit halves of ``strategy_seed`` as a (2,) int64 device tensor (state,
+    so that a checkpoint carries it and a captured step reads it)."""
+    s = strategy_seed(seed, name)
+    return torch.tensor([s & _M32, (s >> 32) & _M32], dtype=torch.int64,
+                        device=device)
+
+
+def counter_uniform(key: torch.Tensor, counter: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """(n,) float32 uniforms in [0, 1) on ``counter``'s device, a function
+    of ``key`` (``counter_key``), the 0-dim integer tensor ``counter`` and
+    the position alone: the same counter gives the same numbers, so a
+    caller that holds its counter holds its stream, as a held JAX key does.
+    Nothing waits on the device; the numbers repeat after 2^32 counts."""
+    h = _mix32((counter.to(torch.int64) ^ key[1]) & _M32)
+    i = torch.arange(n, dtype=torch.int64, device=counter.device)
+    x = _mix32(_mix32(i ^ key[0]) ^ h)
+    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
 def masked_order(perm: torch.Tensor, mask: torch.Tensor):
@@ -153,11 +190,35 @@ def importance_probs(loss: torch.Tensor, valid: torch.Tensor,
     return smoothed / smoothed.sum()
 
 
+def blocked_cumsum(x: torch.Tensor, cols: int = 1024) -> torch.Tensor:
+    """Inclusive prefix sums of the 1-D ``x`` in a fixed order: rows of
+    ``cols`` scanned each on its own, then the row totals, then each row
+    offset by the totals before it.  Every scan is over the last dim of a
+    tensor of two rows or more, which PyTorch runs as one block a row."""
+    n = x.shape[0]
+    rows = max(-(-n // cols), 2)
+    padded = torch.zeros(rows * cols, dtype=x.dtype, device=x.device)
+    padded[:n] = x
+    within = torch.cumsum(padded.view(rows, cols), dim=1)
+    totals = torch.stack((within[:, -1], torch.zeros_like(within[:, -1])))
+    before = torch.cumsum(totals, dim=1)[0, :-1]
+    within[1:] += before[:, None]
+    return within.reshape(-1)[:n]
+
+
 def with_replacement(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """(N,) int32 categorical draws with replacement from ``p`` by inverse
-    CDF, given (N,) uniforms ``u`` in [0, 1)."""
+    CDF, given (N,) uniforms ``u`` in [0, 1).
+
+    The CDF is ``blocked_cumsum`` in float64 rounded to ``p``'s dtype on
+    every device: a 1-D float ``torch.cumsum`` on CUDA is a decoupled
+    look-back scan whose order of additions depends on timing, so its last
+    bits (and a draw at a CDF step) could change from run to run.  The
+    blocked sum is reproducible bit for bit, and equal to the CPU's
+    sequential cumsum except where the two float64 orders straddle a
+    float32 rounding point."""
     n = p.shape[0]
-    cdf = torch.cumsum(p, 0)
+    cdf = blocked_cumsum(p.double()).to(p.dtype)
     x = u * cdf[-1]
     idx = torch.searchsorted(cdf, x, side="right")
     return torch.clamp(idx, 0, n - 1).to(torch.int32)

@@ -9,9 +9,12 @@ The flow is the protocol's in-step ``fused_select`` hook: the trainer runs
 a forward-only loss, ``select_step`` turns it into per-sample backward
 weights (0 = dropped, survivors rescaled by ``B / kept``) and updates the
 device-resident ring buffer in place.  The per-step uniforms are an input:
-the strategy draws them from its own ``torch.Generator`` (a step generator,
-registered with every captured graph), and the parity tests hand in the
-reference's.
+the strategy draws them with ``planops.counter_uniform`` at a key and a
+draw counter kept in the selection state (each select advances the
+counter), and the parity tests hand in the reference's.  Key and counter
+are state like the reference's carried key: a guarded step that holds the
+selection state (a non-finite selection loss) holds the counter too, so
+the next step draws what the held one drew, as the held key does.
 """
 from __future__ import annotations
 
@@ -33,13 +36,18 @@ class SBConfig:
     bootstrap: int = 32   # train on everything until this many losses seen
 
 
-def init_select_state(config: SBConfig, device: torch.device) -> dict:
+def init_select_state(config: SBConfig, device: torch.device,
+                      seed: int = 0) -> dict:
     """The ring buffer of recent losses, +inf in unwritten slots (they sort
-    past every real loss), with its fill count and write position."""
+    past every real loss), with its fill count and write position, and the
+    draws' key and count of draws taken (together the port's counterpart
+    of the reference's carried key)."""
     return {"hist": torch.full((config.history,), torch.inf,
                                dtype=torch.float32, device=device),
             "count": torch.zeros((), dtype=torch.int32, device=device),
-            "ptr": torch.zeros((), dtype=torch.int32, device=device)}
+            "ptr": torch.zeros((), dtype=torch.int32, device=device),
+            "key": planops.counter_key(seed, "sb", device),
+            "draws": torch.zeros((), dtype=torch.int64, device=device)}
 
 
 def select_step(state: dict, loss: torch.Tensor, u: torch.Tensor, *,
@@ -82,20 +90,23 @@ class SBStrategy(SampleStrategy):
                  seed: int = 0, device: str | torch.device | None = None):
         super().__init__(num_samples, config or SBConfig(), seed)
         self.device = resolve_device(device)
-        self._sel = init_select_state(self.config, self.device)
-        self._sel_gen = planops.make_generator(seed, "sb", self.device)
+        self._sel = init_select_state(self.config, self.device, seed)
         self._gen = planops.make_generator(seed, "sb-plan", self.device)
 
     def draw_uniform(self, b: int) -> torch.Tensor:
-        return planops.uniform(self._sel_gen, b)
+        """The ``b`` uniforms of the draw counter's current value."""
+        sel = self._sel
+        return planops.counter_uniform(sel["key"], sel["draws"], b)
 
     def draw_permutation(self) -> torch.Tensor:
         return planops.device_permutation(self._gen, self.num_samples)
 
     def fused_select(self, state: dict, loss: torch.Tensor):
         c = self.config
-        return select_step(state, loss, self.draw_uniform(loss.shape[0]),
-                           beta=c.beta, floor=c.floor, bootstrap=c.bootstrap)
+        u = self.draw_uniform(loss.shape[0])
+        state["draws"].add_(1)
+        return select_step(state, loss, u, beta=c.beta, floor=c.floor,
+                           bootstrap=c.bootstrap)
 
     def plan(self, epoch: int) -> EpochPlan:
         return EpochPlan(epoch=epoch,
@@ -105,19 +116,12 @@ class SBStrategy(SampleStrategy):
     def get_device_state(self) -> dict:
         return self._sel
 
-    def step_generators(self) -> list[torch.Generator]:
-        return [self._sel_gen]
-
     def state_dict(self) -> dict:
-        sel = self._sel
-        return {"arrays": {"hist": sel["hist"], "count": sel["count"],
-                           "ptr": sel["ptr"],
-                           "sel_key": planops.generator_state(self._sel_gen),
+        return {"arrays": {**self._sel,
                            "rng_key": planops.generator_state(self._gen)},
                 "host": {}}
 
     def load_state_dict(self, state: dict) -> None:
         a = state["arrays"]
-        copy_into(self._sel, {k: a[k] for k in ("hist", "count", "ptr")})
-        planops.load_generator_state(self._sel_gen, a["sel_key"])
+        copy_into(self._sel, {k: a[k] for k in self._sel})
         planops.load_generator_state(self._gen, a["rng_key"])

@@ -7,8 +7,9 @@ was last seen, as ``(N,)`` tensors on the training device.
 Unlike the JAX package, ``scatter_observations`` updates the tensors in
 place (and returns the same state), which saves an (N,)-sized copy per
 batch and lets a captured train step (CUDA graphs) hold their addresses;
-a checkpoint restore copies into them too.  The numeric guard's ``valid=``
-path belongs to a later slice.
+a checkpoint restore copies into them too.  The numeric guard's
+``valid=`` mask (``train/guard.py``) makes a non-finite observation a
+bit-exact no-op for its sample.
 """
 from __future__ import annotations
 
@@ -87,7 +88,8 @@ def scatter_observations(state: SampleState,
                          indices: np.ndarray | torch.Tensor,
                          loss: torch.Tensor, pa: torch.Tensor,
                          pc: torch.Tensor,
-                         epoch: int | torch.Tensor) -> SampleState:
+                         epoch: int | torch.Tensor,
+                         valid: torch.Tensor | None = None) -> SampleState:
     """Record (loss, PA, PC) for the samples at ``indices``, in place.
 
     ``epoch`` is a Python int or a 0-dim int32 tensor on the state's device
@@ -102,17 +104,44 @@ def scatter_observations(state: SampleState,
     first takes the values of its index's last occurrence
     (``last_occurrence``): all writers of a slot then write the same value.
     The integer ``index_add_`` of the events is exact in any order.
+
+    ``valid`` is the numeric guard's (B,) quarantine mask: an occurrence
+    where it is False carries the sample's existing loss, PA, PC, ``seen``
+    and ``prev_correct`` (gathered before any write) and adds no forgetting
+    event, so a non-finite observation leaves its sample bit for bit as it
+    was.  With a repeated index the last occurrence still decides: an
+    invalid last occurrence restores the pre-batch values, as the
+    reference's last-write-wins scatter does.  Static shapes only
+    (``torch.where`` against the gathered values), so a captured step can
+    hold it.  ``None`` is the unguarded path, unchanged.
     """
     dev = state.loss.device
     idx = torch.as_tensor(indices).to(device=dev, dtype=torch.int64)
     # A forgetting event (FORGET baseline) is a correct -> incorrect flip.
-    forget_inc = (state.prev_correct[idx] & ~pa).to(torch.int32)
+    forget_inc = state.prev_correct[idx] & ~pa
+    if valid is not None:
+        forget_inc = forget_inc & valid
+    forget_inc = forget_inc.to(torch.int32)
     last = last_occurrence(idx)
+    loss_last = loss.to(torch.float32)[last]
     pa_last = pa[last]
-    state.loss[idx] = loss.to(torch.float32)[last]
+    pc_last = pc.to(torch.float32)[last]
+    seen, prev_last = epoch, pa_last
+    if valid is not None:
+        # Where the last occurrence is invalid, write the pre-batch values
+        # (gathered before any write) back: the reference's masked values
+        # under its last-write-wins scatter.
+        keep = valid[last]
+        loss_last = torch.where(keep, loss_last, state.loss[idx])
+        pa_last = torch.where(keep, pa_last, state.pa[idx])
+        pc_last = torch.where(keep, pc_last, state.pc[idx])
+        seen = torch.where(keep, torch.as_tensor(epoch, dtype=torch.int32,
+                                                 device=dev), state.seen[idx])
+        prev_last = torch.where(keep, prev_last, state.prev_correct[idx])
+    state.loss[idx] = loss_last
     state.pa[idx] = pa_last
-    state.pc[idx] = pc.to(torch.float32)[last]
-    state.seen[idx] = epoch
+    state.pc[idx] = pc_last
+    state.seen[idx] = seen
     state.forget_events.index_add_(0, idx, forget_inc)
-    state.prev_correct[idx] = pa_last
+    state.prev_correct[idx] = prev_last
     return state

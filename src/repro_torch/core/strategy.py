@@ -4,6 +4,8 @@ Port of ``repro/core/strategy.py`` (the registry is this package's own: the
 port registers only the strategies it has ported).  The per-epoch contract
 driven by ``train/trainer.py``:
 
+0. ``prepare(epoch, feats_fn)`` — host work before the plan (Grad-Match's
+   reselection from the features ``feats_fn()`` yields);
 1. ``plan(epoch) -> EpochPlan`` — the visible index list, LR scaling, the
    hidden list and the flags (``needs_refresh`` for KAKURENBO's step D,
    ``reinit_model`` for FORGET's restart after warmup);
@@ -24,10 +26,10 @@ The scanned engine captures the train step in CUDA graphs, which hold the
 addresses of everything the step touches.  So the in-step hooks update the
 strategy's device state in place, ``step_tensors`` names the tensors they
 touch (the engine checks before every replay that they are still the
-strategy's), ``step_generators`` the ``torch.Generator``s they draw from
-(registered with each graph), and ``load_state_dict`` and
-``set_device_state`` copy into the existing tensors, never rebind them.
-Grad-Match's ``prepare`` hook belongs to a later slice.
+strategy's), the hooks draw no numbers from a ``torch.Generator`` (a graph
+would replay the captured draws; SB's draws are counter-based state), and
+``load_state_dict`` and ``set_device_state`` copy into the existing
+tensors, never rebind them.
 """
 from __future__ import annotations
 
@@ -63,6 +65,8 @@ class EpochPlan:
 
 
 EvalForward = Callable[[np.ndarray], tuple]   # indices -> (loss, pa, pc)
+#: () -> host (features (N, d), labels (N,)), computed only when called.
+FeatsFn = Callable[[], tuple[np.ndarray, np.ndarray]]
 
 
 class SampleStrategy:
@@ -72,8 +76,10 @@ class SampleStrategy:
     config_cls: type | None = None         # dataclass type of the config
     config_field: str | None = None        # attr name on a composite config
 
-    #: ``(state, indices, loss, pa, pc, epoch) -> state``, run by the
-    #: trainer after every train step on the strategy's device state.
+    #: ``(state, indices, loss, pa, pc, epoch, valid=None) -> state``, run
+    #: by the trainer after every train step on the strategy's device state;
+    #: ``valid`` is the numeric guard's quarantine mask
+    #: (``state.scatter_observations``).
     fused_observe: Callable | None = None
 
     #: ``(state, loss) -> (weights, state)``, run by the trainer before the
@@ -87,6 +93,10 @@ class SampleStrategy:
         self.num_samples = num_samples
         self.config = config
         self.seed = seed
+
+    def prepare(self, epoch: int, feats_fn: FeatsFn | None = None) -> None:
+        """Host hook before ``plan`` every epoch.  ``feats_fn`` yields the
+        host ``(features, labels)`` lazily: only Grad-Match calls it."""
 
     def plan(self, epoch: int) -> EpochPlan:
         raise NotImplementedError
@@ -129,10 +139,6 @@ class SampleStrategy:
         if isinstance(state, SampleState):
             return [getattr(state, f) for f in OBSERVED_FIELDS]
         return [t for _, t in flatten(state)]
-
-    def step_generators(self) -> list[torch.Generator]:
-        """The generators the in-step hooks draw from."""
-        return []
 
     def on_epoch_end(self, plan: EpochPlan, eval_forward: EvalForward,
                      batch_size: int) -> int:

@@ -1,10 +1,11 @@
 """Host-side batch assembly.
 
 A copy of ``repro/data/pipeline.py::{epoch_index_plan, Pipeline,
-materialize}``: maps an epoch's global sample indices to batches, padding
-the trailing partial batch by cycling from the front of the (already
-shuffled) epoch, and assembles a whole dataset once for the scanned
-engine's device-resident copy.
+materialize, worker_slice}``: maps an epoch's global sample indices to
+batches, padding the trailing partial batch by cycling from the front of
+the (already shuffled) epoch, assembles a whole dataset once for the
+scanned engine's device-resident copy, and slices an epoch into the
+per-worker views the straggler code re-balances.
 """
 from __future__ import annotations
 
@@ -46,6 +47,17 @@ def materialize(get_fn: Callable[[np.ndarray], dict], num_samples: int,
         return parts[0]
     return {k: np.concatenate([p[k] for p in parts], axis=0)
             for k in parts[0]}
+
+
+def worker_slice(indices: np.ndarray, world_size: int, rank: int,
+                 batch_size_per_worker: int) -> np.ndarray:
+    """Deterministic per-worker view of an epoch index list: trimmed to a
+    multiple of ``world_size * batch_size_per_worker``, then strided by
+    rank, so each global batch is the union of the worker sub-batches."""
+    gb = world_size * batch_size_per_worker
+    usable = (len(indices) // gb) * gb
+    trimmed = indices[:usable].reshape(-1, world_size, batch_size_per_worker)
+    return trimmed[:, rank, :].reshape(-1)
 
 
 @dataclasses.dataclass

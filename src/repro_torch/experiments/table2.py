@@ -52,6 +52,17 @@ def _logits_fn(model, batch):
     return model(batch["images"])
 
 
+def feats_fn(model, batch):
+    """``benchmarks/common.py::model_fns``' Grad-Match features, the
+    last-layer gradient proxy ``p - onehot(y)`` (softmax probabilities)."""
+    logits = model(batch["images"])
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    onehot = torch.nn.functional.one_hot(batch["labels"].long(),
+                                         logits.shape[-1]).to(p.dtype)
+    return p - onehot
+
+
 def _loss_fn(model, batch):
     """``benchmarks/common.py::model_fns``' loss: the (weighted) mean CE
     and the per-sample (loss, PA by argmax, PC)."""
@@ -67,10 +78,14 @@ def make_trainer(strategy: str, *, model_cfg: CNNConfig = MODEL_CFG,
                  kakurenbo: KakurenboConfig | None = None,
                  base_lr: float = 0.03, fused_scoring: bool = False,
                  engine: str = "auto",
-                 device: str | torch.device | None = None) -> Trainer:
+                 device: str | torch.device | None = None,
+                 **tc_kw) -> Trainer:
     """The Table 2 trainer of ``strategy`` (``device=None`` means CUDA),
     on the default engine (``"auto"``: scanned, CUDA graphs on the card) as
-    ``benchmarks/common.py::run_strategy`` builds the JAX trainer."""
+    ``benchmarks/common.py::run_strategy`` builds the JAX trainer: with the
+    model's class count and Grad-Match's ``feats_fn`` (called only by a
+    strategy that asks for features).  ``tc_kw`` sets further
+    ``TrainConfig`` fields (checkpoints, the guard)."""
     ds = SyntheticClassification(num_samples=n, image_size=model_cfg.image_size,
                                  seed=seed)
     tc = TrainConfig(
@@ -81,10 +96,11 @@ def make_trainer(strategy: str, *, model_cfg: CNNConfig = MODEL_CFG,
         # FORGET's warmup must fit inside the run so that prune + restart
         # happen: the paper's 20 epochs map to a quarter of the schedule.
         forget=ForgetConfig(fraction=0.3, warmup_epochs=max(epochs // 4, 2)),
-        seed=seed)
+        seed=seed, **tc_kw)
     model = CNN(model_cfg, torch.Generator().manual_seed(seed))
     return Trainer(tc, model, _loss_fn, ds, ds.test_split(n_test),
-                   logits_fn=_logits_fn, device=device)
+                   logits_fn=_logits_fn, device=device,
+                   num_classes=model_cfg.num_classes, feats_fn=feats_fn)
 
 
 def run_strategy(strategy: str, **kw) -> dict:

@@ -129,11 +129,19 @@ template <typename T>
 __device__ __forceinline__ void finish(const T* row, int label, int v, float m,
                                        float l, int r, float* ce,
                                        unsigned char* correct, float* pmax) {
+  // The floors as comparisons, not fmaxf: fmaxf drops a NaN operand, and
+  // a row holding a NaN logit (l is NaN) must give NaN ce and pmax, as the
+  // reference's jnp.maximum and the plain version do.  The numeric guard
+  // reads that NaN to quarantine the row.  Such a row is not correct
+  // either (the plain version's max is NaN there).
   float g = kNegInf;
-  if (label >= 0 && label < v) g = fmaxf(to_f32(row[label]), kNegInf);
-  float lf = fmaxf(l, 1e-30f);
+  if (label >= 0 && label < v) {
+    const float x = to_f32(row[label]);
+    g = x < kNegInf ? kNegInf : x;
+  }
+  const float lf = l < 1e-30f ? 1e-30f : l;
   ce[r] = (m + logf(lf)) - g;
-  correct[r] = g >= m ? 1 : 0;
+  correct[r] = (g >= m && l == l) ? 1 : 0;
   pmax[r] = 1.0f / lf;
 }
 

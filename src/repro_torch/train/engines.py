@@ -7,7 +7,11 @@ LR), so they run the same kernels and give the same bits:
 - ``HostLoopEngine`` — one train step per batch, batches assembled on the
   host by the ``Pipeline`` and copied to the device each step with the
   strategy's per-sample weights.  Per-step loss scalars and backward counts
-  stay on the device and cross to the host once, at epoch end.
+  stay on the device and cross to the host once, at epoch end.  The only
+  engine that runs per-batch host hooks: with ``fused_observe=False`` it
+  calls ``strategy.observe`` after every batch (the legacy host-observe
+  path, one sync a batch, counted in ``host_syncs``), filtering the
+  non-finite observations out on the host under the numeric guard.
 
 - ``ScanEpochEngine`` — the device-resident epoch, PyTorch's counterpart of
   the reference's unrolled ``lax.scan`` blocks.  The dataset is placed on
@@ -23,13 +27,15 @@ LR), so they run the same kernels and give the same bits:
   the host once an epoch.
 
 A graph holds the addresses of what it touches: the parameters, the
-momentum buffers, the strategy's ``step_tensors``, the LR and epoch
-scalars, the device data and the static buffers.  Everything that changes
+optimizer's state, the strategy's ``step_tensors``, the numeric guard's
+counters, the LR and epoch scalars, the device data and the static
+buffers.  Everything that changes
 them does so in place (the optimizer's update, the strategy's hooks, the
 FORGET restart, ``set_device_state``, checkpoint restore); the engine
-checks the addresses before every replay and raises if one moved.  The
-strategy's ``step_generators`` are registered with each graph, so replays
-draw fresh numbers where an eager run would.  A failed capture or replay
+checks the addresses before every replay and raises if one moved.  A step
+draws no numbers from a ``torch.Generator``, whose state a graph would
+hold: the in-step draws (SB's) are counter-based, their counter part of the
+strategy's state.  A failed capture or replay
 raises: a CUDA device never falls back to eager steps.
 
 Both engines honour the reference's crash contract: the train state is
@@ -48,6 +54,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 
 import numpy as np
 import torch
@@ -56,6 +63,7 @@ from repro_torch.checkpoint.checkpoint import flatten
 from repro_torch.core.strategy import SampleStrategy
 from repro_torch.data.pipeline import epoch_index_plan
 from repro_torch.kernels import backend
+from repro_torch.train import guard
 
 
 @dataclasses.dataclass
@@ -65,6 +73,29 @@ class EpochRunResult:
     losses: np.ndarray        # (num_steps,) f64 per-step loss scalars
     fwd_samples: int
     bwd_samples: int
+    host_syncs: int = 0       # SampleState round trips spent in the loop
+    # The numeric guard's counters (train/guard.py): cumulative run totals,
+    # fetched with the losses (no extra sync); 0 with the guard off.  The
+    # trainer diffs them into per-epoch stats.
+    nonfinite_steps: int = 0
+    quarantined: int = 0
+    guard_consecutive: int = 0
+
+
+def _fetch_tail(tr) -> list[torch.Tensor]:
+    """The guard's counters as float64, to ride the epoch's one fetch."""
+    if tr.guard_state is None:
+        return []
+    return [torch.stack(tr.guard_state.tensors()).to(torch.float64)]
+
+
+def _guard_totals(tr, tail: np.ndarray) -> dict:
+    """``EpochRunResult``'s guard fields from the fetched counters."""
+    if tr.guard_state is None:
+        return {}
+    nf, consec, q = (int(x) for x in tail)
+    return {"nonfinite_steps": nf, "guard_consecutive": consec,
+            "quarantined": q + tr._guard_host_q}
 
 
 class HostLoopEngine:
@@ -81,27 +112,59 @@ class HostLoopEngine:
         # The strategy's device state is threaded through the steps and
         # handed back at the epoch boundary (also on a crash).
         state = tr.strategy.get_device_state()
+        # Without a fused observe, a strategy that observes does so here,
+        # on the host, after every batch (no-op observes are no syncs).
+        host_observe = (tr._fuse is None and type(tr.strategy).observe
+                        is not SampleStrategy.observe)
         losses, bwds = [], []
+        loop_syncs = 0
         try:
             for idx, batch in tr.pipeline.batches(indices):
                 weight = tr.strategy.batch_weights(idx)
                 if weight is not None:
                     batch = dict(batch, weight=np.asarray(weight, np.float32))
-                state, scalar, bwd = tr.train_step(
+                state, scalar, bwd, metrics = tr.train_step(
                     state, tr.to_device(batch), idx, tr.epoch_dev, tr.lr_dev)
                 losses.append(scalar)
                 if bwd is not None:
                     bwds.append(bwd)
+                if host_observe:
+                    self._observe(idx, metrics, epoch)
+                    loop_syncs += 1
         finally:
             if state is not None:
                 tr.strategy.set_device_state(state)
         if not losses:
-            return EpochRunResult(np.zeros(0), 0, 0)
-        # The epoch's one loss (and backward count) materialisation.
-        ls = torch.stack(losses).cpu().numpy().astype(np.float64)
-        n = len(losses) * tr.cfg.batch_size
-        bwd_total = int(torch.stack(bwds).sum()) if bwds else n
-        return EpochRunResult(losses=ls, fwd_samples=n, bwd_samples=bwd_total)
+            return EpochRunResult(np.zeros(0), 0, 0, host_syncs=loop_syncs)
+        # The epoch's one crossing to the host: the losses, the backward
+        # count and the guard's counters together.
+        parts = [torch.stack(losses).to(torch.float64)]
+        if bwds:
+            parts.append(torch.stack(bwds).sum().to(torch.float64).reshape(1))
+        got = torch.cat(parts + _fetch_tail(tr)).cpu().numpy()
+        num_steps = len(losses)
+        n = num_steps * tr.cfg.batch_size
+        bwd_total = int(got[num_steps]) if bwds else n
+        return EpochRunResult(
+            losses=got[:num_steps].copy(), fwd_samples=n,
+            bwd_samples=bwd_total, host_syncs=loop_syncs,
+            **_guard_totals(tr, got[num_steps + bool(bwds):]))
+
+    def _observe(self, idx: np.ndarray, metrics, epoch: int) -> None:
+        """The legacy host-observe path's per-batch scatter; under the guard
+        the non-finite observations are filtered out on the host first
+        (this path waits on every batch anyway)."""
+        tr = self.tr
+        lv, pa, pc = metrics
+        if tr.guard_state is not None:
+            valid = guard.observation_valid(lv, pc)
+            keep = valid.cpu().numpy()
+            if not keep.all():
+                tr._guard_host_q += int((~keep).sum())
+                idx = np.asarray(idx)[keep]
+                lv, pa, pc = lv[valid], pa[valid], pc[valid]
+        if len(idx):
+            tr.strategy.observe(idx, lv, pa, pc, epoch)
 
 
 def scan_block_sizes(num_steps: int, scan_steps: int) -> list[int]:
@@ -176,8 +239,8 @@ class ScanEpochEngine:
         if weighted:
             batch["weight"] = buf["w"][k]
         own = tr.strategy.get_device_state()
-        state, scalar, bwd = tr.train_step(own, batch, idx, tr.epoch_dev,
-                                           tr.lr_dev)
+        state, scalar, bwd, _ = tr.train_step(own, batch, idx, tr.epoch_dev,
+                                              tr.lr_dev)
         if state is not own:
             tr.strategy.set_device_state(state)     # copies in place
         out = buf["out"][k]
@@ -191,36 +254,39 @@ class ScanEpochEngine:
 
     # ------------------------------------------------------------ capture
 
+    def _guard_counters(self) -> list[torch.Tensor]:
+        gs = self.tr.guard_state
+        return gs.tensors() if gs is not None else []
+
     def _train_state(self) -> list[torch.Tensor]:
-        """Everything a block writes besides its own buffers."""
+        """Everything a block writes besides its own buffers and scratch."""
         tr = self.tr
-        return [*tr.model.parameters(), *tr.model.buffers(), *tr.opt.bufs,
-                *(t for _, t in flatten(tr.strategy.get_device_state()))]
+        return [*tr.model.parameters(), *tr.model.buffers(),
+                *tr.opt.state_tensors(),
+                *(t for _, t in flatten(tr.strategy.get_device_state())),
+                *self._guard_counters()]
 
     @torch.no_grad()
-    def _snapshot(self):
-        return ([t.clone() for t in self._train_state()],
-                [g.get_state() for g in self.tr.strategy.step_generators()])
+    def _snapshot(self) -> list[torch.Tensor]:
+        return [t.clone() for t in self._train_state()]
 
     @torch.no_grad()
-    def _restore(self, saved) -> None:
-        tensors, gen_states = saved
-        for t, s in zip(self._train_state(), tensors):
+    def _restore(self, saved: list[torch.Tensor]) -> None:
+        for t, s in zip(self._train_state(), saved):
             t.copy_(s)
-        for g, s in zip(self.tr.strategy.step_generators(), gen_states):
-            g.set_state(s)
 
     def _addresses(self) -> tuple:
         tr = self.tr
-        held = [*tr.model.parameters(), *tr.model.buffers(), *tr.opt.bufs,
-                tr.lr_dev, tr.epoch_dev, *tr.strategy.step_tensors(),
+        held = [*tr.model.parameters(), *tr.model.buffers(),
+                *tr.opt.state_tensors(), tr.lr_dev, tr.epoch_dev,
+                *tr.strategy.step_tensors(), *self._guard_counters(),
                 *self._data.values(), *self._bufs.values()]
         return tuple(t.data_ptr() for t in held)
 
     def _capture(self, size: int, weighted: bool) -> _Captured:
         """Capture a ``size``-step block: eager warm-up blocks on the
         capture stream with the train state restored after them, then the
-        capture itself, which must leave the generators where they were."""
+        capture itself."""
         tr, dev = self.tr, self.tr.device
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
@@ -234,21 +300,25 @@ class ScanEpochEngine:
         self._restore(saved)
         tr.opt.zero_grad()
         graph = torch.cuda.CUDAGraph()
-        gens = tr.strategy.step_generators()
-        for g in gens:
-            graph.register_generator_state(g)
-        gen_states = [g.get_state() for g in gens]
         counted = collections.Counter(backend.LAUNCHES)
-        with torch.cuda.graph(graph, pool=self._pool, stream=side):
-            self._block(size, weighted)
+        # A garbage collection inside the capture may finalize a dead
+        # trainer and with it its graphs and memory: a CUDA call the capture
+        # does not allow, which invalidates it (torch.cuda.graph no longer
+        # collects before capturing).  Hold the collector off until the
+        # capture ends; a full collection here would cost ~0.2 s a capture.
+        gc_was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+                self._block(size, weighted)
+        finally:
+            if gc_was_enabled:
+                gc.enable()
         launches = collections.Counter(backend.LAUNCHES)
         launches.subtract(counted)
         # The capture launched nothing: its counts are each replay's.
         backend.LAUNCHES.clear()
         backend.LAUNCHES.update(counted)
-        for g, s in zip(gens, gen_states):
-            if not torch.equal(g.get_state(), s):
-                g.set_state(s)
         if self._pool is None:
             self._pool = graph.pool()
         cap = _Captured(graph, +launches)
@@ -267,9 +337,9 @@ class ScanEpochEngine:
         elif held != self._held:
             raise RuntimeError(
                 "the scanned engine's blocks no longer hold the trainer's "
-                "tensors (a parameter, momentum buffer, strategy state, "
-                "LR/epoch scalar or the device data was rebound instead of "
-                "updated in place)")
+                "tensors (a parameter, optimizer state, strategy state, "
+                "guard counter, LR/epoch scalar or the device data was "
+                "rebound instead of updated in place)")
         if self.tr.device.type != "cuda":
             self._block(size, weighted)
             return
@@ -307,8 +377,8 @@ class ScanEpochEngine:
 
     @staticmethod
     def _fetch(out: torch.Tensor) -> np.ndarray:
-        """The epoch's one crossing to the host: (num_steps, 2) of (loss,
-        backward count)."""
+        """The epoch's one crossing to the host: the (num_steps, 2) of (loss,
+        backward count), flattened, then the guard's counters."""
         return out.cpu().numpy()
 
     def run_epoch(self, epoch: int, indices: np.ndarray, plan,
@@ -338,8 +408,12 @@ class ScanEpochEngine:
             self._dispatch(size, weighted)
             out[start:start + size].copy_(buf["out"][:size])
             start += size
-        got = self._fetch(out)
+        tail = _fetch_tail(tr)
+        flat = out.reshape(-1)
+        got = self._fetch(torch.cat([flat, *tail]) if tail else flat)
+        rows = got[:2 * num_steps].reshape(num_steps, 2)
         n = num_steps * c.batch_size
-        bwd = int(got[:, 1].sum()) if tr._fsel is not None else n
-        return EpochRunResult(losses=got[:, 0].copy(), fwd_samples=n,
-                              bwd_samples=bwd)
+        bwd = int(rows[:, 1].sum()) if tr._fsel is not None else n
+        return EpochRunResult(losses=rows[:, 0].copy(), fwd_samples=n,
+                              bwd_samples=bwd,
+                              **_guard_totals(tr, got[2 * num_steps:]))

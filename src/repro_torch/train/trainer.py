@@ -29,14 +29,32 @@ filled before each epoch, under both engines.  Checkpoints
 hold the parameters, the momentum, the initial weights (FORGET's restart
 point) and the strategy's arrays with its generators' states, and a
 restore copies them into the live tensors in place, so a restart is
-bit-exact under both engines.  Left for later slices: the numeric guard,
-the legacy host-observe path, the mesh and straggler code and gradient
-compression.
+bit-exact under both engines.
+
+The resilience layer of the reference: ``guard_policy="skip_update"`` runs
+the numeric guard inside the step (``train/guard.py``: non-finite loss or
+grads hold the parameters and the optimizer's state at their pre-step
+values, non-finite observations are quarantined from the strategy's state,
+the counters come back in the epoch's one fetch, ``guard_abort_after``
+raises ``NonFiniteError`` at the epoch boundary); ``fused_observe=False``
+is the legacy host-observe path (the host loop calls ``strategy.observe``
+after every batch); ``straggler_mitigation`` feeds ``fault.StragglerMonitor``
+each epoch and re-slices the next plan when a worker is flagged; the
+supervisor and the chaos injectors are ``train/fault.py`` and
+``train/chaos.py``.  Grad-Match reaches its features through ``feats_fn``
+(``prepare`` before each plan).  Each epoch runs with
+``torch.backends.cudnn.deterministic`` on and ``benchmark`` off (the
+caller's values restored after it), which the engines' and restart's
+bit-identity on the card rests on; ``CUDNN_DETERMINISTIC = False`` leaves
+the flags alone, for a control run that measures what they buy.  Left for
+later slices: the mesh and gradient compression.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import inspect
 import logging
 import time
 from typing import Any, Callable
@@ -45,16 +63,23 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import checkpoint as ckpt
-from repro_torch.core import (ForgetConfig, InfoBatchConfig, ISWRConfig,
-                              KakurenboConfig, LRSchedule, SampleStrategy,
-                              SBConfig, make_strategy)
+from repro_torch.checkpoint.checkpoint import flatten
+from repro_torch.core import (ForgetConfig, GradMatchConfig, InfoBatchConfig,
+                              ISWRConfig, KakurenboConfig, LRSchedule,
+                              SampleStrategy, SBConfig, make_strategy)
 from repro_torch.data.pipeline import Pipeline, materialize
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.optim import make_optimizer
+from repro_torch.train import fault, guard
 from repro_torch.train.engines import HostLoopEngine, ScanEpochEngine
 
 logger = logging.getLogger("repro_torch.train")
+
+#: Run each epoch with cudnn.deterministic on and benchmark off (the
+#: caller's values restored after it): the engines' and restart's
+#: bit-identity on the card needs deterministic convolution gradients.
+CUDNN_DETERMINISTIC = True
 
 
 @dataclasses.dataclass
@@ -73,6 +98,7 @@ class TrainConfig:
     forget: ForgetConfig = dataclasses.field(default_factory=ForgetConfig)
     sb: SBConfig = dataclasses.field(default_factory=SBConfig)
     infobatch: InfoBatchConfig = dataclasses.field(default_factory=InfoBatchConfig)
+    gradmatch: GradMatchConfig = dataclasses.field(default_factory=GradMatchConfig)
     seed: int = 0
     eval_every: int = 1
     # Per-sample (loss, PA, PC) from the logits in one streaming pass
@@ -93,6 +119,23 @@ class TrainConfig:
     device_data: bool = True
     # Scanned engine: train steps in one block (one CUDA graph replay).
     scan_steps: int = 8
+    # The strategy's bookkeeping scatter inside the train step (one host
+    # sync an epoch); False is the legacy per-batch host observe() path
+    # (host loop only), bit-identical to it.
+    fused_observe: bool = True
+    # Numeric guard (train/guard.py): "off" runs the unguarded step's
+    # kernels; "skip_update" holds the parameters and the optimizer's state
+    # on a non-finite step and quarantines non-finite observations.
+    guard_policy: str = "off"
+    # With the guard on: raise guard.NonFiniteError at the epoch boundary
+    # once this many consecutive steps were non-finite (0: never).
+    guard_abort_after: int = 0
+    # Feed fault.StragglerMonitor each epoch (latencies measured, or from
+    # Trainer.shard_latency_fn) and re-slice the next plan around a flagged
+    # worker; off by default (uniform latencies never flag).
+    straggler_mitigation: bool = False
+    # Workers the straggler monitor models; 0 = 1 (the port has no mesh).
+    straggler_workers: int = 0
 
 
 @dataclasses.dataclass
@@ -105,9 +148,14 @@ class EpochStats:
     bwd_samples: int
     lr: float
     wall_time: float
-    # SampleState host round trips spent planning the epoch.
+    # SampleState host round trips in the epoch's plan and batch loop.
     host_syncs: int = 0
     engine: str = "host"
+    # Numeric guard, this epoch (0 with the guard off): steps whose update
+    # was held for a non-finite loss or gradient, and observations
+    # quarantined from the strategy's state.
+    nonfinite_steps: int = 0
+    quarantined_observations: int = 0
 
 
 def _fused_scoring_loss_fn(logits_fn: Callable) -> Callable:
@@ -130,13 +178,18 @@ class Trainer:
     ``dataset.get(indices)`` yields host numpy arrays (``images`` (B, H, W,
     C) f32, ``labels`` (B,) i32); the trainer copies each batch to
     ``device``.  ``device=None`` means CUDA and raises without a CUDA device.
+    ``num_classes`` reaches the strategies that take it (Grad-Match's
+    per-class OMP); ``feats_fn(model, batch) -> (B, d)`` gives the
+    per-sample features Grad-Match selects from (``p - onehot(y)``).
     """
 
     def __init__(self, cfg: TrainConfig, model: torch.nn.Module,
                  loss_fn: Callable[[Any, dict], tuple] | None, dataset,
                  test_dataset=None, strategy: SampleStrategy | None = None,
                  logits_fn: Callable[[Any, dict], torch.Tensor] | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 num_classes: int | None = None,
+                 feats_fn: Callable[[Any, dict], torch.Tensor] | None = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.dataset = dataset
@@ -153,10 +206,7 @@ class Trainer:
                 "from logits_fn")
         else:
             self.loss_fn = loss_fn
-        if cfg.engine not in ("auto", "scan", "host"):
-            raise ValueError(
-                f"TrainConfig.engine={cfg.engine!r}: must be 'auto', 'scan' "
-                "or 'host'")
+        self._validate()
         self.model = model.to(self.device)
         # FORGET restarts from the initial weights, as the reference re-inits
         # from the same key: keep a copy of them (checkpointed too).
@@ -171,17 +221,67 @@ class Trainer:
         self.num_samples = dataset.num_samples
         self.strategy = strategy or make_strategy(
             cfg.strategy, self.num_samples, cfg=cfg, seed=cfg.seed,
-            total_epochs=cfg.epochs, device=self.device)
+            num_classes=num_classes, total_epochs=cfg.epochs,
+            device=self.device)
+        self.feats_fn = feats_fn
         # The strategy's in-step hooks run on its device state, when it has
-        # one: selection before the backward pass, bookkeeping after it.
+        # one: selection before the backward pass, bookkeeping after it
+        # (unless fused_observe=False asks for the host-observe path).
         has_state = self.strategy.get_device_state() is not None
-        self._fuse = self.strategy.fused_observe if has_state else None
+        self._fuse = (self.strategy.fused_observe
+                      if has_state and cfg.fused_observe else None)
         self._fsel = self.strategy.fused_select if has_state else None
+        self._init_guard()
+        self._straggler = (fault.StragglerMonitor(cfg.straggler_workers or 1)
+                           if cfg.straggler_mitigation else None)
+        #: epoch -> per-worker latencies for the straggler monitor (tests and
+        #: the chaos harness inject skew here); None measures the epoch.
+        self.shard_latency_fn: Callable[[int], list[float]] | None = None
         self._device_data: dict | None = None    # lazy: see device_data()
         self._pending_save = None    # async-checkpoint handle
         self.engine = self._make_engine()
         self.epoch = 0
         self.history: list[EpochStats] = []
+
+    def _validate(self) -> None:
+        c = self.cfg
+        if c.engine not in ("auto", "scan", "host"):
+            raise ValueError(
+                f"TrainConfig.engine={c.engine!r}: must be 'auto', 'scan' "
+                "or 'host'")
+        if c.guard_policy not in guard.GUARD_POLICIES:
+            raise ValueError(
+                f"TrainConfig.guard_policy={c.guard_policy!r}: must be one "
+                f"of {guard.GUARD_POLICIES}")
+        if c.guard_abort_after and c.guard_policy == "off":
+            raise ValueError(
+                "TrainConfig.guard_abort_after requires "
+                "guard_policy='skip_update': with the guard off no "
+                "non-finite step is ever counted")
+
+    def _init_guard(self) -> None:
+        """The guard's device counters and scratch (``guard_policy`` not
+        "off"): the held copies of the parameters and the optimizer's state
+        (and of the fused select's state), and the detection flag."""
+        self.guard_state = None
+        self._guard_seen = (0, 0)    # cumulative totals already reported
+        self._guard_host_q = 0       # the host-observe path's quarantines
+        if self.cfg.guard_policy == "off":
+            return
+        if (self._fuse is not None
+                and "valid" not in inspect.signature(self._fuse).parameters):
+            raise ValueError(
+                f"guard_policy={self.cfg.guard_policy!r} needs the strategy's "
+                "fused_observe to take the quarantine mask (valid=)")
+        dev = self.device
+        self.guard_state = guard.init_guard_state(dev)
+        self._held = guard.HeldState([*self.model.parameters(),
+                                      *self.opt.state_tensors()])
+        self._held_sel = (guard.HeldState(
+            [t for _, t in flatten(self.strategy.get_device_state())])
+            if self._fsel is not None else None)
+        self._found = torch.zeros(1, dtype=torch.float32, device=dev)
+        self._one = torch.ones(1, dtype=torch.float32, device=dev)
 
     def _make_engine(self):
         """The reference's engine choice: scanned when the strategy needs
@@ -223,32 +323,61 @@ class Trainer:
 
     def train_step(self, state, batch: dict, indices, epoch, lr):
         """One update; returns (strategy state, loss scalar on the device,
-        backward samples as a device scalar, or None for the whole batch).
+        backward samples as a device scalar or None for the whole batch,
+        the detached per-sample (loss, PA, PC)).
 
         ``indices`` are host or device sample ids, ``epoch`` and ``lr`` the
         trainer's device scalars (``epoch_dev``, ``lr_dev``) or numbers.
         Everything it changes it changes in place, so that one call can be
-        captured into a CUDA graph (the scanned engine)."""
+        captured into a CUDA graph (the scanned engine); the guard too
+        waits on nothing.  A non-finite step leaves the parameters and the
+        optimizer's state bit for bit as they were."""
         self.model.train()
+        guarded = self.guard_state is not None
         bwd = None
         if self._fsel is not None:
             # A forward-only loss at the current weights drives the in-step
             # selection; its weights mask the backward pass.
             with torch.no_grad():
                 _, (lv0, _, _) = self.loss_fn(self.model, batch)
-            w_sel, state = self._fsel(state, lv0)
+            if guarded:
+                # A non-finite selection loss would poison the selection's
+                # history: hold its state, train the whole batch.
+                ok0 = torch.isfinite(lv0).all()
+                self._held_sel.save()
+                w_new, state = self._fsel(state, lv0)
+                self._held_sel.restore(ok0)
+                w_sel = torch.where(ok0, w_new, torch.ones_like(w_new))
+            else:
+                w_sel, state = self._fsel(state, lv0)
             batch = dict(batch)
             batch["weight"] = (batch["weight"] * w_sel if "weight" in batch
                                else w_sel)
             bwd = torch.count_nonzero(w_sel)
         scalar, (lv, pa, pc) = self.loss_fn(self.model, batch)
+        lv, pc = lv.detach(), pc.detach()
         self.opt.zero_grad()
         scalar.backward()
+        if guarded:
+            ok = guard.all_finite(
+                scalar, [p.grad for p in self.opt.params if p.grad is not None],
+                self._found, self._one)
+            self._held.save()
         self.opt.step(lr)
+        quarantined = None
+        if guarded:
+            self._held.restore(ok)
         if self._fuse is not None:
-            state = self._fuse(state, indices, lv.detach(), pa, pc.detach(),
-                               epoch)
-        return state, scalar.detach(), bwd
+            if guarded:
+                valid = guard.observation_valid(lv, pc)
+                state = self._fuse(state, indices, lv, pa, pc, epoch,
+                                   valid=valid)
+                quarantined = torch.logical_not(valid).sum()
+            else:
+                state = self._fuse(state, indices, lv, pa, pc, epoch)
+        if guarded:
+            guard.update_counters(self.guard_state, ok, quarantined)
+        return state, scalar.detach(), bwd, (lv, pa, pc)
 
     @torch.no_grad()
     def eval_step(self, batch: dict):
@@ -256,19 +385,88 @@ class Trainer:
         _, metrics = self.loss_fn(self.model, batch)
         return metrics
 
+    @torch.no_grad()
+    def _collect_feats(self) -> tuple[np.ndarray, np.ndarray]:
+        """Grad-Match's host (features, labels) over the whole training set,
+        in the reference's batches and order; the trailing batch's padding
+        (its rows repeat the first samples) is cut off."""
+        self.model.eval()
+        feats, labels = [], []
+        for _, batch in self.pipeline.batches(np.arange(self.num_samples)):
+            feats.append(self.feats_fn(self.model, self.to_device(batch))
+                         .cpu().numpy())
+            labels.append(batch["labels"])
+        n = self.num_samples
+        return np.concatenate(feats)[:n], np.concatenate(labels)[:n]
+
+    @contextlib.contextmanager
+    def _cudnn_flags(self):
+        """cuDNN deterministic and not benchmarking inside, the caller's
+        flags restored after (unless ``CUDNN_DETERMINISTIC`` is off)."""
+        if not CUDNN_DETERMINISTIC:
+            yield
+            return
+        cudnn = torch.backends.cudnn
+        saved = cudnn.deterministic, cudnn.benchmark
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            yield
+        finally:
+            cudnn.deterministic, cudnn.benchmark = saved
+
+    def _rebalanced_order(self, indices: np.ndarray) -> np.ndarray:
+        """The epoch's order re-sliced around flagged stragglers: split into
+        per-worker views (``fault.rescale_plan``), a fraction of each
+        straggler's rows moved to the fastest workers
+        (``StragglerMonitor.rebalance``), flattened again (re-balanced
+        workers first, then the trimmed tail), so every visible sample still
+        trains once.  Unchanged when no worker is flagged."""
+        mon = self._straggler
+        if mon.world_size <= 1 or not mon.stragglers().any():
+            return indices
+        idx = np.asarray(indices)
+        chunk = mon.world_size * self.cfg.batch_size
+        n_used = (len(idx) // chunk) * chunk
+        rp = fault.rescale_plan(idx[:n_used], mon.world_size,
+                                self.cfg.batch_size)
+        per_worker = mon.rebalance(rp.per_worker)
+        logger.warning(
+            "straggler mitigation: stragglers %s, re-balanced worker rows %s",
+            np.nonzero(mon.stragglers())[0].tolist(),
+            [len(w) for w in per_worker])
+        return np.concatenate([*per_worker, idx[n_used:]])
+
     def run_epoch(self, epoch: int) -> EpochStats:
+        with self._cudnn_flags():
+            return self._run_epoch(epoch)
+
+    def _run_epoch(self, epoch: int) -> EpochStats:
         c = self.cfg
         t0 = time.perf_counter()
+        self.strategy.prepare(
+            epoch, self._collect_feats if self.feats_fn is not None else None)
         plan = self.strategy.plan(epoch)
         if plan.reinit_model:
-            # FORGET: restart from the initial weights with fresh momentum,
-            # both copied in place (a captured step holds the tensors).
+            # FORGET: restart from the initial weights with a fresh optimizer
+            # state, both copied in place (a captured step holds the tensors).
             self.model.load_state_dict(self._init_weights)
             self.opt.reset()
         lr = float(c.lr(epoch)) * plan.lr_scale
         self.lr_dev.fill_(lr)
         self.epoch_dev.fill_(epoch)
-        res = self.engine.run_epoch(epoch, plan.visible_indices, plan, lr)
+        indices = plan.visible_indices
+        if self._straggler is not None:
+            indices = self._rebalanced_order(indices)
+        res = self.engine.run_epoch(epoch, indices, plan, lr)
+        if self._straggler is not None:
+            # One process: measured latencies are uniform across the
+            # simulated workers (never flagged); skew comes injected.
+            w = self._straggler.world_size
+            lat = (self.shard_latency_fn(epoch)
+                   if self.shard_latency_fn is not None
+                   else [(time.perf_counter() - t0) / w] * w)
+            self._straggler.record_epoch(lat)
+        nonfinite, quarantined = self._guard_epoch(epoch, res)
         fwd, bwd = res.fwd_samples, res.bwd_samples
         if plan.needs_refresh:
             # KAKURENBO step D: forward-only refresh of the hidden list.
@@ -284,13 +482,38 @@ class Trainer:
             test_acc=acc, hidden_fraction=plan.hidden_fraction,
             fwd_samples=fwd, bwd_samples=bwd, lr=lr,
             wall_time=time.perf_counter() - t0,
-            host_syncs=plan.host_syncs, engine=self.engine.name)
+            host_syncs=plan.host_syncs + res.host_syncs,
+            engine=self.engine.name, nonfinite_steps=nonfinite,
+            quarantined_observations=quarantined)
         self.history.append(stats)
         self.epoch = epoch + 1
         if (c.checkpoint_dir and c.checkpoint_every
                 and (epoch + 1) % c.checkpoint_every == 0):
             self.save_checkpoint()
         return stats
+
+    def _guard_epoch(self, epoch: int, res) -> tuple[int, int]:
+        """This epoch's (non-finite steps, quarantined observations) from
+        the engine's cumulative totals (fetched with the losses), and the
+        abort policy: the epoch boundary is the run's only host sync."""
+        if self.guard_state is None:
+            return 0, 0
+        c = self.cfg
+        nonfinite = res.nonfinite_steps - self._guard_seen[0]
+        quarantined = res.quarantined - self._guard_seen[1]
+        self._guard_seen = (res.nonfinite_steps, res.quarantined)
+        if nonfinite:
+            logger.warning(
+                "numeric guard: epoch %d held %d non-finite step(s), "
+                "quarantined %d observation(s) (consecutive=%d)", epoch,
+                nonfinite, quarantined, res.guard_consecutive)
+        if c.guard_abort_after and res.guard_consecutive >= c.guard_abort_after:
+            raise guard.NonFiniteError(
+                f"{res.guard_consecutive} consecutive non-finite train steps "
+                f"at epoch {epoch} (guard_abort_after={c.guard_abort_after}): "
+                "the parameters are held at the last finite update; restart "
+                "from the latest checkpoint")
+        return nonfinite, quarantined
 
     def run(self, epochs: int | None = None,
             fail_at_epoch: int | None = None) -> list[EpochStats]:

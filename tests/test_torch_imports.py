@@ -17,6 +17,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -131,7 +132,18 @@ def test_library_path_names_the_sources():
 
 def test_registry_is_the_ports_own():
     from repro_torch.core import available_strategies
-    assert available_strategies() == ["baseline", "forget", "infobatch",
-                                      "iswr", "kakurenbo", "random", "sb"]
+    assert available_strategies() == ["baseline", "forget", "gradmatch",
+                                      "infobatch", "iswr", "kakurenbo",
+                                      "random", "sb"]
     with pytest.raises(ValueError, match="unknown strategy"):
-        make_strategy("gradmatch", 10, device="cpu")
+        make_strategy("craig", 10, device="cpu")
+    # Without num_classes Grad-Match builds, and its error waits for the
+    # first reselection's features, as the reference's does.
+    gm = make_strategy("gradmatch", 10, device="cpu")
+
+    def never():
+        raise AssertionError("features asked for off a reselection epoch")
+
+    gm.prepare(1, never)
+    with pytest.raises(ValueError, match="num_classes"):
+        gm.prepare(0, lambda: (np.zeros((10, 2)), np.zeros(10)))

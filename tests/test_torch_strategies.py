@@ -80,6 +80,24 @@ def test_importance_probs_and_with_replacement(n, seed):
     assert torch.equal(p0, torch.full((8,), 0.125))
 
 
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 50_000])
+def test_blocked_cumsum(n):
+    """ISWR's CDF (``planops.blocked_cumsum``, a fixed order of additions):
+    in float32 within 2e-7 relative of a float64 running sum, the same bits
+    on every call; in float64 rounded to float32 (as ``with_replacement``
+    takes it on every device) the CPU's sequential cumsum, which
+    accumulates in double, to the bit at these inputs."""
+    x = torch.from_numpy(np.random.default_rng(n).random(n).astype(np.float32))
+    got = planops.blocked_cumsum(x)
+    want = torch.cumsum(x.double(), 0)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    assert float(((got.double() - want).abs() / want).max()) < 2e-7
+    assert torch.equal(got, planops.blocked_cumsum(x.clone()))
+    p = x / x.sum()
+    card = planops.blocked_cumsum(p.double()).to(torch.float32)
+    assert torch.equal(card, torch.cumsum(p, 0))
+
+
 @pytest.mark.parametrize("n,ratio", [(256, 0.5), (3000, 0.3), (100, 0.9)])
 def test_weighted_keep(n, ratio):
     loss, valid = _loss_valid(n, n)
