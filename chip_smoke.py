@@ -38,7 +38,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    rate of the unit the kernel uses: fp32 on the CUDA cores for B1-B5,
    3xTF32 on the tensor cores for B6 and B7 (which also get the fp32
    bound).  The float32 rows of B6 and B7 also give the kernel's and the
-   plain version's error against a float64 reference;
+   plain version's error against a float64 reference.  Then the same at
+   the LM training path's shapes (phase 14): B1 forward at (1,024,
+   49,152) and (1,024, 50,280), its backward at (1,024, 49,152), B7 at
+   (32, 32, 9, 3, 64) causal, B6 at (32, 32) of mamba2-130m;
 4. plan: ``_plan_step`` at N = 1,281,167 (ImageNet-1K's train size) with
    ``"histogram_pallas"`` (the histogram-select kernel) against
    ``"histogram"`` (plain) on the card and against itself on the CPU (its
@@ -109,7 +112,25 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    version: logits and every cache tensor within 1e-4) and their greedy
    tokens.  The kernels themselves are held against their plain versions
    in phase 3, with B1 also on rows a poisoned sample gives (NaN ce and
-   pmax where the plain version has them).
+   pmax where the plain version has them);
+14. LM training, ``examples/torch_lm_train.py --full`` at its defaults
+   (512 sequences of 32 tokens from ``SyntheticLM``, batch 32, AdamW,
+   12 epochs), through the default engine (CUDA graphs), its kernels
+   checked at its shapes in phase 3; with the counts set to 0, smollm-135m
+   under baseline, KAKURENBO ("sort") and KAKURENBO ("histogram_pallas" +
+   DropTop 0.02), and mamba2-130m under KAKURENBO ("sort" + DropTop 0.02):
+   per epoch wall s, loss, F* and backward samples; B1's backward at
+   least once a train step, B7 (B6) 30 (24) times a forward, the
+   histogram-select and the rank-select launched; the loss must fall and
+   some epoch hide sequences.  Then one train step's gradients through the
+   kernel forwards against the plain forwards at full width and depth,
+   per leaf (1e-3 relative, the attention at its input's fan-in; the
+   reference's init recorded), every leaf a launch without a backward
+   left at zero now non-zero; card vs CPU at 2 layers (losses 1e-4
+   relative, first plans equal); the host loop = the scanned engine bit
+   for bit over 3 KAKURENBO epochs and a restart from a crash between two
+   blocks of epoch 2 into a trainer from other weights, bit-identical;
+   one train step profiled at (32, 32) and (32, 512) for each arch.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -1003,8 +1024,9 @@ def sdpa_backends(q, k, v, causal: bool, ref, reps: int) -> dict:
     return out
 
 
-def phase_kernels(dev) -> dict:
-    """Every kernel against its plain version; returns the main-shape rows."""
+def phase_kernels(dev) -> tuple[dict, dict]:
+    """Every kernel against its plain version; returns the main-shape rows
+    and the LM training path's (``lm_kernel_checks``)."""
     import torch
     main = {"loss_confidence": check_loss_confidence(dev, 128, 10, torch.float32,
                                                      1e-5, 200)}
@@ -1077,7 +1099,7 @@ def phase_kernels(dev) -> dict:
           "loss_confidence_nan_rows": check_loss_confidence_nonfinite(dev)})
     emit(time_histogram_select(dev, 1_281_167, 50))
     emit(time_rank_select(dev, 1_281_167, 50))
-    return main
+    return main, lm_kernel_checks(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -2640,6 +2662,529 @@ def phase_serve(dev, arch: str = "mamba2-130m", batch: int = 4,
 
 
 # ---------------------------------------------------------------------------
+# LM training: smollm-135m (B7) and mamba2-130m (B6), sequences scored by B1
+# ---------------------------------------------------------------------------
+
+#: The leaves a launch without a backward left at zero gradient, by family
+#: (the attention's inputs, or the scan's and the conv's parameters); the
+#: SSM's ``w_in`` columns for x, B, C and dt are checked apart.
+FAULT_LEAVES = {"dense": ("ln1", "attn.wq", "attn.wk", "attn.wv"),
+                "ssm": ("ssm.conv_w", "ssm.conv_b", "ssm.a_log",
+                        "ssm.d_skip", "ssm.dt_bias")}
+#: Per-leaf relative gradient error (norm of the difference over the
+#: plain forwards' norm) allowed between the kernel forwards and the plain
+#: ones at full width and depth, under the conditioning control: float32
+#: sums in other orders over 24-30 layers.
+LM_GRAD_TOL = 1e-3
+
+
+def lm_example():
+    """``examples/torch_lm_train.py`` as a module (its ``make_trainer``)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_lm_train", ROOT / "examples" / "torch_lm_train.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def lm_batch(dev, n: int = 32, seq: int = 32) -> dict:
+    """The example's corpus' first ``n`` sequences on ``dev``."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLM
+    ds = SyntheticLM(num_samples=n, seq_len=seq, vocab_size=64, order=1,
+                     easy_fraction=0.7, seed=0)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in ds.get(np.arange(n)).items()}
+
+
+def lm_kernel_checks(dev) -> dict:
+    """B1 forward and backward, B7 and B6 against their plain versions at
+    the LM path's shapes (batch 32 x seq 32): the logits of smollm-135m's
+    and mamba2-130m's vocabularies, smollm's attention, mamba2's scan."""
+    import torch
+    rows = {"loss_confidence": check_loss_confidence(
+                dev, 1024, 49152, torch.float32, 1e-4, 20),
+            "loss_confidence_mamba2": check_loss_confidence(
+                dev, 1024, 50280, torch.float32, 1e-4, 20),
+            "loss_confidence_bwd": check_loss_confidence_bwd(
+                dev, 1024, 49152, torch.float32, 10),
+            "flash_attention": check_flash_attention(
+                dev, (32, 32, 9, 3, 64), True, torch.float32, 1e-5, 50,
+                library=True),
+            "ssd_scan": check_ssd_scan(dev, 32, 32, "model", 50)}
+    emit({"phase": "lm_kernel_checks", **rows})
+    return rows
+
+
+def lm_train_run(dev, arch: str, strategy: str, selection: str = "sort",
+                 drop_top: float = 0.0, full: bool = True
+                 ) -> tuple[dict, collections.Counter]:
+    """``examples/torch_lm_train.py --full`` at its defaults (512 sequences
+    of 32 tokens, batch 32, 200 steps: 12 epochs) under the default engine,
+    no checkpoints (``full=False``: the reduced config, a rehearsal on
+    the CPU).  Returns its row and the kernel launches it made."""
+    import torch
+    from repro_torch.kernels import backend
+    before = collections.Counter(backend.LAUNCHES)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr = lm_example().make_trainer(arch, full=full, strategy=strategy,
+                                   selection=selection, drop_top=drop_top,
+                                   ckpt_dir=None, device=dev)
+    built = time.perf_counter() - t0
+    hist = tr.run()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = collections.Counter(backend.LAUNCHES)
+    launches.subtract(before)
+    launches = +launches
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    cfg, kernel = tr.model.cfg, SERVE_KERNEL[arch]
+    steps = sum(h.bwd_samples for h in hist) // tr.cfg.batch_size
+    forwards = launches["loss_confidence"]
+    row = {"phase": "lm_train", "arch": arch, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "strategy": strategy, "selection": selection, "drop_top": drop_top,
+           "engine": tr.engine.name, "epochs": len(hist), "train_steps": steps,
+           "build_s": built, "wall_s": wall,
+           "epoch_wall_s": [h.wall_time for h in hist],
+           "loss": [h.train_loss for h in hist],
+           "F_star": [h.hidden_fraction for h in hist],
+           "bwd_samples": [h.bwd_samples for h in hist],
+           "fwd_samples": [h.fwd_samples for h in hist],
+           "launches": dict(launches),
+           "forwards": forwards,
+           "kernel_per_forward": launches[kernel] / max(forwards, 1),
+           "peak_mem_gb": peak / 1e9}
+    # One replay of the 8-step graph after the run (it trains on).
+    eng = tr.engine
+    cap = eng._graphs.get((eng.scan_steps, False))
+    if cap is not None:
+        times = []
+        for _ in range(5):
+            sync(dev)
+            t = time.perf_counter()
+            cap.graph.replay()
+            sync(dev)
+            times.append((time.perf_counter() - t) * 1e3)
+        row["replay_8_steps_ms"] = sorted(times)[2]
+    emit(row)
+    require(tr.engine.name == "scan", f"{arch}: engine {tr.engine.name}")
+    require(all(math.isfinite(h.train_loss) for h in hist),
+            f"{arch} {strategy}: non-finite loss {row['loss']}")
+    require(hist[-1].train_loss < hist[0].train_loss,
+            f"{arch} {strategy}: the loss did not fall: {row['loss']}")
+    require(launches["loss_confidence_bwd"] >= steps > 0,
+            f"{arch}: B1 backward launched {launches['loss_confidence_bwd']} "
+            f"times in {steps} train steps")
+    require(forwards >= steps, f"{arch}: B1 forward launched {forwards} "
+                               f"times in {steps} train steps")
+    require(launches[kernel] == cfg.num_layers * forwards,
+            f"{arch}: {kernel} launched {launches[kernel]} times, not "
+            f"{cfg.num_layers} a forward ({forwards} forwards)")
+    if strategy == "kakurenbo":
+        require(any(h.hidden_fraction > 0 for h in hist),
+                f"{arch}: kakurenbo hid nothing: {row['F_star']}")
+    if selection == "histogram_pallas":
+        require(launches["histogram_select"] > 0,
+                f"{arch}: the histogram-select never launched")
+    if selection == "sort" and drop_top > 0:
+        require(launches["rank_select"] > 0,
+                f"{arch}: the rank-select never launched")
+    del tr, eng, cap
+    return row, launches
+
+
+@contextlib.contextmanager
+def plain_forwards():
+    """Within the block, B1, B6 and B7 run their plain versions under
+    autograd (``ops.fused_loss_metrics``, ``ops.ssd_scan``,
+    ``ops.flash_attention``): the reference's own forms."""
+    from repro_torch.kernels import loss_confidence as lc
+    from repro_torch.kernels import ssd_scan as ssd
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(plain_attention())
+        stack.enter_context(patched_op(
+            "ssd_scan", lambda orig: lambda *a: ssd.ssd_scan_plain(*a)))
+        stack.enter_context(patched_op(
+            "fused_loss_metrics", lambda orig: lc.loss_confidence_plain))
+        yield
+
+
+def lm_grads(cfg, params: dict, batch: dict, plain: bool):
+    """One train step's gradients (``LM.loss_and_metrics``, backward), the
+    loss and the kernel launches it made."""
+    from repro_torch.kernels import backend
+    from repro_torch.models import LM
+    lm = LM(cfg, params)
+    before = collections.Counter(backend.LAUNCHES)
+    with plain_forwards() if plain else contextlib.nullcontext():
+        scalar, _ = lm.loss_and_metrics(batch)
+        scalar.backward()
+    launches = collections.Counter(backend.LAUNCHES)
+    launches.subtract(before)
+    return ({n: p.grad for n, p in lm.named_parameters()}, scalar.item(),
+            dict(+launches))
+
+
+def lm_grad_check(dev, arch: str, full: bool = True) -> dict:
+    """One train step's gradients at full width and depth through the
+    kernel forwards (B7 or B6, and B1) against the same step through the
+    plain forwards on the card, per leaf: on the weights the checks use
+    (the dense family's attention at its input's fan-in, the serve
+    phase's conditioning control) within LM_GRAD_TOL; under the
+    reference's init recorded only.  The leaves the gradient fault left at
+    zero must have a gradient."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import build_model
+    cfg = get_arch(arch) if full else get_arch(arch).reduced()
+    model = build_model(cfg, dev)
+    batch = lm_batch(dev)
+    di = cfg.ssm.d_inner or cfg.ssm.expand * cfg.d_model if cfg.ssm else 0
+    row = {"phase": "lm_grad_check", "arch": arch, "batch": [32, 32],
+           "tol": LM_GRAD_TOL}
+    inits = ["checked"] + (["reference_init"] if cfg.family == "dense" else [])
+    for name in inits:
+        params = model.init(torch.Generator().manual_seed(0))
+        if name == "checked" and cfg.family == "dense":
+            attention_fan_in(params, cfg)
+        gk, lk, nk = lm_grads(cfg, params, batch, plain=False)
+        gp, lp, np_ = lm_grads(cfg, params, batch, plain=True)
+        rel = {n: float((gk[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30))
+               for n in gk}
+        fault = {n: float(gk[n].norm()) for n in gk
+                 if any(n.endswith(leaf) for leaf in FAULT_LEAVES[cfg.family])}
+        if cfg.family == "ssm":
+            for n in gk:
+                if n.endswith("ssm.w_in"):
+                    fault[n + "[:, x|B|C|dt]"] = float(gk[n][:, di:].norm())
+        worst = max(rel, key=rel.get)
+        row[name] = {"loss": [lk, lp], "launches_kernel_pass": nk,
+                     "launches_plain_pass": np_, "leaves": len(rel),
+                     "max_rel_err": rel[worst], "worst_leaf": worst,
+                     "fault_leaves": len(fault),
+                     "fault_leaves_min_norm": min(fault.values()),
+                     "fault_leaves_max_rel_err": max(rel[n.split("[")[0]]
+                                                     for n in fault)}
+        if name == "checked":
+            require(nk.get(SERVE_KERNEL[arch]) == cfg.num_layers
+                    and nk.get("loss_confidence") == 1
+                    and nk.get("loss_confidence_bwd") == 1,
+                    f"{arch}: the kernel pass launched {nk}")
+            require(not np_, f"{arch}: the plain pass launched {np_}")
+            require(min(fault.values()) > 0,
+                    f"{arch}: a leaf has no gradient: "
+                    f"{min(fault, key=fault.get)}")
+            require(rel[worst] <= LM_GRAD_TOL,
+                    f"{arch}: {worst}'s gradient differs by {rel[worst]} "
+                    f"relative > {LM_GRAD_TOL}")
+        del gk, gp, params
+    emit(row)
+    return row
+
+
+def tree_to(tree, dev):
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev, copy=True)
+    return {k: tree_to(v, dev) for k, v in tree.items()}
+
+
+def lm_card_vs_cpu(dev, arch: str, n: int = 64, layers: int = 2,
+                   epochs: int = 2, lr: float = 1e-3,
+                   full: bool = True) -> dict:
+    """The example's setup at full width and ``layers`` layers on the card
+    and on the CPU, from the same weights and permutations, TF32 off: the
+    per-epoch losses within 1e-4 relative and the first epoch's plan
+    equal; a CPU run from weights changed by 1e-7 relative says how well
+    conditioned the comparison is.  At the example's LR of 1e-2 that
+    control moves mamba2-130m's second epoch by 4e-4 (the run is chaotic:
+    no 1e-4 comparison could hold there); ``lr`` 1e-3 keeps it well
+    conditioned, as the CNN's card-vs-CPU phase takes a tenth of its LR."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import LM, Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_arch(arch) if full else get_arch(arch).reduced()
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    if cfg.family == "dense":
+        attention_fan_in(params, cfg)
+    g = torch.Generator().manual_seed(3)
+    perms = [torch.randperm(n, generator=g) for _ in range(epochs)]
+    cpu = torch.device("cpu")
+    ex = lm_example()
+    runs = {}
+    for name, d, scale in ((dev.type, dev, 1.0), ("cpu", cpu, 1.0),
+                           ("cpu_perturbed", cpu, 1 + 1e-7)):
+        p = tree_to(params, d)
+        if scale != 1.0:
+            with torch.no_grad():
+                for _, t in flatten(p):
+                    t.mul_(scale)
+        t0 = time.perf_counter()
+        tr = ex.make_trainer(arch, full=full, steps=epochs * (n // 32),
+                             num_samples=n, ckpt_dir=None, device=d,
+                             model=LM(cfg, p), lr=lr)
+        it = iter([q.to(d) for q in perms])
+        tr.strategy._inner.draw_permutation = lambda it=it: next(it)
+        hist, plans = recorded_run(tr)
+        runs[name] = (hist, plans, time.perf_counter() - t0)
+
+    def max_rel(a, b):
+        return max(abs(x.train_loss - y.train_loss) / abs(y.train_loss)
+                   for x, y in zip(runs[a][0], runs[b][0]))
+
+    rel = max_rel(dev.type, "cpu")
+    same = [same_plans([a], [b]) for a, b in zip(runs[dev.type][1],
+                                                runs["cpu"][1])]
+    row = {"phase": "lm_card_vs_cpu", "arch": arch, "layers": layers,
+           "n": n, "epochs": epochs, "lr": lr,
+           "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "loss": {k: [h.train_loss for h in v[0]] for k, v in runs.items()},
+           "F_star": {k: [h.hidden_fraction for h in v[0]]
+                      for k, v in runs.items()},
+           "seconds": {k: v[2] for k, v in runs.items()},
+           "max_rel_diff": rel,
+           "perturbed_max_rel_diff": max_rel("cpu_perturbed", "cpu"),
+           "plans_equal_by_epoch": same}
+    emit(row)
+    require(rel <= 1e-4, f"{arch}: card vs CPU losses differ by {rel} relative")
+    require(same[0], f"{arch}: card vs CPU first plans differ")
+    return row
+
+
+def lm_engines_restart(dev, arch: str = "smollm-135m", steps: int = 48,
+                       full: bool = True) -> dict:
+    """The example's trainer at full width for 3 KAKURENBO epochs
+    (``"histogram_pallas"`` + DropTop 0.02, which hides from epoch 1): the
+    host loop against the scanned engine (losses, plans, every parameter,
+    AdamW moment and strategy tensor bit-identical), then the scanned run
+    crashing between two blocks of epoch 2, restored from the epoch-2
+    checkpoint into a trainer built from other weights and seeds, ending
+    bit-identical to the uninterrupted scanned run."""
+    import shutil
+    ex = lm_example()
+    root = ROOT / "build" / "chip_smoke_lm_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+
+    def trainer(engine, seed=0, ckpt=False):
+        return ex.make_trainer(arch, full=full, steps=steps, device=dev,
+                               seed=seed, engine=engine,
+                               selection="histogram_pallas", drop_top=0.02,
+                               ckpt_dir=str(root) if ckpt else None,
+                               checkpoint_every=2)
+
+    runs = {}
+    for engine in ("host", "scan"):
+        tr = trainer(engine)
+        hist, plans = recorded_run(tr)
+        runs[engine] = ([h.train_loss for h in hist], plans, train_state(tr),
+                        [h.wall_time for h in hist], tr.engine.name)
+        del tr
+    (lh, ph, sh, wh, eh), (ls, ps, ss, ws, es) = runs["host"], runs["scan"]
+    diff = state_diff(sh, ss)
+    row = {"phase": "lm_engines_restart", "arch": arch, "epochs": len(lh),
+           "engines": [eh, es], "loss": {"host": lh, "scan": ls},
+           "epoch_wall_s": {"host": wh, "scan": ws},
+           "hidden": [len(p[1]) for p in ps], "losses_equal": lh == ls,
+           "plans_equal": same_plans(ph, ps), "state_tensors": len(ss),
+           "state_differs": diff}
+    del sh
+    try:
+        tr = trainer("scan", ckpt=True)
+        tr.run(2)
+        dispatch, calls = tr.engine._dispatch, [0]
+
+        def bomb(size, weighted):
+            if calls[0] == 1:
+                raise RuntimeError("injected failure between blocks")
+            calls[0] += 1
+            dispatch(size, weighted)
+
+        tr.engine._dispatch = bomb
+        try:
+            tr.run_epoch(2)
+        except RuntimeError as e:
+            require("between blocks" in str(e), f"lm restart: {e}")
+        del tr
+        t1 = time.perf_counter()
+        tr2 = trainer("scan", seed=7, ckpt=True)
+        require(tr2.restore_latest() and tr2.epoch == 2, "lm restart: restore")
+        restore_s = time.perf_counter() - t1
+        tr2.run()
+        restart_diff = state_diff(train_state(tr2), ss)
+        row["restart"] = {"replays_before_crash": calls[0],
+                          "restore_s": restore_s,
+                          "state_differs": restart_diff,
+                          "last_loss": [tr2.history[-1].train_loss, ls[-1]]}
+        del tr2
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    require((eh, es) == ("host", "scan"), f"lm engines: {eh}, {es}")
+    require(lh == ls, f"lm engines: losses differ {lh} vs {ls}")
+    require(same_plans(ph, ps), "lm engines: plans differ")
+    require(not diff, f"lm engines: train state differs in {diff}")
+    require(any(row["hidden"]), "lm engines: kakurenbo hid nothing")
+    r = row["restart"]
+    require(not r["state_differs"] and r["last_loss"][0] == r["last_loss"][1],
+            f"lm restart: {r}")
+    return row
+
+
+def lm_step_breakdown(dev, arch: str, seq: int, full: bool = True) -> dict:
+    """One KAKURENBO train step of the example's trainer at batch 32 x
+    ``seq`` (eager, as the host loop runs it) under the profiler: device
+    time by group, the plain attention/scan backward and the optimizer
+    told apart by ``record_function`` ranges on the device's timeline
+    (and by CUDA events around them), busy vs wall."""
+    import numpy as np
+    import torch
+    from torch.profiler import record_function
+    from repro_torch.kernels import ops
+    tr = lm_example().make_trainer(arch, full=full, seq_len=seq,
+                                   num_samples=64, ckpt_dir=None, device=dev)
+    tr.lr_dev.fill_(float(tr.cfg.lr(0)))
+    batch = tr.to_device(tr.dataset.get(np.arange(32)))
+    idx = torch.arange(32, device=dev)
+
+    def step():
+        tr.train_step(tr.strategy.get_device_state(), batch, idx,
+                      tr.epoch_dev, tr.lr_dev)
+
+    events = collections.defaultdict(list)
+    timing = [False]
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with record_function(name):
+                if timing[0] and dev.type == "cuda":
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    out = fn(*a, **kw)
+                    end.record()
+                    events[name].append((start, end))
+                    return out
+                return fn(*a, **kw)
+        return call
+
+    with patched_attr(ops, "plain_grads", ranged("lm:plain_backward",
+                                                 ops.plain_grads)), \
+            patched_attr(tr.opt, "step", ranged("lm:optimizer", tr.opt.step)):
+        step()
+        sync(dev)
+        t0 = time.perf_counter()
+        step()
+        sync(dev)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        timing[0] = True
+        step()
+        sync(dev)
+        timing[0] = False
+        by_events = {k: sum(a.elapsed_time(b) for a, b in v)
+                     for k, v in events.items()}
+        prof, wall_ms, complete = profiled(step, step)
+    ranges = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name.startswith("lm:")]
+    groups, calls = collections.Counter(), collections.Counter()
+    spans = []
+    for e in device_events(prof):
+        a, b = e.time_range.start, e.time_range.end
+        group = kernel_group(e.name)
+        for name, lo, hi in ranges:
+            if lo <= a and b <= hi:
+                group = {"lm:plain_backward": "plain attention/scan backward",
+                         "lm:optimizer": "AdamW"}[name]
+        if group == "other":
+            group = "small kernels"
+        groups[group] += (b - a) / 1e3
+        calls[group] += 1
+        spans.append((a, b))
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    row = {"phase": "lm_step_profile", "arch": arch, "batch": [32, seq],
+           "step_ms": step_ms, "profiled_wall_ms": wall_ms,
+           # False: the trace lost device activities (three tries), so
+           # the groups below undercount.
+           "trace_complete": complete,
+           "device_busy_ms": busy / 1e3,
+           "device_kernels": sum(calls.values()),
+           "groups_ms": dict(groups), "groups_calls": dict(calls),
+           "device_ranges_found": sorted({r[0] for r in ranges}),
+           "ranges_ms_by_cuda_events": by_events}
+    emit(row)
+    del tr
+    return row
+
+
+def free_memory() -> None:
+    """Collect the last run's trainer (its graphs and pool) and return the
+    cached blocks to the card, so that each run starts from the same
+    memory."""
+    import gc
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def phase_lm_train(dev, full: bool = True) -> collections.Counter:
+    """LM training (``examples/torch_lm_train.py --full``; its kernels at
+    its shapes are checked in ``phase_kernels``): smollm-135m under
+    baseline, KAKURENBO ("sort") and KAKURENBO ("histogram_pallas" +
+    DropTop 0.02), mamba2-130m under KAKURENBO ("sort" + DropTop 0.02),
+    their launches counted from 0 just
+    before the four runs; then the gradient check, card vs CPU at 2
+    layers, host loop = scanned engine and restart, and one profiled step
+    of each arch at seq 32 and 512.  Returns the four runs' launches.
+    ``full=False`` rehearses it on the CPU at the reduced configs."""
+    from repro_torch.kernels import backend
+    t0 = time.perf_counter()
+    backend.reset_launches()
+    launches = collections.Counter()
+    for arch, strategy, selection, drop_top in (
+            ("smollm-135m", "baseline", "sort", 0.0),
+            ("smollm-135m", "kakurenbo", "sort", 0.0),
+            ("smollm-135m", "kakurenbo", "histogram_pallas", 0.02),
+            ("mamba2-130m", "kakurenbo", "sort", 0.02)):
+        _, got = lm_train_run(dev, arch, strategy, selection, drop_top, full)
+        launches.update(got)
+        free_memory()
+    require(launches == collections.Counter(backend.LAUNCHES),
+            "lm_train: launches outside the four runs")
+    for arch in ("smollm-135m", "mamba2-130m"):
+        lm_grad_check(dev, arch, full)
+        free_memory()
+    for arch in ("smollm-135m", "mamba2-130m"):
+        lm_card_vs_cpu(dev, arch, full=full)
+    lm_engines_restart(dev, full=full)
+    free_memory()
+    for arch in ("smollm-135m", "mamba2-130m"):
+        for seq in (32, 512):
+            lm_step_breakdown(dev, arch, seq, full)
+            free_memory()
+    emit({"phase": "lm_train_done", "seconds": time.perf_counter() - t0,
+          "launches": dict(launches)})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 #: Each TPU kernel's row: its port's source and the ``pallas_call`` site it
@@ -2696,7 +3241,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    main_rows = phase_kernels(dev)
+    main_rows, lm_rows = phase_kernels(dev)
     phase_plan(dev)
     launches = collections.Counter(phase_train(dev))
     launches.update(phase_table2(dev))
@@ -2710,6 +3255,7 @@ def main() -> int:
     phase_card_vs_cpu(dev)
     launches.update(phase_serve(dev, "mamba2-130m"))
     launches.update(phase_serve(dev, "smollm-135m"))
+    launches.update(phase_lm_train(dev))
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -2727,6 +3273,12 @@ def main() -> int:
                      "library_ms": r.get("library_ms"),
                      "library_backend": r.get("library_backend"),
                      "shape": r.get("shape") or [r["n"]]})
+        lm = lm_rows.get(name)
+        if lm is not None:
+            # The same kernel at the LM training path's shape.
+            rows[-1]["lm_path"] = {k: lm.get(k) for k in (
+                "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library_backend")}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     print(smi, flush=True)

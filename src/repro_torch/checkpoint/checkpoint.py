@@ -87,7 +87,7 @@ def copy_into(like: Any, tree: Any) -> None:
     numpy arrays) of ``like``, in place, path by path."""
     src = dict(flatten(tree))
     dst_leaves = flatten(like)
-    if [p for p, _ in dst_leaves] != sorted(src):
+    if sorted(p for p, _ in dst_leaves) != sorted(src):
         raise ValueError(f"tree structure differs: {sorted(src)} vs "
                          f"{[p for p, _ in dst_leaves]}")
     for path, dst in dst_leaves:

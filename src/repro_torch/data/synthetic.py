@@ -1,13 +1,16 @@
-"""Synthetic classification data with a controlled easy/hard split.
+"""Synthetic datasets with a controlled easy/hard split.
 
-A copy of ``repro/data/synthetic.py::SyntheticClassification`` (the port
-imports nothing of the JAX package).  It makes the same numpy RNG calls in
-the same order, so both packages see byte-identical samples for a seed.
+A copy of ``repro/data/synthetic.py`` (the port imports nothing of the JAX
+package).  It makes the same numpy RNG calls in the same order, so both
+packages see byte-identical samples for a seed.  Each sample has a
+difficulty in [0, 1]:
 
-Each sample has a difficulty in [0, 1]: class-template images plus noise
-whose magnitude grows with difficulty, so easy samples become confidently
-correct early (candidates for hiding) and hard ones keep a high loss.  A
-small label-noise fraction models an unlearnable tail (paper App. D).
+* ``SyntheticClassification`` — class-template images plus noise whose
+  magnitude grows with difficulty, so easy samples become confidently
+  correct early (candidates for hiding) and hard ones keep a high loss.  A
+  small label-noise fraction models an unlearnable tail (paper App. D).
+* ``SyntheticLM`` — token sequences mixing a deterministic k-gram source
+  with uniform noise tokens; the noise fraction is the difficulty.
 """
 from __future__ import annotations
 
@@ -68,4 +71,61 @@ class SyntheticClassification:
             num, self.num_classes, self.image_size, self.channels,
             self.easy_fraction, 0.0, self.seed + 10_000)
         ds.templates = self.templates
+        return ds
+
+
+@dataclasses.dataclass
+class SyntheticLM:
+    num_samples: int = 2048
+    seq_len: int = 128
+    vocab_size: int = 257
+    easy_fraction: float = 0.6
+    order: int = 3          # k-gram order of the deterministic source
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        n = self.num_samples
+        # deterministic k-gram transition table
+        self.table = rng.integers(
+            0, self.vocab_size, (self.vocab_size,) * self.order).astype(np.int32)
+        easy = rng.random(n) < self.easy_fraction
+        self.difficulty = np.where(
+            easy, rng.uniform(0.0, 0.15, n), rng.uniform(0.4, 0.9, n)
+        ).astype(np.float32)
+        self.sample_seed = rng.integers(0, 2**31, n)
+
+    def _gen_one(self, idx: int) -> np.ndarray:
+        r = np.random.default_rng(int(self.sample_seed[idx]))
+        s = self.seq_len + 1
+        seq = np.empty(s, np.int32)
+        seq[: self.order] = r.integers(0, self.vocab_size, self.order)
+        noise = r.random(s) < self.difficulty[idx]
+        for t in range(self.order, s):
+            if noise[t]:
+                seq[t] = r.integers(0, self.vocab_size)
+            else:
+                seq[t] = self.table[tuple(seq[t - self.order : t])]
+        return seq
+
+    def arrays(self, chunk: int = 4096) -> dict:
+        """The whole dataset as host arrays (see
+        ``SyntheticClassification.arrays``); each sequence depends only on
+        its own ``sample_seed``."""
+        return materialize(self.get, self.num_samples, chunk)
+
+    def get(self, indices: np.ndarray) -> dict:
+        """Host numpy batch: tokens (B, S) i32, labels (B, S) i32 (the
+        tokens shifted by one), mask (B, S) bool."""
+        seqs = np.stack([self._gen_one(int(i)) for i in indices])
+        return {
+            "tokens": seqs[:, :-1],
+            "labels": seqs[:, 1:].astype(np.int32),
+            "mask": np.ones((len(indices), self.seq_len), bool),
+        }
+
+    def test_split(self, num: int = 512) -> "SyntheticLM":
+        ds = SyntheticLM(num, self.seq_len, self.vocab_size,
+                         self.easy_fraction, self.order, self.seed + 10_000)
+        ds.table = self.table  # same source process, fresh samples
         return ds

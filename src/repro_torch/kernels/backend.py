@@ -175,6 +175,20 @@ def launch(entry: str, name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def refuse_grad(name: str, tensors: dict[str, torch.Tensor]) -> None:
+    """A kernel launch makes no autograd node: raise when grad mode is on
+    and an input requires a gradient, which the launch would drop silently
+    (the caller goes through the kernel's autograd Function in
+    ``kernels/ops.py``, or runs under ``torch.no_grad()``)."""
+    if torch.is_grad_enabled():
+        needs = [k for k, t in tensors.items() if t.requires_grad]
+        if needs:
+            raise RuntimeError(
+                f"{name}: {needs} require grad but the kernel launch has no "
+                "backward; call it through kernels/ops.py (its autograd "
+                "Function) or under torch.no_grad()")
+
+
 def check_cuda(name: str, tensors: dict[str, torch.Tensor],
                contiguous: bool = True) -> torch.device:
     """The common device/contiguity checks of a kernel wrapper: every tensor

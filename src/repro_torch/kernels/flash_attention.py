@@ -65,7 +65,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take ``flash_attention_plain``; CUDA tensors launch the
     kernel (float32 or bfloat16, all three of one type; D in
-    ``HEAD_DIMS``; any S) or raise.  The kernel reads q, k and v in place
+    ``HEAD_DIMS``; any S) or raise, and raise on an input that requires
+    grad in grad mode (the launch has no backward: ``ops.flash_attention``
+    carries the gradient).  The kernel reads q, k and v in place
     through their strides, so only their last dimension must be dense (on
     either device); the output is a new contiguous (B, S, Hq, D) tensor.
     """
@@ -73,6 +75,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors = {"q": q, "k": k, "v": v}
     if all(t.device.type == "cpu" for t in tensors.values()):
         return flash_attention_plain(q, k, v, causal)
+    backend.refuse_grad(NAME, tensors)
     dev = backend.check_cuda(NAME, tensors, contiguous=False)
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{NAME}: q, k and v must all be float32 or all "

@@ -80,12 +80,15 @@ def loss_confidence(logits: torch.Tensor, labels: torch.Tensor):
     """Kernel B1: ``(ce f32, correct bool, pmax f32)`` for (T, V) logits.
 
     A CPU tensor takes ``loss_confidence_plain``; a CUDA tensor launches the
-    kernel (f32 or bf16 logits, i32 labels, any T and V) or raises.  One
+    kernel (f32 or bf16 logits, i32 labels, any T and V) or raises (also on
+    logits that require grad in grad mode: ``ops.fused_loss_metrics``
+    carries the gradient).  One
     launch, three separate outputs (a caller may change any in place).
     """
     _check(NAME, logits, labels)
     if logits.is_cpu and labels.is_cpu:
         return loss_confidence_plain(logits, labels)
+    backend.refuse_grad(NAME, {"logits": logits})
     dev = backend.check_cuda(NAME, {"logits": logits, "labels": labels})
     entry = _entry(NAME, _FORWARD, logits, labels)
     t, v = logits.shape

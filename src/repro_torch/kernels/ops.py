@@ -8,6 +8,17 @@ no padding to a block grid: the kernels mask their ragged edges.
 ``fused_loss_metrics`` is the train hot path's entry point: the per-sample
 (ce, PA, PC) triple of paper Sec. 3.4 in one streaming pass, differentiable
 through ``ce`` by an analytic backward (``torch.autograd.Function``).
+
+``ssd_scan`` (B6) and ``flash_attention`` (B7) carry a gradient too.  The
+JAX package has no backward for either kernel: its trainer differentiates
+the plain forms (``ssd_scan_ref``, the jnp ``attend``).  So on CUDA tensors
+each goes through an autograd Function whose forward launches the kernel
+and whose backward recomputes the kernel's plain version from the saved
+inputs and returns its ``torch.autograd.grad``: the reference's gradient,
+beside the kernel's forward numerics (which the no-grad selection pass and
+the refresh see as well).  A kernel wrapper itself makes no autograd node
+and refuses inputs that need a gradient while grad mode is on
+(``backend.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -37,16 +48,80 @@ def rank_select(scores: torch.Tensor, k, high: bool = False) -> torch.Tensor:
     return _ts.rank_select_mask(scores, k, high=high)
 
 
+def plain_grads(plain, saved, needs_grad, grads) -> tuple:
+    """The gradient of ``plain(*saved)`` against the output cotangents
+    ``grads`` (None: that output has none), for each input whose
+    ``needs_grad`` is set (None for the others): ``plain`` recomputed under
+    ``torch.enable_grad()`` from detached copies of the saved inputs."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(bool(n))
+                  for t, n in zip(saved, needs_grad)]
+        outs = plain(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        wrt = [t for t in inputs if t.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                       [g for _, g in pairs],
+                                       allow_unused=True)
+                   if wrt and pairs else ())
+    return tuple(next(got, None) if n else None for n in needs_grad)
+
+
+class _SSDScan(torch.autograd.Function):
+    """Forward: kernel B6 (its plain version on the CPU).  Backward: the
+    gradient of ``ssd_scan_plain`` recomputed from the saved inputs (the
+    reference differentiates ``ssd_scan_ref``); ``chunk`` gets none."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, d_skip, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, a_log, b, c, d_skip)
+        # The final state's cotangent is None unless a caller uses it.
+        ctx.set_materialize_grads(False)
+        return _ssd.ssd_scan(x, dt, a_log, b, c, d_skip, chunk)
+
+    @staticmethod
+    def backward(ctx, g_y, g_state):
+        def plain(*t):
+            return _ssd.ssd_scan_plain(*t, ctx.chunk)
+
+        return (*plain_grads(plain, ctx.saved_tensors,
+                             ctx.needs_input_grad[:6], (g_y, g_state)), None)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: kernel B7 (its plain version on the CPU).  Backward: the
+    gradient of ``flash_attention_plain`` recomputed from the saved q, k
+    and v (the reference differentiates its jnp ``attend``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _fa.flash_attention(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        def plain(q, k, v):
+            return _fa.flash_attention_plain(q, k, v, ctx.causal)
+
+        return (*plain_grads(plain, ctx.saved_tensors,
+                             ctx.needs_input_grad[:3], (g,)), None)
+
+
 def ssd_scan(x, dt, a_log, b, c, d_skip, chunk: int = 128):
     """Same signature as ``models.ssm.ssd_scan_ref`` (the oracle).
 
     x: (B,S,NH,P); dt: (B,S,NH) raw (pre-softplus); b,c: (B,S,N).  Kernel
     B6 on CUDA tensors, which reads x, dt, b and c in place through their
     strides, b and c per batch (no broadcast to the heads), and masks a
-    ragged tail instead of padding it; its plain version on CPU ones.
+    ragged tail instead of padding it, differentiable through its plain
+    version (``_SSDScan``); on CPU ones the plain version under autograd.
     Returns y in x's dtype and the final state in float32.
     """
-    return _ssd.ssd_scan(x, dt, a_log, b, c, d_skip, chunk)
+    if x.device.type == "cpu":
+        return _ssd.ssd_scan(x, dt, a_log, b, c, d_skip, chunk)
+    return _SSDScan.apply(x, dt, a_log, b, c, d_skip, chunk)
 
 
 def flash_attention(q, k, v, causal: bool = True):
@@ -54,10 +129,13 @@ def flash_attention(q, k, v, causal: bool = True):
 
     Kernel B7 on CUDA tensors, which reads q, k and v in place through
     their strides (no transposes to a (B.H, S, D) layout) and masks a
-    ragged S instead of asserting a block multiple; its plain version, the
-    twin of ``ref.flash_attention_ref``, on CPU ones.
+    ragged S instead of asserting a block multiple, differentiable through
+    its plain version (``_FlashAttention``); on CPU ones the plain version,
+    the twin of ``ref.flash_attention_ref``, under autograd.
     """
-    return _fa.flash_attention(q, k, v, causal)
+    if q.device.type == "cpu":
+        return _fa.flash_attention(q, k, v, causal)
+    return _FlashAttention.apply(q, k, v, causal)
 
 
 class _FusedLossMetrics(torch.autograd.Function):

@@ -86,7 +86,8 @@ def ssd_scan(x, dt, a_log, b, c, d_skip, chunk: int):
 
     A CPU tensor takes ``ssd_scan_plain``; CUDA tensors launch the
     kernel's four steps (float32; N <= 128 and chunk <= 128, multiples of
-    4; P <= 64; any S) or raise, with their scratch (dt, cum, C.B^T per
+    4; P <= 64; any S) or raise (also on an input that requires grad in
+    grad mode: ``ops.ssd_scan`` carries the gradient), with their scratch (dt, cum, C.B^T per
     chunk, the chunk states: 50 MB at mamba2-130m's serve shape) allocated
     here.  The kernel reads x, dt, b and c through their strides, so
     views such as column slices of one activation need no copy; the last
@@ -106,6 +107,7 @@ def ssd_scan(x, dt, a_log, b, c, d_skip, chunk: int):
     tensors = {"x": x, **got}
     if all(t.device.type == "cpu" for t in tensors.values()):
         return ssd_scan_plain(x, dt, a_log, b, c, d_skip, chunk)
+    backend.refuse_grad(NAME, tensors)
     dev = backend.check_cuda(NAME, tensors, contiguous=False)
     for k, t in tensors.items():
         if t.dtype != torch.float32:

@@ -11,10 +11,15 @@ reference's:
 CUDA tensors with no sliding window in effect it goes through
 ``kernels/ops.flash_attention`` (kernel B7), on the CPU through the plain
 chunked form; a window is applied in plain PyTorch on every device, as it
-is plain jnp in the reference (B7 has no window).  ``decode_attend`` is
-plain PyTorch, as the reference's is plain jnp.  ``update_cache`` writes in
-place.  ``cross_attend`` (encdec) and ``decode_attend_sp`` (sequence-
-parallel, mesh) are not ported yet (ROADMAP A.13).
+is plain jnp in the reference (B7 has no window).  B7 carries a gradient:
+``ops.flash_attention`` is an autograd Function whose forward is the kernel
+and whose backward recomputes B7's plain version from the saved q, k and v
+and differentiates it, the gradient the reference takes through its jnp
+``attend``; training, the no-grad selection pass and the refresh all see
+the kernel's forward.  ``decode_attend`` is plain PyTorch, as the
+reference's is plain jnp.  ``update_cache`` writes in place.
+``cross_attend`` (encdec) and ``decode_attend_sp`` (sequence-parallel,
+mesh) are not ported yet (ROADMAP A.6 and A.8).
 """
 from __future__ import annotations
 

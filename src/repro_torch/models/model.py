@@ -1,20 +1,50 @@
 """Model facade: one API over the architecture families the port runs.
 
-Port of ``repro/models/model.py``: parameter construction, prefill/decode
-and caches for the server (the full forward is ``transformer.forward``;
-the LM trainer's loss comes with LM training, ROADMAP A.13).  The dense
-and SSM families are ported; building a model of another family raises
-``NotImplementedError`` (ROADMAP A.13).  A ``Model`` lives on one device:
-``device=None`` means CUDA and raises without a CUDA device.
+Port of ``repro/models/model.py``: parameter construction, the training
+loss (``loss_and_metrics``), prefill/decode and caches for the server.  The
+dense and SSM families are ported; building a model of another family
+raises ``NotImplementedError`` (ROADMAP A.6, the model zoo).  A ``Model``
+lives on one device: ``device=None`` means CUDA and raises without a CUDA
+device.
+
+``LM`` is the trainable form of the same model, an ``nn.Module`` for
+``train/trainer.py``: one parameter per leaf of every layer (not one
+stacked (L, ...) tensor per leaf, whose per-layer selects would each give
+back a whole (L, ...) zero gradient), with ``state_dict`` keys that name
+the reference tree's paths (``embed``, ``layers.3.attn.wq``, ...).
 """
 from __future__ import annotations
 
+from typing import Any
+
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.common import init_params
+
+
+def loss_and_metrics(cfg: ArchConfig, params: dict, batch: dict):
+    """Returns (scalar loss, (per-sample loss, PA, PC)): the mean of the
+    per-sequence losses, weighted by ``batch["weight"]`` when the batch
+    carries one.  The MoE router's aux term and the VLM's patch positions
+    belong to families the port does not run yet (ROADMAP A.6)."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE router's aux loss comes with the moe family "
+            "(ROADMAP A.6)")
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            f"{cfg.name}: dropping the patch positions comes with the vlm "
+            "family (ROADMAP A.6)")
+    logits, mask, _ = transformer.forward(cfg, params, batch)
+    loss, pa, pc = transformer.per_sample_metrics(cfg, logits, batch["labels"],
+                                                  mask)
+    w = batch.get("weight")
+    scalar = (loss * w).mean() if w is not None else loss.mean()
+    return scalar, (loss, pa, pc)
 
 
 class Model:
@@ -31,6 +61,9 @@ class Model:
         """Parameters drawn from ``generator``, on the model's device."""
         return init_params(self.param_defs(), generator, dtype, self.device)
 
+    def loss_and_metrics(self, params, batch: dict):
+        return loss_and_metrics(self.cfg, params, batch)
+
     def prefill(self, params, batch: dict, max_len: int | None = None):
         return transformer.prefill(self.cfg, params, batch, max_len)
 
@@ -45,3 +78,56 @@ class Model:
 def build_model(cfg: ArchConfig,
                 device: str | torch.device | None = None) -> Model:
     return Model(cfg, device)
+
+
+class _Tree(nn.Module):
+    """A nested dict of tensors as parameters (leaves) and submodules (dicts;
+    lists as ``ModuleList``s), ``tree()`` the same dict of the parameters."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _Tree(v))
+            elif isinstance(v, (list, tuple)):
+                self.add_module(k, nn.ModuleList(_Tree(t) for t in v))
+            else:
+                self.register_parameter(k, nn.Parameter(v.detach()))
+
+    def tree(self) -> dict:
+        out: dict[str, Any] = dict(self.named_parameters(recurse=False))
+        for k, m in self.named_children():
+            out[k] = ([t.tree() for t in m] if isinstance(m, nn.ModuleList)
+                      else m.tree())
+        return out
+
+
+class LM(_Tree):
+    """The LM as an ``nn.Module`` over ``params`` (a stacked tree from
+    ``Model.init`` or a per-layer one from ``transformer.params_from_jax(...,
+    unstack=True)``; stacked leaves are copied per layer, per-layer ones
+    taken as they are).  ``forward`` and ``loss_and_metrics`` take a batch
+    (``tokens``, ``labels``, ``mask``, optionally ``weight``); ``params()``
+    is the tree that ``Model.prefill``/``decode_step`` serve from."""
+
+    def __init__(self, cfg: ArchConfig, params: dict):
+        transformer.check_family(cfg)
+        super().__init__(transformer.unstack_layers(params))
+        self.cfg = cfg
+
+    @classmethod
+    def init(cls, cfg: ArchConfig, generator: torch.Generator,
+             device: str | torch.device | None = None,
+             dtype=torch.float32) -> "LM":
+        """``Model(cfg, device).init(generator)``'s draws as an ``LM``."""
+        return cls(cfg, Model(cfg, device).init(generator, dtype))
+
+    def params(self) -> dict:
+        return self.tree()
+
+    def forward(self, batch: dict):
+        """(logits, loss mask, moe aux = 0), as ``transformer.forward``."""
+        return transformer.forward(self.cfg, self.params(), batch)
+
+    def loss_and_metrics(self, batch: dict):
+        return loss_and_metrics(self.cfg, self.params(), batch)

@@ -7,7 +7,12 @@ Port of ``repro/models/ssm.py``.  The minimal SSD formulation (Dao & Gu
 computed chunk-parallel by ``kernels/ops.ssd_scan``: kernel B6 on the card,
 its plain version (``ssd_scan_ref`` here, the oracle's twin) on the CPU.
 The JAX block chooses between the two with ``use_kernel``; the port chooses
-by the device of the tensors, so on the card the plain scan never runs.
+by the device of the tensors, so on the card the plain scan never runs
+forward.  B6 carries a gradient: ``ops.ssd_scan`` is an autograd Function
+whose forward is the kernel and whose backward recomputes the plain scan
+from the saved inputs and differentiates it, the gradient the reference's
+trainer takes through ``ssd_scan_ref`` (to x, dt, B, C, ``a_log`` and
+``d_skip``, and through them to ``w_in`` and the conv).
 
 Single B/C group (n_groups = 1) as in mamba2-130m.  A depthwise causal conv
 of width ``conv_width`` over (x, B, C) precedes the scan, written as the

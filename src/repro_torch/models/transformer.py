@@ -4,11 +4,19 @@
 The parameter tree is the reference's: ``embed`` (V, d), ``out_norm``,
 ``lm_head`` unless tied, and ``layers``, every layer leaf stacked along a
 leading (L, ...) axis.  The reference's ``lax.scan`` over layers is a Python
-loop over that axis here.  Only ``cfg.family`` "dense" and "ssm" are
-ported; ``param_defs`` (and so ``Model``) raises ``NotImplementedError`` for
-the MoE, hybrid, encdec and VLM families (ROADMAP A.13), and the ring
-(sliding-window) cache waits for the hybrid family.  There is no
-``ParallelCtx``: the port runs on one device.
+loop over that axis here.  Every pass also takes ``layers`` as a list of L
+per-layer trees (``unstack_layers``), the layout of the trainable
+``models/model.py::LM``, whose layers are separate parameters.  Only
+``cfg.family`` "dense" and "ssm" are ported; ``param_defs`` (and so
+``Model``) raises ``NotImplementedError`` for the MoE, hybrid, encdec and
+VLM families (ROADMAP A.6), and the ring (sliding-window) cache waits for
+the hybrid family.  There is no ``ParallelCtx``: the port runs on one
+device.
+
+``token_metrics`` and ``per_sample_metrics`` are KAKURENBO's sequence-level
+signals (reference ``transformer.py:199-231``), the per-token triple from
+``kernels/ops.fused_loss_metrics``: kernel B1 forward and backward on the
+card, its plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -16,8 +24,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
@@ -30,7 +40,8 @@ def check_family(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP "
-            f"A.13); the port runs the families {PORTED_FAMILIES}")
+            f"A.6, the model zoo); the port runs the families "
+            f"{PORTED_FAMILIES}")
 
 
 def _d_inner(cfg: ArchConfig) -> int:
@@ -76,15 +87,44 @@ def _index(tree: Any, i: int) -> Any:
     return {k: _index(v, i) for k, v in tree.items()}
 
 
-def params_from_jax(np_params: Any, device: str | torch.device | None = None
-                    ) -> Any:
+def _layer(layers: Any, i: int) -> Any:
+    """Layer ``i``'s tree: an entry of a per-layer list, or views into a
+    stacked (L, ...) tree."""
+    return layers[i] if isinstance(layers, (list, tuple)) else _index(layers, i)
+
+
+def unstack_layers(params: dict) -> dict:
+    """``params`` with its stacked ``layers`` tree split into a list of L
+    per-layer trees, each leaf a copy with its own storage (a view of the
+    stacked tensor would keep the whole (L, ...) tensor as its base)."""
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        return params
+    leaf = layers
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return dict(params, layers=[
+        _map(lambda t: t.clone(), _index(layers, i))
+        for i in range(leaf.shape[0])])
+
+
+def _map(fn, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(np_params: Any, device: str | torch.device | None = None,
+                    unstack: bool = False) -> Any:
     """The port's parameter tree from the JAX LM's (a nested dict of numpy
     arrays, e.g. ``jax.tree.map(np.asarray, params)``): the same structure,
-    shapes and layout, as float32 tensors on ``device`` (None: CUDA)."""
+    shapes and layout, as float32 tensors on ``device`` (None: CUDA); with
+    ``unstack`` the layers as a list of per-layer trees (``unstack_layers``),
+    the layout ``model.LM`` takes."""
     dev = resolve_device(device)
-    if isinstance(np_params, dict):
-        return {k: params_from_jax(v, dev) for k, v in np_params.items()}
-    return torch.from_numpy(np.array(np_params, dtype=np.float32)).to(dev)
+    tree = _map(lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+                .to(dev), np_params)
+    return unstack_layers(tree) if unstack else tree
 
 
 # ---------------------------------------------------------------------------
@@ -96,7 +136,10 @@ def embed_inputs(cfg: ArchConfig, params: dict,
                  batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (x (B,S,d), loss_mask (B,S))."""
     tokens = batch["tokens"]
-    x = params["embed"][tokens.long()]
+    # F.embedding, not indexing: its backward sums each row's gradient in a
+    # fixed order on both devices (index_put_'s accumulate does not on the
+    # CPU), which the engines' and restart's bit-identity rest on.
+    x = F.embedding(tokens.long(), params["embed"])
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
@@ -152,9 +195,39 @@ def forward(cfg: ArchConfig, params: dict, batch: dict):
     x, mask = embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for i, flag in enumerate(global_layer_flags(cfg)):
-        x = _block(cfg, _index(params["layers"], i), x, positions, flag)
+        x = _block(cfg, _layer(params["layers"], i), x, positions, flag)
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
     return logits_fn(cfg, params, x), mask, torch.zeros((), device=x.device)
+
+
+def token_metrics(logits: torch.Tensor, labels: torch.Tensor):
+    """Per-token (ce, correct, pmax) of (..., V) logits, through
+    ``ops.fused_loss_metrics`` over the flattened rows: kernel B1 forward
+    (and its backward kernel for ce's gradient) on the card, its plain
+    version on the CPU.  ``correct`` is B1's ``gold >= max``; the
+    reference's ``argmax == label`` differs only where another logit ties
+    the gold one at the maximum (ROADMAP C)."""
+    v = logits.shape[-1]
+    ce, correct, pmax = kops.fused_loss_metrics(
+        logits.reshape(-1, v), labels.reshape(-1).to(torch.int32))
+    shape = labels.shape
+    return ce.reshape(shape), correct.reshape(shape), pmax.reshape(shape)
+
+
+def per_sample_metrics(cfg: ArchConfig, logits: torch.Tensor,
+                       labels: torch.Tensor, mask: torch.Tensor,
+                       pa_threshold: float = 0.5):
+    """Sequence-level (loss, PA, PC), KAKURENBO's importance signals: for
+    an LM a "sample" is a sequence; loss is the masked mean token CE, PC
+    the masked mean max softmax probability, PA token accuracy >=
+    ``pa_threshold``.  A row with no unmasked token divides by 1."""
+    ce, correct, pmax = token_metrics(logits, labels)
+    m = mask.to(torch.float32)
+    denom = torch.clamp(m.sum(dim=-1), min=1.0)
+    loss = (ce * m).sum(dim=-1) / denom
+    acc = (correct.to(torch.float32) * m).sum(dim=-1) / denom
+    pc = (pmax * m).sum(dim=-1) / denom
+    return loss, acc >= pa_threshold, pc
 
 
 # ---------------------------------------------------------------------------
@@ -213,12 +286,12 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor,
     The attention cache's k and v are written in place (the new cache
     holds the same tensors); the SSM family's state and conv buffer are
     new tensors, the old cache's are not modified."""
-    x = params["embed"][token.long()]
+    x = F.embedding(token.long(), params["embed"])
     n = cache["len"]
     layer_caches = {k: v for k, v in cache.items() if k != "len"}
     emitted: dict[str, list] = {}
     for i, flag in enumerate(global_layer_flags(cfg)):
-        x, new = _decode_block(cfg, _index(params["layers"], i), x,
+        x, new = _decode_block(cfg, _layer(params["layers"], i), x,
                                _index(layer_caches, i), n, flag)
         for k, t in new.items():
             emitted.setdefault(k, []).append(t)
@@ -240,7 +313,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict,
     positions = torch.arange(s, device=x.device)[None, :]
     states, bufs = [], []
     for i, flag in enumerate(global_layer_flags(cfg)):
-        p = _index(params["layers"], i)
+        p = _layer(params["layers"], i)
         if cfg.family == "ssm":
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
             y, st, cb = ssm_mod.ssm_forward(p["ssm"], h, cfg.ssm,

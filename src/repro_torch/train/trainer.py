@@ -175,9 +175,11 @@ def _fused_scoring_loss_fn(logits_fn: Callable) -> Callable:
 class Trainer:
     """Trains ``model`` on ``dataset`` under the configured strategy.
 
-    ``dataset.get(indices)`` yields host numpy arrays (``images`` (B, H, W,
-    C) f32, ``labels`` (B,) i32); the trainer copies each batch to
-    ``device``.  ``device=None`` means CUDA and raises without a CUDA device.
+    ``dataset.get(indices)`` yields a dict of host numpy arrays with the
+    batch first (the CNN's ``images`` (B, H, W, C) f32 and ``labels`` (B,)
+    i32; an LM's ``tokens``/``labels`` (B, S) i32 and ``mask`` (B, S)
+    bool); the trainer copies each batch to ``device``, or gathers its
+    rows there under the scanned engine.  ``device=None`` means CUDA and raises without a CUDA device.
     ``num_classes`` reaches the strategies that take it (Grad-Match's
     per-class OMP); ``feats_fn(model, batch) -> (B, d)`` gives the
     per-sample features Grad-Match selects from (``p - onehot(y)``).
