@@ -1,13 +1,14 @@
 """Architecture configuration schema of the model zoo.
 
 The port's own copy of ``repro/configs/base.py`` (``MoEConfig``,
-``SSMConfig``, ``ArchConfig`` with ``reduced()``): the same fields, defaults
-and reduction, so a config of either package describes the same model.
-Nothing here is imported from the JAX package.
+``SSMConfig``, ``ArchConfig`` with ``reduced()``, ``round_up``): the same
+fields, defaults and reduction, so a config of either package describes the
+same model.  Nothing here is imported from the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,3 +84,7 @@ class ArchConfig:
             encoder_input_dim=32 if self.encoder_input_dim else 0,
             num_patch_tokens=8 if self.num_patch_tokens else 0,
         )
+
+
+def round_up(x: int, m: int) -> int:
+    return int(math.ceil(x / m) * m)

@@ -28,7 +28,7 @@
 //   multiplied.  Rows of D + 4 floats put the fragment reads (K: row g,
 //   column q; V: row 2q, column g) in distinct banks.
 // - A warp keeps in registers its Q fragments (split into TF32 halves
-//   once, for D <= 64; at D = 128 they come from a shared tile), its
+//   once, for D <= 64; at D = 112 and 128 they come from a shared tile), its
 //   16 x 64 score tile, its 16 x D output accumulator O, m and l.
 // - S = Q K^T and P V are 3xTF32 MMAs.  Each tile's P V starts from zero
 //   and is folded into O by an FFMA (O alpha + P V), which rounds where the
@@ -45,7 +45,10 @@
 //   first tile, so m is finite from the first step).  Query tiles start
 //   longest first (blockIdx.y reversed).
 // Shared memory: 4 tiles of 64 x (D + 4) floats (K, V, two stages), 68 KB
-// at D = 64; at D = 128 a fifth for Q, 165 KB.
+// at D = 64; at D = 112 and 128 a fifth for Q, 145 and 165 KB.  A row of
+// D + 4 floats is 16-byte aligned for cp.async at every D, and at 112
+// (116 floats, 20 banks apart a row) the fragment reads stay in distinct
+// banks as at 128.
 //
 // Layout: q, k, v are (B, S, H, D), read in place through their strides
 // (only the last dimension must be dense; the JAX wrapper's transposes to
@@ -56,8 +59,8 @@
 // back with round to nearest even on the store), are copied by plain loads
 // and stores into the same two stages.  A ragged S is masked, not padded:
 // rows and keys past S load as zeros, keys past S score -1e30 and query
-// rows past S are never written.  D is 16, 32, 64 or 128 (a template
-// parameter; the wrapper checks it).
+// rows past S are never written.  D is 16, 32, 64, 112 (kimi-k2) or 128
+// (a template parameter; the wrapper checks it).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -298,7 +301,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int batch,
       flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  // cp.async needs 16-byte aligned rows of q (at D = 128), k and v.
+  // cp.async needs 16-byte aligned rows of q (at D > 64), k and v.
   const int async = std::is_same<T, float>::value &&
                     tf32x3::aligned16(k, {st.k_b, st.k_s, st.k_h}) &&
                     tf32x3::aligned16(v, {st.v_b, st.v_s, st.v_h}) &&
@@ -329,6 +332,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
       return launch_d<T, 32>(q, k, v, o, batch, seqlen, hq, hkv, causal, scale, st, cs);
     case 64:
       return launch_d<T, 64>(q, k, v, o, batch, seqlen, hq, hkv, causal, scale, st, cs);
+    case 112:
+      return launch_d<T, 112>(q, k, v, o, batch, seqlen, hq, hkv, causal, scale, st, cs);
     case 128:
       return launch_d<T, 128>(q, k, v, o, batch, seqlen, hq, hkv, causal, scale, st, cs);
     default:

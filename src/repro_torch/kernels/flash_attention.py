@@ -22,7 +22,7 @@ from repro_torch.kernels import backend
 
 NAME = "flash_attention"
 #: The head dimensions the kernel is built for (``csrc/flash_attention.cu``).
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 NEG_INF = -1e30
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}

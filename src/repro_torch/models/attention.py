@@ -11,15 +11,19 @@ reference's:
 CUDA tensors with no sliding window in effect it goes through
 ``kernels/ops.flash_attention`` (kernel B7), on the CPU through the plain
 chunked form; a window is applied in plain PyTorch on every device, as it
-is plain jnp in the reference (B7 has no window).  B7 carries a gradient:
+is plain jnp in the reference (B7 has no window).  A window is in effect
+only in a layer that is not global and over a sequence longer than the
+window: with S <= window every (query, key) pair lies inside it, and the
+windowed mask is the unwindowed one.  B7 carries a gradient:
 ``ops.flash_attention`` is an autograd Function whose forward is the kernel
 and whose backward recomputes B7's plain version from the saved q, k and v
 and differentiates it, the gradient the reference takes through its jnp
 ``attend``; training, the no-grad selection pass and the refresh all see
 the kernel's forward.  ``decode_attend`` is plain PyTorch, as the
-reference's is plain jnp.  ``update_cache`` writes in place.
+reference's is plain jnp.  ``update_cache`` writes in place (a ring cache's
+index wrapped by the caller, ``models/transformer.py``).
 ``cross_attend`` (encdec) and ``decode_attend_sp`` (sequence-parallel,
-mesh) are not ported yet (ROADMAP A.6 and A.8).
+mesh) are not ported yet (ROADMAP A.6(d) and A.8).
 """
 from __future__ import annotations
 
@@ -77,17 +81,17 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            is_global: bool = True, q_chunk: int = 512) -> torch.Tensor:
     """Full-sequence attention.
 
-    ``window``: sliding-window size, applied unless ``is_global``.  Without
-    a window in effect, CUDA tensors go through kernel B7
-    (``ops.flash_attention``).  Otherwise, and on the CPU, the reference's
-    form: queries in chunks of ``q_chunk`` when S is a multiple of it
-    (so the CPU never holds an S x S score tensor at S = 2,048), each
-    chunk's masked scores through a float32 softmax.
+    ``window``: sliding-window size, applied unless ``is_global`` or S <=
+    ``window`` (where it masks nothing).  Without a window in effect, CUDA
+    tensors go through kernel B7 (``ops.flash_attention``).  Otherwise, and
+    on the CPU, the reference's form: queries in chunks of ``q_chunk`` when
+    S is a multiple of it (so the CPU never holds an S x S score tensor at
+    S = 2,048), each chunk's masked scores through a float32 softmax.
     """
-    use_window = window is not None and not bool(is_global)
+    b, s, hq, dh = q.shape
+    use_window = window is not None and not bool(is_global) and s > window
     if q.device.type == "cuda" and not use_window:
         return kops.flash_attention(q, k, v, causal)
-    b, s, hq, dh = q.shape
     hkv = k.shape[2]
     scale = dh ** -0.5
     q5 = q.reshape(b, s, hkv, hq // hkv, dh)

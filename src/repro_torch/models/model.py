@@ -2,10 +2,10 @@
 
 Port of ``repro/models/model.py``: parameter construction, the training
 loss (``loss_and_metrics``), prefill/decode and caches for the server.  The
-dense and SSM families are ported; building a model of another family
-raises ``NotImplementedError`` (ROADMAP A.6, the model zoo).  A ``Model``
-lives on one device: ``device=None`` means CUDA and raises without a CUDA
-device.
+decoder-only families (dense, MoE, SSM, hybrid, VLM) are ported; building
+an encoder-decoder model raises ``NotImplementedError`` (ROADMAP A.6(d)).
+A ``Model`` lives on one device: ``device=None`` means CUDA and raises
+without a CUDA device.
 
 ``LM`` is the trainable form of the same model, an ``nn.Module`` for
 ``train/trainer.py``: one parameter per leaf of every layer (not one
@@ -29,21 +29,19 @@ from repro_torch.models.common import init_params
 def loss_and_metrics(cfg: ArchConfig, params: dict, batch: dict):
     """Returns (scalar loss, (per-sample loss, PA, PC)): the mean of the
     per-sequence losses, weighted by ``batch["weight"]`` when the batch
-    carries one.  The MoE router's aux term and the VLM's patch positions
-    belong to families the port does not run yet (ROADMAP A.6)."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE router's aux loss comes with the moe family "
-            "(ROADMAP A.6)")
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: dropping the patch positions comes with the vlm "
-            "family (ROADMAP A.6)")
-    logits, mask, _ = transformer.forward(cfg, params, batch)
-    loss, pa, pc = transformer.per_sample_metrics(cfg, logits, batch["labels"],
-                                                  mask)
+    carries one, plus ``router_aux_weight`` times the summed aux term for
+    an MoE.  The VLM's patch positions (logits longer than the labels) are
+    dropped before the metrics."""
+    logits, mask, aux = transformer.forward(cfg, params, batch)
+    labels = batch["labels"]
+    if cfg.family == "vlm" and logits.shape[1] != labels.shape[1]:
+        logits = logits[:, -labels.shape[1]:]
+        mask = mask[:, -labels.shape[1]:]
+    loss, pa, pc = transformer.per_sample_metrics(cfg, logits, labels, mask)
     w = batch.get("weight")
     scalar = (loss * w).mean() if w is not None else loss.mean()
+    if cfg.moe is not None:
+        scalar = scalar + cfg.moe.router_aux_weight * aux
     return scalar, (loss, pa, pc)
 
 
@@ -70,9 +68,10 @@ class Model:
     def decode_step(self, params, token, cache):
         return transformer.decode_step(self.cfg, params, token, cache)
 
-    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   ring: bool = False):
         return transformer.init_cache(self.cfg, batch, max_len, dtype,
-                                      self.device)
+                                      self.device, ring=ring)
 
 
 def build_model(cfg: ArchConfig,
@@ -126,7 +125,7 @@ class LM(_Tree):
         return self.tree()
 
     def forward(self, batch: dict):
-        """(logits, loss mask, moe aux = 0), as ``transformer.forward``."""
+        """(logits, loss mask, moe aux), as ``transformer.forward``."""
         return transformer.forward(self.cfg, self.params(), batch)
 
     def loss_and_metrics(self, batch: dict):

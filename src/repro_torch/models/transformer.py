@@ -1,17 +1,34 @@
-"""Decoder-only LM: the dense (llama-style GQA) and SSM (mamba2) families of
+"""Decoder-only LM: the dense, MoE, SSM, hybrid and VLM families of
 ``repro/models/transformer.py``.
 
 The parameter tree is the reference's: ``embed`` (V, d), ``out_norm``,
-``lm_head`` unless tied, and ``layers``, every layer leaf stacked along a
-leading (L, ...) axis.  The reference's ``lax.scan`` over layers is a Python
-loop over that axis here.  Every pass also takes ``layers`` as a list of L
-per-layer trees (``unstack_layers``), the layout of the trainable
-``models/model.py::LM``, whose layers are separate parameters.  Only
-``cfg.family`` "dense" and "ssm" are ported; ``param_defs`` (and so
-``Model``) raises ``NotImplementedError`` for the MoE, hybrid, encdec and
-VLM families (ROADMAP A.6), and the ring (sliding-window) cache waits for
-the hybrid family.  There is no ``ParallelCtx``: the port runs on one
-device.
+``lm_head`` unless tied, ``mm_proj`` for the VLM, and ``layers``, every
+layer leaf stacked along a leading (L, ...) axis.  The reference's
+``lax.scan`` over layers is a Python loop over that axis here.  Every pass
+also takes ``layers`` as a list of L per-layer trees (``unstack_layers``),
+the layout of the trainable ``models/model.py::LM``, whose layers are
+separate parameters.  A layer by family, as the reference's ``_block``:
+
+- dense and vlm: attention, then the gated MLP, each with its residual;
+- moe: attention, then ``models/moe.py::moe_ffn``, whose load-balancing
+  terms ``forward`` sums over the layers in float32, in layer order;
+- ssm: the mamba2 block alone;
+- hybrid (hymba): attention and the SSM block on the same normed input,
+  mean-fused (``x + 0.5 (a + s)``), then the MLP; sliding-window attention
+  except in the first, middle and last layers.
+
+The VLM prepends its projected patch embeddings (``patch_embeds @
+mm_proj``) to the text, their loss mask false.  The ``encdec`` family
+(seamless-m4t) waits for ``models/encdec.py`` (ROADMAP A.6(d)):
+``param_defs`` (and so ``Model``) raises ``NotImplementedError`` for it.
+There is no ``ParallelCtx``: the port runs on one device.
+
+Serving: ``init_cache`` gives stacked (L, ...) caches, a ring buffer of
+``attn_window`` slots with ``ring=True``.  As in the reference, a decode
+step treats any attention cache no longer than the window as a ring (its
+write index wraps, every slot written is attended, the layer's window
+flag ignored): ``init_cache(ring=True)``'s, and a flat cache whose prompt
+and generation fit in the window.
 
 ``token_metrics`` and ``per_sample_metrics`` are KAKURENBO's sequence-level
 signals (reference ``transformer.py:199-231``), the per-token triple from
@@ -30,17 +47,20 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamDef, gated_mlp, rms_norm, stack_defs
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+#: The CLIP-style frontend stub's output width (llava's projector input).
+VLM_PATCH_DIM = 1024
 
 
 def check_family(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP "
-            f"A.6, the model zoo); the port runs the families "
+            f"A.6(d), models/encdec.py); the port runs the families "
             f"{PORTED_FAMILIES}")
 
 
@@ -56,13 +76,16 @@ def _mlp_defs(d: int, ff: int) -> dict:
 def _block_defs(cfg: ArchConfig) -> dict:
     d = cfg.d_model
     defs: dict[str, Any] = {"ln1": ParamDef((d,), init="ones")}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "hybrid", "vlm"):
         defs["attn"] = attn.attn_param_defs(
             d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
             cfg.qk_norm)
         defs["ln2"] = ParamDef((d,), init="ones")
+    if cfg.family == "moe":
+        defs["moe"] = moe_mod.moe_param_defs(d, cfg.moe)
+    elif cfg.family in ("dense", "vlm", "hybrid"):
         defs["mlp"] = _mlp_defs(d, cfg.d_ff)
-    else:
+    if cfg.family in ("ssm", "hybrid"):
         defs["ssm"] = ssm_mod.ssm_param_defs(d, cfg.ssm, _d_inner(cfg))
     return defs
 
@@ -77,6 +100,8 @@ def param_defs(cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, v))
+    if cfg.family == "vlm":
+        defs["mm_proj"] = ParamDef((VLM_PATCH_DIM, d))
     return defs
 
 
@@ -134,7 +159,9 @@ def params_from_jax(np_params: Any, device: str | torch.device | None = None,
 
 def embed_inputs(cfg: ArchConfig, params: dict,
                  batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x (B,S,d), loss_mask (B,S))."""
+    """Returns (x (B,S,d), loss_mask (B,S)); for the VLM, with
+    ``patch_embeds`` in the batch, S counts the patch positions in front of
+    the text, their mask rows false."""
     tokens = batch["tokens"]
     # F.embedding, not indexing: its backward sums each row's gradient in a
     # fixed order on both devices (index_put_'s accumulate does not on the
@@ -143,36 +170,62 @@ def embed_inputs(cfg: ArchConfig, params: dict,
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype) @ params["mm_proj"].to(x.dtype)
+        x = torch.cat([pe, x], dim=1)
+        mask = torch.cat([torch.zeros(pe.shape[:2], dtype=torch.bool,
+                                      device=mask.device), mask], dim=1)
     return x, mask
 
 
-def _mlp_residual(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + gated_mlp(h2, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                         p["mlp"]["w_down"])
-
-
-def _dense_block(cfg: ArchConfig, p: dict, x: torch.Tensor,
-                 positions: torch.Tensor, is_global: bool):
-    """One dense layer: attention, then the gated MLP, each with its
-    residual.  Returns (x, k, v); prefill writes k and v into the cache."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+def _attention(cfg: ArchConfig, p: dict, h: torch.Tensor,
+               positions: torch.Tensor, is_global: bool):
+    """Self-attention of the normed ``h``: (the output projection, k, v)."""
     q, k, v = attn.project_qkv(p["attn"], h, positions, cfg.rope_theta,
                                cfg.qk_norm, cfg.norm_eps)
     a = attn.attend(q, k, v, causal=True, window=cfg.attn_window,
                     is_global=is_global)
-    x = x + attn.out_proj(a, p["attn"]["wo"])
-    return _mlp_residual(cfg, p, x), k, v
+    return attn.out_proj(a, p["attn"]["wo"]), k, v
+
+
+def _ffn_residual(cfg: ArchConfig, p: dict, x: torch.Tensor):
+    """The second half of a layer: (x + FFN(norm(x)), the MoE's aux term or
+    None)."""
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        y, aux = moe_mod.moe_ffn(p["moe"], h2, cfg.moe)
+        return x + y, aux
+    return x + gated_mlp(h2, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                         p["mlp"]["w_down"]), None
+
+
+def _ssm(cfg: ArchConfig, p: dict, h: torch.Tensor, state: bool):
+    return ssm_mod.ssm_forward(p["ssm"], h, cfg.ssm, _d_inner(cfg),
+                               cfg.norm_eps, return_state=state)
 
 
 def _block(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
-           is_global: bool) -> torch.Tensor:
-    """One layer of the full forward."""
+           is_global: bool, state: bool = False):
+    """One layer.  Returns (x, the MoE's aux term or None, emitted): with
+    ``state``, ``emitted`` holds what prefill writes into the cache (k and
+    v, the SSM's final state and conv buffer)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    emit: dict[str, torch.Tensor] = {}
     if cfg.family == "ssm":
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        return x + ssm_mod.ssm_forward(p["ssm"], h, cfg.ssm, _d_inner(cfg),
-                                       cfg.norm_eps)
-    return _dense_block(cfg, p, x, positions, is_global)[0]
+        y = _ssm(cfg, p, h, state)
+        if state:
+            y, emit["ssm_state"], emit["conv_buf"] = y
+        return x + y, None, emit
+    a, emit["k"], emit["v"] = _attention(cfg, p, h, positions, is_global)
+    if cfg.family == "hybrid":
+        y = _ssm(cfg, p, h, state)
+        if state:
+            y, emit["ssm_state"], emit["conv_buf"] = y
+        x = x + 0.5 * (a + y)            # hymba: mean-fused parallel heads
+    else:
+        x = x + a
+    x, aux = _ffn_residual(cfg, p, x)
+    return x, aux, emit
 
 
 def global_layer_flags(cfg: ArchConfig) -> list[bool]:
@@ -191,13 +244,19 @@ def logits_fn(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict):
-    """Full forward. Returns (logits, loss_mask, moe_aux = 0)."""
+    """Full forward. Returns (logits, loss_mask, moe_aux): the MoE layers'
+    aux terms summed in float32 from 0, in layer order (0 for the other
+    families)."""
+    check_family(cfg)
     x, mask = embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, flag in enumerate(global_layer_flags(cfg)):
-        x = _block(cfg, _layer(params["layers"], i), x, positions, flag)
+        x, a, _ = _block(cfg, _layer(params["layers"], i), x, positions, flag)
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
-    return logits_fn(cfg, params, x), mask, torch.zeros((), device=x.device)
+    return logits_fn(cfg, params, x), mask, aux
 
 
 def token_metrics(logits: torch.Tensor, labels: torch.Tensor):
@@ -237,18 +296,27 @@ def per_sample_metrics(cfg: ArchConfig, logits: torch.Tensor,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str | None = None) -> dict:
+               device: torch.device | str | None = None,
+               ring: bool = False) -> dict:
     """Stacked (L, ...) zero caches on ``device`` (None: CUDA): k and v of
-    (L, B, max_len, Hkv, Dh) for attention, the SSM state (f32) and the
-    conv buffer for the SSM family."""
+    (L, B, S_cache, Hkv, Dh) for attention, the SSM state (f32) and the
+    conv buffer for the SSM and hybrid families.  S_cache is ``max_len``,
+    or with ``ring`` (long-context serving of a windowed arch) at most
+    ``attn_window``: a ring buffer, every layer attending its window."""
     dev = resolve_device(device)
     L = cfg.num_layers
     cache: dict[str, Any] = {"len": 0}
-    if cfg.family == "dense":
-        shape = (L, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if cfg.family != "ssm" and cfg.num_heads:
+        s_cache = max_len
+        if ring:
+            if cfg.attn_window is None:
+                raise ValueError(f"{cfg.name}: a ring cache needs a window "
+                                 "(attn_window is None)")
+            s_cache = min(max_len, cfg.attn_window)
+        shape = (L, batch, s_cache, cfg.num_kv_heads, cfg.resolved_head_dim)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
-    else:
+    if cfg.family in ("ssm", "hybrid"):
         one = ssm_mod.ssm_init_cache(batch, cfg.ssm, _d_inner(cfg), dtype, dev)
         cache["ssm_state"] = one["state"].expand(L, *one["state"].shape).clone()
         cache["conv_buf"] = one["conv_buf"].expand(
@@ -256,27 +324,44 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     return cache
 
 
+def _ssm_step(cfg: ArchConfig, p: dict, h: torch.Tensor, layer_cache: dict):
+    y, sc = ssm_mod.ssm_decode_step(
+        p["ssm"], h, {"state": layer_cache["ssm_state"],
+                      "conv_buf": layer_cache["conv_buf"]},
+        cfg.ssm, _d_inner(cfg), cfg.norm_eps)
+    return y, {"ssm_state": sc["state"], "conv_buf": sc["conv_buf"]}
+
+
 def _decode_block(cfg: ArchConfig, p: dict, x: torch.Tensor, layer_cache: dict,
                   cache_len: int, is_global: bool) -> tuple[torch.Tensor, dict]:
     """One layer of one decode step.  Writes k and v into ``layer_cache``'s
-    (views of the stacked cache) in place; returns (x, the SSM family's new
-    state and conv buffer, or nothing)."""
+    (views of the stacked cache) in place; returns (x, the SSM's new state
+    and conv buffer, or nothing)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
-        y, sc = ssm_mod.ssm_decode_step(
-            p["ssm"], h, {"state": layer_cache["ssm_state"],
-                          "conv_buf": layer_cache["conv_buf"]},
-            cfg.ssm, _d_inner(cfg), cfg.norm_eps)
-        return x + y, {"ssm_state": sc["state"], "conv_buf": sc["conv_buf"]}
+        y, new = _ssm_step(cfg, p, h, layer_cache)
+        return x + y, new
     positions = torch.full((x.shape[0], 1), cache_len, device=x.device)
     q, k, v = attn.project_qkv(p["attn"], h, positions, cfg.rope_theta,
                                cfg.qk_norm, cfg.norm_eps)
+    s_cache = layer_cache["k"].shape[1]
+    ring = cfg.attn_window is not None and s_cache <= cfg.attn_window
     kc, vc = attn.update_cache(layer_cache["k"], layer_cache["v"], k, v,
-                               cache_len)
-    a = attn.decode_attend(q, kc, vc, cache_len + 1, window=cfg.attn_window,
-                           is_global=is_global)
-    x = x + attn.out_proj(a, p["attn"]["wo"])
-    return _mlp_residual(cfg, p, x), {}
+                               cache_len % s_cache if ring else cache_len)
+    if ring:
+        # Every slot written lies inside the window: mask only the unwritten.
+        a = attn.decode_attend(q, kc, vc, min(cache_len + 1, s_cache))
+    else:
+        a = attn.decode_attend(q, kc, vc, cache_len + 1,
+                               window=cfg.attn_window, is_global=is_global)
+    a = attn.out_proj(a, p["attn"]["wo"])
+    new: dict[str, torch.Tensor] = {}
+    if cfg.family == "hybrid":
+        y, new = _ssm_step(cfg, p, h, layer_cache)
+        x = x + 0.5 * (a + y)
+    else:
+        x = x + a
+    return _ffn_residual(cfg, p, x)[0], new
 
 
 def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor,
@@ -284,8 +369,8 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor,
     """One decode step. token: (B, 1). Returns (logits (B,1,V), new cache).
 
     The attention cache's k and v are written in place (the new cache
-    holds the same tensors); the SSM family's state and conv buffer are
-    new tensors, the old cache's are not modified."""
+    holds the same tensors); the SSM state and conv buffer are new
+    tensors, the old cache's are not modified."""
     x = F.embedding(token.long(), params["embed"])
     n = cache["len"]
     layer_caches = {k: v for k, v in cache.items() if k != "len"}
@@ -305,7 +390,8 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor,
 def prefill(cfg: ArchConfig, params: dict, batch: dict,
             max_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Prefill: run the full prompt, return last-position logits + cache.
-    The cache holds x's dtype, as the reference's."""
+    The cache holds x's dtype, as the reference's, and covers the VLM's
+    patch positions; the MoE layers' aux terms are dropped."""
     x, _ = embed_inputs(cfg, params, batch)
     b, s = x.shape[0], x.shape[1]
     cache = init_cache(cfg, b, max(max_len or s, s), dtype=x.dtype,
@@ -313,19 +399,14 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict,
     positions = torch.arange(s, device=x.device)[None, :]
     states, bufs = [], []
     for i, flag in enumerate(global_layer_flags(cfg)):
-        p = _layer(params["layers"], i)
-        if cfg.family == "ssm":
-            h = rms_norm(x, p["ln1"], cfg.norm_eps)
-            y, st, cb = ssm_mod.ssm_forward(p["ssm"], h, cfg.ssm,
-                                            _d_inner(cfg), cfg.norm_eps,
-                                            return_state=True)
-            x = x + y
-            states.append(st)
-            bufs.append(cb)
-        else:
-            x, k, v = _dense_block(cfg, p, x, positions, flag)
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+        x, _, emit = _block(cfg, _layer(params["layers"], i), x, positions,
+                            flag, state=True)
+        if "k" in emit:
+            cache["k"][i, :, :s] = emit["k"]
+            cache["v"][i, :, :s] = emit["v"]
+        if "ssm_state" in emit:
+            states.append(emit["ssm_state"])
+            bufs.append(emit["conv_buf"])
     if states:
         cache["ssm_state"] = torch.stack(states)
         cache["conv_buf"] = torch.stack(bufs).to(cache["conv_buf"].dtype)

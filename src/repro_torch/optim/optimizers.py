@@ -108,6 +108,28 @@ def _zeros(params, dtype=None) -> list[torch.Tensor]:
             for p in params]
 
 
+#: An update's temporaries (AdamW's: two tensors the size of the
+#: parameters it updates) are bounded by running it over groups of
+#: parameters of at most this many bytes; a model under it is one group.
+GROUP_BYTES = 1 << 30
+
+
+def _groups(tensors, limit: int) -> list[list[int]]:
+    """Consecutive positions of ``tensors`` in groups of at most ``limit``
+    bytes (a larger tensor alone)."""
+    out: list[list[int]] = []
+    size = 0
+    for i, t in enumerate(tensors):
+        n = t.numel() * t.element_size()
+        if out and size + n <= limit:
+            out[-1].append(i)
+            size += n
+        else:
+            out.append([i])
+            size = n
+    return out
+
+
 def _step_count(params) -> torch.Tensor:
     dev = params[0].device if params else torch.device("cpu")
     return torch.zeros((), dtype=torch.int32, device=dev)
@@ -166,24 +188,29 @@ class AdamW(_Optimizer):
                        "t": _step_count(self.params)}
 
     def _update(self, params, grads, idx, lr) -> None:
-        s, b1, b2 = self._state, self.b1, self.b2
-        m = [s["m"][i] for i in idx]
-        v = [s["v"][i] for i in idx]
+        s = self._state
         t = s["t"]
         t.add_(1)
         tf = t.to(torch.float32)
-        bc1 = 1.0 - torch.pow(b1, tf)
-        bc2 = 1.0 - torch.pow(b2, tf)
+        bc1 = 1.0 - torch.pow(self.b1, tf)
+        bc2 = 1.0 - torch.pow(self.b2, tf)
+        for group in _groups(params, GROUP_BYTES):
+            self._adam([params[j] for j in group], [grads[j] for j in group],
+                       [s["m"][idx[j]] for j in group],
+                       [s["v"][idx[j]] for j in group], bc1, bc2, lr)
+
+    def _adam(self, params, grads, m, v, bc1, bc2, lr) -> None:
+        b1, b2 = self.b1, self.b2
         torch._foreach_mul_(m, b1)
         torch._foreach_add_(m, grads, alpha=1.0 - b1)
         torch._foreach_mul_(v, b2)
         torch._foreach_add_(v, torch._foreach_mul(grads, grads), alpha=1.0 - b2)
         # ``.float()`` is the tensor itself in float32: no copy, no launch.
-        denom = torch._foreach_sqrt(torch._foreach_div([x.float() for x in v],
-                                                       bc2))
+        denom = torch._foreach_div([x.float() for x in v], bc2)
+        torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(torch._foreach_div([x.float() for x in m],
-                                                    bc1), denom)
+        upd = torch._foreach_div([x.float() for x in m], bc1)
+        torch._foreach_div_(upd, denom)
         pf = [p.float() for p in params]
         if self.weight_decay:
             torch._foreach_add_(upd, pf, alpha=self.weight_decay)

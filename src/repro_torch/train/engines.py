@@ -198,8 +198,9 @@ class ScanEpochEngine:
     as CUDA graphs on a CUDA device."""
 
     name = "scan"
-    #: Eager blocks run on the capture stream before each capture, as a
-    #: whole-network capture needs (library handles, workspaces, autograd).
+    #: Eager blocks run on the capture stream before the engine's first
+    #: capture (of a weighted or an unweighted block), as a whole-network
+    #: capture needs (library handles, workspaces, autograd).
     WARMUP_BLOCKS = 2
 
     def __init__(self, trainer):
@@ -268,7 +269,10 @@ class ScanEpochEngine:
 
     @torch.no_grad()
     def _snapshot(self) -> list[torch.Tensor]:
-        return [t.clone() for t in self._train_state()]
+        """A copy of the train state in host memory.  The copy waits for
+        the state's last writer, and host memory has room for a model near
+        the card's size, whose warm-up blocks need the card's room."""
+        return [t.to("cpu", copy=True) for t in self._train_state()]
 
     @torch.no_grad()
     def _restore(self, saved: list[torch.Tensor]) -> None:
@@ -284,20 +288,29 @@ class ScanEpochEngine:
         return tuple(t.data_ptr() for t in held)
 
     def _capture(self, size: int, weighted: bool) -> _Captured:
-        """Capture a ``size``-step block: eager warm-up blocks on the
-        capture stream with the train state restored after them, then the
-        capture itself."""
+        """Capture a ``size``-step block: before the engine's first capture
+        of its kind, eager warm-up blocks on the capture stream with the
+        train state restored after them; then the capture itself.  A later
+        capture runs the same step (another number of times) on the same
+        stream, whose handles and workspaces that warm-up made: it needs
+        none, and a large model's state is not copied again."""
         tr, dev = self.tr, self.tr.device
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
         side, main = self._stream, torch.cuda.current_stream(dev)
-        saved = self._snapshot()
+        warm = not any(w == weighted for _, w in self._graphs)
+        # The snapshot comes before the side stream joins the main one, so
+        # that no warm-up write can overtake it.
+        saved = self._snapshot() if warm else None
         side.wait_stream(main)
-        with torch.cuda.stream(side):
-            for _ in range(self.WARMUP_BLOCKS):
-                self._block(size, weighted)
-        main.wait_stream(side)
-        self._restore(saved)
+        if warm:
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP_BLOCKS):
+                    self._block(size, weighted)
+            main.wait_stream(side)
+            self._restore(saved)
+            del saved
+            side.wait_stream(main)
         tr.opt.zero_grad()
         graph = torch.cuda.CUDAGraph()
         counted = collections.Counter(backend.LAUNCHES)

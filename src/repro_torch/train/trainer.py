@@ -52,7 +52,6 @@ later slices: the mesh and gradient compression.
 from __future__ import annotations
 
 import contextlib
-import copy
 import dataclasses
 import inspect
 import logging
@@ -211,8 +210,11 @@ class Trainer:
         self._validate()
         self.model = model.to(self.device)
         # FORGET restarts from the initial weights, as the reference re-inits
-        # from the same key: keep a copy of them (checkpointed too).
-        self._init_weights = copy.deepcopy(self.model.state_dict())
+        # from the same key: keep a copy of them (checkpointed too), in host
+        # memory (read only at that restart and by checkpoints; a model
+        # near the card's size has no room for a second copy there).
+        self._init_weights = {k: v.detach().to("cpu", copy=True)
+                              for k, v in self.model.state_dict().items()}
         self.opt = make_optimizer(cfg.optimizer, self.model.parameters(),
                                   **cfg.optimizer_hp)
         # The step reads the LR and the epoch from the device (fill_ before

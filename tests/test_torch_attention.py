@@ -10,7 +10,9 @@ plain version there).  Here, on inputs made from a seed with numpy:
   not, float32 (1e-5) and bfloat16 (2e-2), its own tolerances; and at a
   ragged S against ``flash_attention_ref``, which takes any S;
 - the wrapper's checks (mixed devices, ranks, GQA ratio, a last dimension
-  that is not dense), which hold on every device;
+  that is not dense), which hold on every device, and its head-dim check
+  on the way to a launch (D = 112, kimi-k2's, launches; D = 96 raises),
+  with the device check and the launch stood in for;
 - ``rope``, ``gated_mlp``, ``project_qkv`` (qk_norm on and off),
   ``attend`` (S above, at and below ``q_chunk``, with a window and
   ``is_global`` both ways), ``decode_attend`` against their JAX counterparts within 1e-5,
@@ -98,6 +100,36 @@ def test_flash_attention_wrapper_checks():
     wide = torch.randn(1, 16, 2, 32)
     with pytest.raises(ValueError, match="dense"):
         tfa.flash_attention(q, wide[..., ::2], v)
+
+
+def test_flash_attention_head_dims(monkeypatch):
+    """Kimi-k2's head_dim of 112 is one the kernel is built for: the
+    wrapper passes it to the launch (the device check and the launch stood
+    in for by a meta device and a recorder) and raises on one it is not
+    built for; on the CPU, the plain version at D = 112 matches the
+    reference's oracle, which takes any D."""
+    from repro_torch.kernels import backend
+    assert 112 in tfa.HEAD_DIMS
+    q, k, v = _qkv(2, 40, 8, 2, 112, seed=3)
+    _close(tfa.flash_attention(*_to_torch((q, k, v))),
+           flash_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=True))
+    launched = []
+    monkeypatch.setattr(backend, "check_cuda",
+                        lambda name, tensors, contiguous=True:
+                        torch.device("meta"))
+    monkeypatch.setattr(backend, "launch",
+                        lambda entry, name, dev, *args: launched.append(args))
+    for d in (112, 128, 64):
+        mq, mk, mv = (torch.empty(2, 40, h, d, device="meta")
+                      for h in (8, 2, 2))
+        out = tfa.flash_attention(mq, mk, mv)
+        assert out.shape == (2, 40, 8, d)
+        assert launched[-1][4:9] == (2, 40, 8, 2, d)
+    mq, mk, mv = (torch.empty(2, 40, h, 96, device="meta") for h in (8, 2, 2))
+    with pytest.raises(ValueError, match="head_dim in"):
+        tfa.flash_attention(mq, mk, mv)
+    assert len(launched) == 3
 
 
 def test_rope_and_gated_mlp_match_jax():

@@ -111,6 +111,27 @@ def test_default_device_is_cuda_and_raises_without_it():
     assert backend.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_zoo_modules_default_to_cuda():
+    """The model zoo's modules (configs, ``models/moe.py``, the hybrid and
+    VLM paths) hold to the device rule too."""
+    _no_cuda()
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import moe
+    assert len(ARCHS) == 9 and moe.moe_ffn.__module__ == "repro_torch.models.moe"
+    for arch in ("phi3.5-moe-42b-a6.6b", "hymba-1.5b", "llava-next-mistral-7b",
+                 "qwen3-1.7b", "kimi-k2-1t-a32b"):
+        cfg = get_arch(arch).reduced()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_model(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve(arch, verbose=False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            transformer.init_cache(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_cache(get_arch("hymba-1.5b").reduced(), 2, 16,
+                               ring=True)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(backend, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(backend.shutil, "which", lambda name: None)

@@ -17,7 +17,9 @@
   into them in place; ``reset`` zeroes them;
 - each optimizer trains a scanned epoch bit-identical to the host loop on
   the CPU (where ``_dispatch``'s address check runs too), and restarts
-  bit-exactly from a checkpoint under both engines.
+  bit-exactly from a checkpoint under both engines;
+- AdamW's update in groups of parameters (``GROUP_BYTES``) gives the bits
+  of one group.
 """
 from __future__ import annotations
 
@@ -240,3 +242,35 @@ def test_cnn_run_matches_jax_trainer(name):
                                tcfg)
     for k, v in model.state_dict().items():
         _close(v.numpy(), want[k].numpy(), f"{name} {k}", rel=1e-5)
+
+
+def test_adamw_in_groups_is_bit_identical(monkeypatch):
+    """AdamW updates in groups of at most ``GROUP_BYTES`` of parameters (its
+    temporaries bounded for a model near the card's size): the same bits
+    as one group, and the groups cover every parameter once, in order."""
+    from repro_torch.optim import optimizers
+    r = np.random.default_rng(0)
+    shapes = [(7, 5), (40,), (3, 4, 6), (1,), (64, 2)]
+
+    def run():
+        ps = [torch.nn.Parameter(torch.from_numpy(
+            r.normal(size=s).astype(np.float32))) for s in shapes]
+        opt = make_optimizer("adamw", ps, weight_decay=0.1)
+        for step in range(3):
+            for p in ps:
+                p.grad = torch.from_numpy(
+                    np.random.default_rng(step).normal(size=p.shape)
+                    .astype(np.float32))
+            opt.step(1e-2)
+        return [p.detach().clone() for p in ps] + opt.state_tensors()
+
+    one = run()
+    r = np.random.default_rng(0)
+    monkeypatch.setattr(optimizers, "GROUP_BYTES", 300)
+    sizes = [4 * int(np.prod(s)) for s in shapes]
+    groups = optimizers._groups(
+        [torch.empty(s) for s in shapes], optimizers.GROUP_BYTES)
+    assert groups == [[0, 1], [2, 3], [4]]            # 140+160, 288+4, 512
+    assert sizes[4] > 300                             # a larger tensor alone
+    for a, b in zip(one, run()):
+        assert torch.equal(a, b)

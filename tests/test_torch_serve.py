@@ -124,14 +124,15 @@ def test_configs_are_copies_of_the_reference(reduce):
 
 
 def test_unported_architectures_raise():
-    with pytest.raises(KeyError, match="A.6"):
-        get_arch("hymba-1.5b")
-    for family in ("moe", "hybrid"):
-        other = dataclasses.replace(get_arch(DENSE), family=family)
-        with pytest.raises(NotImplementedError, match="A.6"):
-            build_model(other, "cpu")
-        with pytest.raises(NotImplementedError, match="A.6"):
-            transformer.param_defs(other)
+    with pytest.raises(KeyError, match=r"A\.6\(d\)"):
+        get_arch("seamless-m4t-large-v2")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("no-such-arch")
+    other = dataclasses.replace(get_arch(DENSE), family="encdec")
+    with pytest.raises(NotImplementedError, match=r"A\.6\(d\)"):
+        build_model(other, "cpu")
+    with pytest.raises(NotImplementedError, match=r"A\.6\(d\)"):
+        transformer.param_defs(other)
 
 
 # ---------------------------------------------------------------------------
