@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --hymba-lr-witness
+    python3 chip_smoke.py --encdec-lr-witness
 
 Phases, each printed as one JSON line; any failure exits non-zero:
 
@@ -118,23 +119,23 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    in phase 3, with B1 also on rows a poisoned sample gives (NaN ce and
    pmax where the plain version has them);
 14. LM training, ``examples/torch_lm_train.py --full`` at its defaults
-   (512 sequences of 32 tokens from ``SyntheticLM``, batch 32, AdamW,
-   12 epochs), through the default engine (CUDA graphs), its kernels
-   checked at its shapes in phase 3; with the counts set to 0, smollm-135m
-   under baseline, KAKURENBO ("sort") and KAKURENBO ("histogram_pallas" +
-   DropTop 0.02), and mamba2-130m under KAKURENBO ("sort" + DropTop 0.02):
-   per epoch wall s, loss, F* and backward samples; B1's backward at
-   least once a train step, B7 (B6) 30 (24) times a forward, the
-   histogram-select and the rank-select launched; the loss must fall and
-   some epoch hide sequences.  Then one train step's gradients through the
-   kernel forwards against the plain forwards at full width and depth,
-   per leaf (1e-3 relative, the attention at its input's fan-in; the
-   reference's init recorded), every leaf a launch without a backward
-   left at zero now non-zero; card vs CPU at 2 layers (losses 1e-4
-   relative, first plans equal); the host loop = the scanned engine bit
-   for bit over 3 KAKURENBO epochs and a restart from a crash between two
-   blocks of epoch 2 into a trainer from other weights, bit-identical;
-   one train step profiled at (32, 32) and (32, 512) for each arch;
+   (512 sequences of 32 tokens from ``SyntheticLM``, batch 32, AdamW),
+   6 epochs (of the example's 12), through the default engine (CUDA
+   graphs), its kernels checked at its shapes in phase 3; with the counts
+   set to 0, smollm-135m under baseline, KAKURENBO ("sort") and KAKURENBO
+   ("histogram_pallas" + DropTop 0.02), and mamba2-130m under KAKURENBO
+   ("sort" + DropTop 0.02): per epoch wall s, loss, F* and backward
+   samples; B1's backward at least once a train step, B7 (B6) 30 (24) times
+   a forward, the histogram-select and the rank-select launched; the loss
+   must fall and some epoch hide sequences.  Then one train step's
+   gradients through the kernel forwards against the plain forwards at full
+   width and depth, per leaf (1e-3 relative, the attention at its input's
+   fan-in; the reference's init recorded), every leaf a launch without a
+   backward left at zero now non-zero; card vs CPU at 2 layers (losses 1e-4
+   relative, first plans equal); the host loop = the scanned engine bit for
+   bit over 3 KAKURENBO epochs and a restart from a crash between two
+   blocks of epoch 2 into a trainer from other weights, bit-identical; one
+   train step profiled at (32, 32) and (32, 512) for each arch;
 15. zoo serve: ``repro_torch.launch.serve`` at full width in f32 on
    phi3.5-moe-42b-a6.6b (4 of 32 layers: 16 experts top-2), hymba-1.5b
    (32 layers: attention and SSM heads mean-fused, a 1,024-token window
@@ -150,14 +151,37 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    (``zoo_kernel_checks``);
 16. zoo LM training, ``examples/torch_lm_train.py --full``'s defaults with
    the counts set to 0: phi3.5-moe at 2 layers and hymba-1.5b full at
-   LR 1e-3 (12 epochs each; ``--hymba-lr-witness`` below on why not 1e-2),
+   LR 1e-3 (6 epochs each; ``--hymba-lr-witness`` below on why not 1e-2),
    kimi-k2 reduced (2 epochs): per epoch wall s, loss,
    F* and backward samples, B1's backward a step, B7 (B6) once a layer a
    forward, the loss falls and some epoch hides sequences; the host loop
    = the scanned engine bit for bit over 2 epochs of phi3.5-moe at 1
    layer; one eager step of each profiled by group (GEMMs, the MoE's
    routing, expert products and dispatch/combine, B6/B7 and their plain
-   backward, AdamW).  Each phase frees its models before the next.
+   backward, AdamW).  Each phase frees its models before the next;
+17. compression (after phase 12): the main path with
+   ``grad_compression=True`` (8-bit error feedback, ``dist/compression.py``):
+   host loop = scanned engine bit for bit, the residual included; a crash
+   between two blocks of epoch 2 restored (its ``"ef"``) into a trainer
+   from other weights, bit-identical; guarded over poisoned samples, every
+   held step leaves the residual bit for bit (host loop, scanned =
+   host); the 8-step replay compressed against uncompressed, in turns;
+   card vs CPU (LR 0.002) within 1e-4;
+18. encdec serve (after phase 15's zoo): seamless-m4t-large-v2 at full
+   width and depth (24 + 24 layers) through phase 15's path, frames of 4 x
+   2,048 beside the prompt: 48 B7 launches a prefill (24 encoder layers
+   full, 24 decoder causal), the contracts, the plain cross-attention's
+   and B7's ms in a prefill by CUDA events, card vs CPU at 2 + 2 layers;
+   B7 at its serve and train shapes and B1 at (256, 256,206) are held in
+   phase 3 (``encdec_kernel_checks``);
+19. encdec LM training (after phase 16): seamless-m4t at full width and
+   depth (2.04B parameters, AdamW) over ``FramesLM`` (the example's corpus
+   at 8 tokens beside 32 N(0, 1) frames), ``"sort"`` + DropTop 0.02, 12
+   epochs at LR 1e-3 (``--encdec-lr-witness`` below on why not 1e-2),
+   its launches counted from 0: B1's backward each step, B7 48
+   times a forward, the loss falls, some epoch hides more than DropTop's
+   tail; the gradient through the kernels vs the plain forwards per leaf
+   (1e-3); host = scan bit for bit at 2 + 2 layers; one profiled step.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -171,7 +195,12 @@ weights at epochs 0, 1, 6 and 12 (the kernels within 1e-3 of the CPU a
 leaf, or within 10 times the plain versions' distance from it) and how
 far each position's prediction lies from the batch's mean; then the
 same run at 4 layers, and card vs CPU over 2 epochs at 4 layers beside a
-CPU run from weights changed by 1e-7.  Without a CUDA device, or without the
+CPU run from weights changed by 1e-7.  ``--encdec-lr-witness`` runs phases
+1-2 and then phase 19's seamless-m4t run at the example's LR of 1e-2,
+through the kernels and through their plain versions (on the card), and
+through the kernels at 2 + 2 layers: per epoch loss and F*, how far the
+predictions depend on the input, beside the corpus' unigram loss.
+Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
 """
@@ -241,7 +270,12 @@ DEVICE_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync"}
 
 
-def profiled(warm, active, tries: int = 3):
+#: Traces ``profiled`` takes before it reports an incomplete one: three
+#: traces in a row that lost activities were seen once on the card.
+PROFILE_TRIES = 8
+
+
+def profiled(warm, active, tries: int = PROFILE_TRIES):
     """Run ``warm`` and then ``active`` in one ``torch.profiler`` session,
     keeping only ``active``'s events: ``warm`` runs in the schedule's
     warm-up step, while the profiler sets up its buffers.  A trace with
@@ -295,7 +329,8 @@ def device_profile(fn, reps: int) -> tuple[float, float, list]:
             fn()
 
     prof, _, complete = profiled(fn, calls)
-    require(complete, "the profiler lost device activities in three traces")
+    require(complete, "the profiler lost device activities in "
+                      f"{PROFILE_TRIES} traces")
     events = device_events(prof)
     return (sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps,
             len(events) / reps, sorted({e.name for e in events}))
@@ -1337,8 +1372,10 @@ def main_trainer(dev, strategy: str, n: int, n_test: int, epochs: int, model,
 
 
 def train(dev, strategy: str, n: int, n_test: int, epochs: int, model,
-          perms=None, checks=None, lr: float = 0.05, tau: float = 0.7):
-    tr = main_trainer(dev, strategy, n, n_test, epochs, model, lr, tau)
+          perms=None, checks=None, lr: float = 0.05, tau: float = 0.7,
+          **tc_kw):
+    tr = main_trainer(dev, strategy, n, n_test, epochs, model, lr, tau,
+                      **tc_kw)
     if perms is not None:
         it = iter(perms)
         tr.strategy._inner.draw_permutation = lambda: next(it)
@@ -1719,7 +1756,10 @@ def phase_table2(dev, n: int = 50_000, n_test: int = 10_000, epochs: int = 3):
     return launches
 
 
-def phase_card_vs_cpu(dev, n: int = 2048, epochs: int = 2) -> None:
+def phase_card_vs_cpu(dev, n: int = 2048, epochs: int = 2, lr: float = 0.005,
+                      **tc_kw) -> dict:
+    """The same small KAKURENBO run on the card and on the CPU (``tc_kw``:
+    more trainer settings, e.g. compression), losses within 1e-4."""
     import torch
     from repro_torch.configs.paper_cnn import CONFIG
     from repro_torch.models.cnn import CNN
@@ -1743,22 +1783,27 @@ def phase_card_vs_cpu(dev, n: int = 2048, epochs: int = 2) -> None:
     for name, d, m in ((dev.type, dev, model), ("cpu", cpu, model),
                        ("cpu_perturbed", cpu, perturbed)):
         runs[name] = train(d, "kakurenbo", n, 0, epochs, copy.deepcopy(m),
-                           perms=[p.to(d) for p in perms], lr=0.005, tau=0.1)
+                           perms=[p.to(d) for p in perms], lr=lr, tau=0.1,
+                           **tc_kw)
 
     def max_rel(a, b):
         return max(abs(x.train_loss - y.train_loss) / abs(y.train_loss)
                    for x, y in zip(runs[a], runs[b]))
 
     rel = max_rel(dev.type, "cpu")
-    emit({"phase": "card_vs_cpu", "n": n, "epochs": epochs, "lr": 0.005,
-          "tau": 0.1,
-          "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
-          "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-          "loss": {k: [h.train_loss for h in v] for k, v in runs.items()},
-          "F_star": {k: [h.hidden_fraction for h in v] for k, v in runs.items()},
-          "max_rel_diff": rel,
-          "perturbed_max_rel_diff": max_rel("cpu_perturbed", "cpu")})
-    require(rel <= 1e-4, f"card vs CPU losses differ by {rel} relative")
+    row = {"phase": "card_vs_cpu", "n": n, "epochs": epochs, "lr": lr,
+           "tau": 0.1, "trainer_settings": tc_kw,
+           "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+           "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "loss": {k: [h.train_loss for h in v] for k, v in runs.items()},
+           "F_star": {k: [h.hidden_fraction for h in v]
+                      for k, v in runs.items()},
+           "max_rel_diff": rel,
+           "perturbed_max_rel_diff": max_rel("cpu_perturbed", "cpu")}
+    emit(row)
+    require(rel <= 1e-4, f"card vs CPU losses differ by {rel} relative "
+                         f"({tc_kw})")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2441,7 +2486,8 @@ def device_breakdown(dev, fn, top: int = 12) -> dict:
     fn()
     sync(dev)
     prof, wall_ms, complete = profiled(fn, fn)
-    require(complete, "the profiler lost device activities in three traces")
+    require(complete, f"the profiler lost device activities in {PROFILE_TRIES} "
+                      "traces")
     per = collections.defaultdict(lambda: [0, 0.0])
     spans = []
     for e in device_events(prof):
@@ -2486,10 +2532,10 @@ def patched_op(op: str, wrap):
     return patched_attr(kops, op, wrap(getattr(kops, op)))
 
 
-def kernel_share(dev, fn, op: str) -> float:
-    """The device time (ms) of wrapper ``ops.<op>`` inside one call of
-    ``fn``, by CUDA events around every call (a check on the profiler's
-    figure)."""
+def kernel_share(dev, fn, op: str, module=None) -> float:
+    """The device time (ms) of wrapper ``ops.<op>`` (or ``module.<op>``)
+    inside one call of ``fn``, by CUDA events around every call (a check on
+    the profiler's figure)."""
     import torch
     events = []
 
@@ -2504,7 +2550,8 @@ def kernel_share(dev, fn, op: str) -> float:
             return out
         return timed
 
-    with patched_op(op, wrap):
+    with (patched_op(op, wrap) if module is None
+          else patched_attr(module, op, wrap(getattr(module, op)))):
         fn()
     sync(dev)
     return sum(a.elapsed_time(b) for a, b in events)
@@ -2522,12 +2569,16 @@ def attention_fan_in(params: dict, cfg) -> dict:
     plain version) part by ~6 in the logits (ROADMAP C).  At the input's
     fan-in (d_model for wq, wk, wv; H.Dh for wo) the same draws give a
     model whose logits agree to ~1e-5 at any depth, so a comparison of two
-    paths through it can tell right from wrong."""
-    a = params["layers"]["attn"]
+    paths through it can tell right from wrong.  The encoder-decoder's
+    self-attention in both stacks and its cross-attention alike."""
     dh = cfg.resolved_head_dim
-    for name, fan in (("wq", cfg.d_model), ("wk", cfg.d_model),
-                      ("wv", cfg.d_model), ("wo", cfg.num_heads * dh)):
-        a[name].mul_((a[name].shape[-2] / fan) ** 0.5)
+    blocks = ([params["layers"]["attn"]] if "layers" in params else
+              [params["enc_layers"]["attn"], params["dec_layers"]["attn"],
+               params["dec_layers"]["xattn"]])
+    for a in blocks:
+        for name, fan in (("wq", cfg.d_model), ("wk", cfg.d_model),
+                          ("wv", cfg.d_model), ("wo", cfg.num_heads * dh)):
+            a[name].mul_((a[name].shape[-2] / fan) ** 0.5)
     return params
 
 
@@ -2578,24 +2629,26 @@ def conditioning_control(model, cfg, ids, contract, checked) -> dict:
     return out
 
 
-def with_patches(tokens, pe) -> dict:
-    """A prompt batch: the tokens, and the VLM's patch embeddings."""
-    return {"tokens": tokens} if pe is None else {"tokens": tokens,
-                                                  "patch_embeds": pe}
+def with_inputs(tokens, extra) -> dict:
+    """A prompt batch: the tokens, and ``extra`` (None, or the VLM's patch
+    embeddings or the encoder-decoder's frames by name)."""
+    return {"tokens": tokens, **(extra or {})}
 
 
 def serve_contract(cfg, model, params, ids, pe, prompt: int):
-    """Prefill of ``ids[:, :prompt]`` (after the VLM's patches ``pe``): its
-    last logits against the full forward's at S - 1 (2e-4), one decode
-    step of ``ids[:, prompt]`` against the forward's at S (3e-3)
-    (``tests/test_arch_smoke.py:81``), S counting the patches.  Returns
-    both (ok, max abs difference), the forward's logits and the cache."""
+    """Prefill of ``ids[:, :prompt]`` (after the VLM's patches, or over the
+    encoder-decoder's frames: ``pe``): its last logits against the full
+    forward's at S - 1 (2e-4), one decode step of ``ids[:, prompt]``
+    against the forward's at S (3e-3) (``tests/test_arch_smoke.py:81``), S
+    counting the patches.  Returns both (ok, max abs difference), the
+    forward's logits and the cache."""
     import torch
-    from repro_torch.models import transformer
+    from repro_torch.models.model import family_module
     n = cfg.num_patch_tokens + prompt
     with torch.no_grad():
-        full, _, _ = transformer.forward(cfg, params, with_patches(ids, pe))
-        lg, cache = model.prefill(params, with_patches(ids[:, :prompt], pe),
+        full, _, _ = family_module(cfg).forward(cfg, params,
+                                                with_inputs(ids, pe))
+        lg, cache = model.prefill(params, with_inputs(ids[:, :prompt], pe),
                                   max_len=n + 1)
         lg2, _ = model.decode_step(params, ids[:, prompt:], cache)
     return (close(lg[:, 0], full[:, n - 1], 2e-4),
@@ -2604,8 +2657,9 @@ def serve_contract(cfg, model, params, ids, pe, prompt: int):
 
 def serve_card_vs_cpu(dev, small, p_dev, p_cpu, ids, pe, max_len: int,
                       gen: int) -> tuple[dict, list]:
-    """``small``'s prefill of the CPU prompt batch ``ids`` (after the VLM's
-    patches ``pe``) and ``gen`` greedy decode steps on the card (the
+    """``small``'s prefill of the CPU prompt batch ``ids`` (with ``pe``, the
+    VLM's patches or the encdec's frames) and ``gen`` greedy decode steps on
+    the card (the
     kernels) and on the CPU (their plain versions), from the same weights:
     the prefill logits and every cache tensor (snapshot copies: decode
     writes the cache in place) within 1e-4, the greedy tokens equal.
@@ -2618,8 +2672,9 @@ def serve_card_vs_cpu(dev, small, p_dev, p_cpu, ids, pe, max_len: int,
         m = build_model(small, d)
         t = time.perf_counter()
         with torch.no_grad():
-            lg, c = m.prefill(p, with_patches(
-                ids.to(d), None if pe is None else pe.to(d)), max_len=max_len)
+            lg, c = m.prefill(p, with_inputs(
+                ids.to(d), {k: v.to(d) for k, v in (pe or {}).items()}),
+                max_len=max_len)
             first = (lg.cpu(), {k: v.to("cpu", copy=True)
                                 for k, v in c.items() if k != "len"})
             tok, seq = lg[:, -1:].argmax(-1), []
@@ -2763,6 +2818,7 @@ def phase_serve(dev, arch: str = "mamba2-130m", batch: int = 4,
 #: (the attention's inputs, or the scan's and the conv's parameters); the
 #: SSM's ``w_in`` columns for x, B, C and dt are checked apart.
 FAULT_LEAVES = {"dense": ("ln1", "attn.wq", "attn.wk", "attn.wv"),
+                "encdec": ("ln1", "attn.wq", "attn.wk", "attn.wv"),
                 "ssm": ("ssm.conv_w", "ssm.conv_b", "ssm.a_log",
                         "ssm.d_skip", "ssm.dt_bias")}
 #: Per-leaf relative gradient error (norm of the difference over the
@@ -2793,6 +2849,85 @@ def lm_batch(dev, n: int = 32, seq: int = 32) -> dict:
             for k, v in ds.get(np.arange(n)).items()}
 
 
+class FramesLM:
+    """The encoder-decoder's batch source: ``SyntheticLM``'s sequences of
+    ``seq // DEC_FRACTION`` tokens (the example's corpus) beside N(0, 1)
+    frames of (seq, ``dim``) from ``default_rng(seed)``.  The package has
+    no frames dataset, as the reference has none
+    (``tests/test_arch_smoke.py`` builds its encdec batch the same way)."""
+
+    def __init__(self, num_samples: int, seq: int, dim: int, seed: int = 0):
+        import numpy as np
+        from repro_torch.data import SyntheticLM
+        from repro_torch.models.model import DEC_FRACTION
+        self.lm = SyntheticLM(num_samples=num_samples,
+                              seq_len=seq // DEC_FRACTION, vocab_size=64,
+                              order=1, easy_fraction=0.7, seed=seed)
+        self.frames = np.random.default_rng(seed).normal(
+            size=(num_samples, seq, dim)).astype(np.float32)
+        self.num_samples = num_samples
+
+    def get(self, indices) -> dict:
+        import numpy as np
+        batch = self.lm.get(indices)
+        batch["frames"] = self.frames[np.asarray(indices)]
+        return batch
+
+
+def encdec_trainer(*, full: bool = True, steps: int = 200, batch: int = 32,
+                   seq_len: int = 32, num_samples: int = 512,
+                   strategy: str = "kakurenbo", selection: str = "sort",
+                   drop_top: float = 0.0, ckpt_dir: str | None = None,
+                   device=None, seed: int = 0, model=None, lr: float = 1e-2,
+                   num_layers: int | None = None, **tc_kw):
+    """``examples/torch_lm_train.py``'s trainer (its settings and flags)
+    for seamless-m4t-large-v2 over ``FramesLM``: frames of ``seq_len``
+    positions, ``seq_len // DEC_FRACTION`` decoder tokens."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import KakurenboConfig, LRSchedule
+    from repro_torch.models import LM
+    from repro_torch.train import Trainer, TrainConfig
+    cfg = get_arch(ENCDEC) if full else get_arch(ENCDEC).reduced()
+    if num_layers is not None:
+        cfg = cut_depth(cfg, num_layers)
+    ds = FramesLM(num_samples, seq_len, cfg.encoder_input_dim)
+    epochs = max(steps // (num_samples // batch), 1)
+    tc = TrainConfig(**{
+        "epochs": epochs, "batch_size": batch, "strategy": strategy,
+        "optimizer": "adamw", "optimizer_hp": {},
+        "lr": LRSchedule(lr, "cosine", epochs, 1),
+        "kakurenbo": KakurenboConfig(
+            max_fraction=0.3, selection=selection, drop_top_fraction=drop_top,
+            fraction_milestones=(0, epochs // 3, epochs // 2,
+                                 3 * epochs // 4)),
+        "checkpoint_dir": ckpt_dir or None,
+        "checkpoint_every": max(epochs // 4, 1), "seed": seed, **tc_kw})
+    if model is None:
+        model = LM.init(cfg, torch.Generator(device=device).manual_seed(seed),
+                        device)
+    return Trainer(tc, model, lambda m, b: m.loss_and_metrics(b), ds, None,
+                   device=device)
+
+
+def make_lm_trainer(arch: str, **kw):
+    """The LM example's ``make_trainer`` for a decoder-only arch;
+    ``encdec_trainer`` (its settings over frames) for the encoder-decoder,
+    which the example refuses (its corpus has no frames)."""
+    if arch == ENCDEC:
+        return encdec_trainer(**kw)
+    return lm_example().make_trainer(arch, **kw)
+
+
+def frames_batch(dev, dim: int, n: int = 32, seq: int = 32) -> dict:
+    """``FramesLM``'s first ``n`` rows (frames ``dim`` wide) on ``dev``."""
+    import numpy as np
+    import torch
+    ds = FramesLM(n, seq, dim)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in ds.get(np.arange(n)).items()}
+
+
 def lm_kernel_checks(dev) -> dict:
     """B1 forward and backward, B7 and B6 against their plain versions at
     the LM path's shapes (batch 32 x seq 32): the logits of smollm-135m's
@@ -2815,8 +2950,11 @@ def lm_kernel_checks(dev) -> dict:
 def layer_kernels(cfg, seq: int) -> dict:
     """The launches of B7 and B6 one forward over ``seq`` positions makes:
     B7 in every attention layer without a window in effect (global, or
-    ``seq`` within the window), B6 in every SSM layer."""
+    ``seq`` within the window; the encdec's encoder and decoder layers),
+    B6 in every SSM layer."""
     from repro_torch.models import transformer
+    if cfg.family == "encdec":
+        return {"flash_attention": cfg.num_encoder_layers + cfg.num_layers}
     out = {}
     if cfg.family != "ssm":
         out["flash_attention"] = sum(
@@ -2827,14 +2965,20 @@ def layer_kernels(cfg, seq: int) -> dict:
     return out
 
 
+#: Train steps of the LM phases' runs: 6 epochs of 16 (the example's
+#: default is 200, 12 epochs; cut for the script's time limit, PERF.md §4).
+LM_STEPS = 96
+
+
 def lm_train_run(dev, arch: str, strategy: str, selection: str = "sort",
                  drop_top: float = 0.0, full: bool = True,
-                 layers: int | None = None, steps: int = 200,
+                 layers: int | None = None, steps: int = LM_STEPS,
                  lr: float = 1e-2) -> tuple[dict, collections.Counter]:
     """``examples/torch_lm_train.py --full`` at its defaults (512 sequences
-    of 32 tokens, batch 32, 200 steps: 12 epochs) under the default engine,
-    no checkpoints, at ``layers`` layers (None: the arch's depth) and base
-    LR ``lr`` (``full=False``: the reduced config, a rehearsal on the CPU).
+    of 32 tokens, batch 32) for ``steps`` (``LM_STEPS``: 6 epochs) under
+    the default engine, no checkpoints, at ``layers`` layers (None: the
+    arch's depth) and base LR ``lr`` (``full=False``: the reduced config,
+    a rehearsal on the CPU).
     Returns its row and the kernel launches it made."""
     import torch
     from repro_torch.kernels import backend
@@ -2842,10 +2986,10 @@ def lm_train_run(dev, arch: str, strategy: str, selection: str = "sort",
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    tr = lm_example().make_trainer(arch, full=full, strategy=strategy,
-                                   selection=selection, drop_top=drop_top,
-                                   ckpt_dir=None, device=dev,
-                                   num_layers=layers, steps=steps, lr=lr)
+    tr = make_lm_trainer(arch, full=full, strategy=strategy,
+                         selection=selection, drop_top=drop_top,
+                         ckpt_dir=None, device=dev, num_layers=layers,
+                         steps=steps, lr=lr)
     built = time.perf_counter() - t0
     hist = tr.run()
     sync(dev)
@@ -2902,8 +3046,10 @@ def lm_train_run(dev, arch: str, strategy: str, selection: str = "sort",
                 f"{arch}: {kernel} launched {launches[kernel]} times, not "
                 f"{n} a forward ({forwards} forwards)")
     if strategy == "kakurenbo":
-        require(any(h.hidden_fraction > 0 for h in hist),
-                f"{arch}: kakurenbo hid nothing: {row['F_star']}")
+        # More than DropTop's top tail: the low-loss tail hides too.
+        require(any(h.hidden_fraction > drop_top for h in hist),
+                f"{arch}: kakurenbo hid nothing beyond DropTop's "
+                f"{drop_top}: {row['F_star']}")
     if selection == "histogram_pallas":
         require(launches["histogram_select"] > 0,
                 f"{arch}: the histogram-select never launched")
@@ -2959,14 +3105,20 @@ def lm_grad_check(dev, arch: str, full: bool = True) -> dict:
     from repro_torch.models import build_model
     cfg = get_arch(arch) if full else get_arch(arch).reduced()
     model = build_model(cfg, dev)
-    batch = lm_batch(dev)
+    attends = cfg.family in ("dense", "encdec")
+    if cfg.family == "encdec":
+        batch = frames_batch(dev, cfg.encoder_input_dim)
+    else:
+        batch = lm_batch(dev)
     di = cfg.ssm.d_inner or cfg.ssm.expand * cfg.d_model if cfg.ssm else 0
     row = {"phase": "lm_grad_check", "arch": arch, "batch": [32, 32],
            "tol": LM_GRAD_TOL}
-    inits = ["checked"] + (["reference_init"] if cfg.family == "dense" else [])
+    inits = ["checked"] + (["reference_init"] if attends else [])
     for name in inits:
-        params = model.init(torch.Generator().manual_seed(0))
-        if name == "checked" and cfg.family == "dense":
+        params = model.init(torch.Generator(device=dev).manual_seed(0)
+                            if cfg.family == "encdec"
+                            else torch.Generator().manual_seed(0))
+        if name == "checked" and attends:
             attention_fan_in(params, cfg)
         gk, lk, nk = lm_grads(cfg, params, batch, plain=False)
         gp, lp, np_ = lm_grads(cfg, params, batch, plain=True)
@@ -2981,13 +3133,17 @@ def lm_grad_check(dev, arch: str, full: bool = True) -> dict:
         worst = max(rel, key=rel.get)
         row[name] = {"loss": [lk, lp], "launches_kernel_pass": nk,
                      "launches_plain_pass": np_, "leaves": len(rel),
+                     "nonfinite_grad_leaves": [
+                         sum(not bool(torch.isfinite(g[n]).all()) for n in g)
+                         for g in (gk, gp)],
                      "max_rel_err": rel[worst], "worst_leaf": worst,
                      "fault_leaves": len(fault),
                      "fault_leaves_min_norm": min(fault.values()),
                      "fault_leaves_max_rel_err": max(rel[n.split("[")[0]]
                                                      for n in fault)}
         if name == "checked":
-            require(nk.get(SERVE_KERNEL[arch]) == cfg.num_layers
+            require(all(nk.get(k) == n
+                        for k, n in layer_kernels(cfg, 32).items())
                     and nk.get("loss_confidence") == 1
                     and nk.get("loss_confidence_bwd") == 1,
                     f"{arch}: the kernel pass launched {nk}")
@@ -3187,9 +3343,8 @@ def lm_step_breakdown(dev, arch: str, seq: int, full: bool = True,
     from torch.profiler import record_function
     from repro_torch.kernels import ops
     from repro_torch.models import moe
-    tr = lm_example().make_trainer(arch, full=full, seq_len=seq,
-                                   num_samples=64, ckpt_dir=None, device=dev,
-                                   num_layers=layers)
+    tr = make_lm_trainer(arch, full=full, seq_len=seq, num_samples=64,
+                         ckpt_dir=None, device=dev, num_layers=layers)
     tr.lr_dev.fill_(float(tr.cfg.lr(0)))
     batch = tr.to_device(tr.dataset.get(np.arange(32)))
     idx = torch.arange(32, device=dev)
@@ -3264,7 +3419,7 @@ def lm_step_breakdown(dev, arch: str, seq: int, full: bool = True,
     row = {"phase": "lm_step_profile", "arch": arch, "batch": [32, seq],
            "layers": tr.model.cfg.num_layers,
            "step_ms": step_ms, "profiled_wall_ms": wall_ms,
-           # False: the trace lost device activities (three tries), so
+           # False: the trace lost device activities (PROFILE_TRIES tries), so
            # the groups below undercount.
            "trace_complete": complete,
            "device_busy_ms": busy / 1e3,
@@ -3381,6 +3536,14 @@ ZOO_SERVE = (("phi3.5-moe-42b-a6.6b", 4, {"flash_attention": 4}),
              ("llava-next-mistral-7b", 8, {"flash_attention": 8}))
 
 
+def cut_depth(cfg, layers: int):
+    """``cfg`` at ``layers`` layers (the encoder-decoder's two stacks
+    alike, as ``launch/serve.py --layers`` cuts them)."""
+    return dataclasses.replace(
+        cfg, num_layers=layers,
+        num_encoder_layers=layers if cfg.num_encoder_layers else 0)
+
+
 def no_drop(cfg):
     """``cfg`` with a capacity no expert can overflow (every choice of a
     token to a distinct expert fits: capacity_factor = E / k), so that
@@ -3393,16 +3556,23 @@ def no_drop(cfg):
         cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
 
 
-def patches(dev, cfg, batch: int, seed: int):
-    """The VLM's patch embeddings (None for the other families)."""
+def prompt_inputs(dev, cfg, batch: int, seed: int, prompt: int):
+    """A prompt batch's inputs besides the tokens, by name: the VLM's
+    patch embeddings, the encoder-decoder's N(0, 1) frames over ``prompt``
+    positions (as ``launch/serve.py`` draws them); None for the other
+    families."""
     import numpy as np
     import torch
     from repro_torch.models.transformer import VLM_PATCH_DIM
-    if cfg.family != "vlm":
+    if cfg.family == "vlm":
+        name, shape = "patch_embeds", (batch, cfg.num_patch_tokens,
+                                       VLM_PATCH_DIM)
+    elif cfg.family == "encdec":
+        name, shape = "frames", (batch, prompt, cfg.encoder_input_dim)
+    else:
         return None
-    return torch.from_numpy(np.random.default_rng(seed).normal(
-        size=(batch, cfg.num_patch_tokens, VLM_PATCH_DIM)).astype(
-            np.float32)).to(dev)
+    return {name: torch.from_numpy(np.random.default_rng(seed).normal(
+        size=shape).astype(np.float32)).to(dev)}
 
 
 def phase_zoo_serve(dev, arch: str, layers: int | None, expected: dict,
@@ -3425,13 +3595,13 @@ def phase_zoo_serve(dev, arch: str, layers: int | None, expected: dict,
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import backend
     from repro_torch.launch.serve import serve
-    from repro_torch.models import build_model, transformer
+    from repro_torch.models import attention, build_model
     from repro_torch.models.common import map_defs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_arch(arch) if full else get_arch(arch).reduced()
     if layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+        cfg = cut_depth(cfg, layers)
     kw = dict(reduced=not full, batch=batch, prompt_len=prompt, seed=0,
               verbose=False, device=dev, num_layers=layers)
     t0 = time.perf_counter()
@@ -3447,8 +3617,9 @@ def phase_zoo_serve(dev, arch: str, layers: int | None, expected: dict,
     want = {k: expected.get(k, 0) for k in got}
     toks = stats["generated"]
     n_params = sum(n for _, n in flatten(map_defs(
-        lambda d: math.prod(d.shape), transformer.param_defs(cfg))))
+        lambda d: math.prod(d.shape), build_model(cfg, "cpu").param_defs())))
     row = {"phase": "zoo_serve", "arch": arch, "layers": cfg.num_layers,
+           "encoder_layers": cfg.num_encoder_layers,
            "full_width": full, "d_model": cfg.d_model, "params": n_params,
            "batch": batch, "prompt": prompt,
            "patch_tokens": cfg.num_patch_tokens, "gen_tokens": gen,
@@ -3472,7 +3643,7 @@ def phase_zoo_serve(dev, arch: str, layers: int | None, expected: dict,
         torch.Generator(device=dev).manual_seed(0)), cfg)
     ids = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (batch, prompt + 1))).to(dev)
-    pe = patches(dev, cfg, batch, 1)
+    pe = prompt_inputs(dev, cfg, batch, 1, prompt)
     npatch = cfg.num_patch_tokens
     (ok1, d1), (ok2, d2), full_lg, cache = serve_contract(
         checked, model, params, ids, pe, prompt)
@@ -3488,30 +3659,38 @@ def phase_zoo_serve(dev, arch: str, layers: int | None, expected: dict,
     # Where the time goes: the served config's prefill and decode step.
     served = build_model(cfg, dev)
     with torch.no_grad():
-        _, cache = served.prefill(params, with_patches(ids[:, :prompt], pe),
+        _, cache = served.prefill(params, with_inputs(ids[:, :prompt], pe),
                                   max_len=npatch + prompt + 1)
 
         def prefill():
-            return served.prefill(params, with_patches(ids[:, :prompt], pe))
+            return served.prefill(params, with_inputs(ids[:, :prompt], pe))
 
         def step():
             return served.decode_step(params, ids[:, prompt:], cache)
 
         row["prefill_breakdown"] = device_breakdown(dev, prefill)
+        if cfg.family == "encdec" and dev.type == "cuda":
+            # The plain cross-attention (bmm GEMMs and a softmax inside
+            # attention.cross_attend) and B7, by CUDA events around them.
+            brk = row["prefill_breakdown"]
+            brk["cross_attention_ms_by_cuda_events"] = kernel_share(
+                dev, prefill, "cross_attend", attention)
+            brk["kernel_ms_by_cuda_events"] = kernel_share(
+                dev, prefill, "flash_attention")
         row["decode_breakdown"] = device_breakdown(dev, step)
     del params, cache, model, served
     free_memory()
 
     # Card (B6/B7) against CPU (their plain versions) at cut depth, on
     # weights drawn on the card.
-    small = dataclasses.replace(cfg, num_layers=min(cpu_layers, cfg.num_layers))
+    small = cut_depth(cfg, min(cpu_layers, cfg.num_layers))
     p_dev = attention_fan_in(build_model(small, dev).init(
         torch.Generator(device=dev).manual_seed(3)), small)
     ids = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (cpu_batch, cpu_prompt)))
     row["card_vs_cpu"], failed = serve_card_vs_cpu(
         dev, small, p_dev, tree_to(p_dev, torch.device("cpu")), ids,
-        patches(torch.device("cpu"), cfg, cpu_batch, 2),
+        prompt_inputs(torch.device("cpu"), cfg, cpu_batch, 2, cpu_prompt),
         npatch + cpu_prompt + cpu_gen, cpu_gen)
     row["seconds"] = time.perf_counter() - t0
     del p_dev
@@ -3537,11 +3716,10 @@ def zoo_engines(dev, arch: str = "phi3.5-moe-42b-a6.6b", layers: int = 1,
     (``"histogram_pallas"`` + DropTop 0.02, which hides from epoch 1):
     the host loop against the scanned engine, losses, plans and every
     parameter, AdamW moment and strategy tensor bit-identical."""
-    ex = lm_example()
     t0 = time.perf_counter()
     runs = {}
     for engine in ("host", "scan"):
-        tr = ex.make_trainer(arch, full=full, steps=steps, device=dev,
+        tr = make_lm_trainer(arch, full=full, steps=steps, device=dev,
                              engine=engine, selection="histogram_pallas",
                              drop_top=0.02, ckpt_dir=None, num_layers=layers)
         hist, plans = recorded_run(tr)
@@ -3573,9 +3751,10 @@ def zoo_engines(dev, arch: str = "phi3.5-moe-42b-a6.6b", layers: int = 1,
 #: The zoo's LM training runs: arch, depth (None: the arch's), full
 #: width, base LR, steps.  hymba-1.5b at the reference's LR of 1e-2 stalls
 #: at the corpus' unigram loss on an H100 (3.43 from epoch 6 on, nothing
-#: hidden in 12 epochs); it trains at 1e-3, as its CPU test does.
-ZOO_LM = (("phi3.5-moe-42b-a6.6b", 2, True, 1e-2, 200),
-          ("hymba-1.5b", None, True, 1e-3, 200),
+#: hidden in 12 epochs); it trains at 1e-3, as its CPU test does.  Both
+#: run ``LM_STEPS`` (6 epochs of the example's 12: the time limit).
+ZOO_LM = (("phi3.5-moe-42b-a6.6b", 2, True, 1e-2, LM_STEPS),
+          ("hymba-1.5b", None, True, 1e-3, LM_STEPS),
           ("kimi-k2-1t-a32b", None, False, 1e-2, 32))
 
 
@@ -3738,6 +3917,321 @@ def witness_hymba_lr(dev, lr: float = 1e-2, marks=(1, 6, 12),
 
 
 # ---------------------------------------------------------------------------
+# The encoder-decoder (seamless-m4t-large-v2) through B7 and B1, and
+# error-feedback gradient compression on the main path
+# ---------------------------------------------------------------------------
+
+ENCDEC = "seamless-m4t-large-v2"
+#: B7 at seamless-m4t's shapes (B, S, Hq, Hkv, D) and causal flag: the
+#: served encoder (full attention) and decoder (causal) over 4 x 2,048, and
+#: the train path's encoder over 32 frames and decoder over 8 tokens.
+ENCDEC_ATTN = (("encoder", (4, 2048, 16, 16, 64), False),
+               ("decoder", (4, 2048, 16, 16, 64), True),
+               ("encoder lm", (32, 32, 16, 16, 64), False),
+               ("decoder lm", (32, 8, 16, 16, 64), True))
+#: Served at full depth: one prefill launches B7 in its 24 encoder and 24
+#: decoder layers.
+ENCDEC_SERVE = (ENCDEC, None, {"flash_attention": 48})
+#: The encdec's LM run: train steps (the example's 200: 12 epochs of 16 at
+#: batch 32) and base LR.  At the example's LR of 1e-2 seamless-m4t stalls
+#: at the corpus' unigram loss (3.63 against 3.625 at 8 tokens) and hides
+#: only DropTop's 2%, through the kernels and through their plain versions
+#: alike (``--encdec-lr-witness``; ROADMAP C): it trains at 1e-3, where
+#: its low-loss tail hides from epoch 5 (in 6 epochs it hides none).
+ENCDEC_STEPS, ENCDEC_LR = 200, 1e-3
+
+
+def encdec_kernel_checks(dev) -> dict:
+    """B7 at seamless-m4t's serve and train shapes (float32, against its
+    plain version within 1e-5 and float64, beside SDPA), B1's forward and
+    backward over the train path's logits (256 tokens x 256,206)."""
+    import torch
+    rows = {"flash_attention": [
+        dict(check_flash_attention(dev, shape, causal, torch.float32, 1e-5,
+                                   10 if shape[1] > 32 else 50, library=True),
+             arch=f"{ENCDEC} {part}") for part, shape, causal in ENCDEC_ATTN],
+        "loss_confidence": [dict(check_loss_confidence(
+            dev, 256, 256206, torch.float32, 1e-4, 20), arch=f"{ENCDEC} lm")],
+        "loss_confidence_bwd": [dict(check_loss_confidence_bwd(
+            dev, 256, 256206, torch.float32, 10), arch=f"{ENCDEC} lm")]}
+    emit({"phase": "encdec_kernel_checks", **rows})
+    return rows
+
+
+def phase_encdec_lm(dev, full: bool = True) -> collections.Counter:
+    """KAKURENBO training of seamless-m4t-large-v2 at full width and depth
+    (2.04B parameters, AdamW at ``ENCDEC_LR``) over ``FramesLM`` (512
+    sequences of 32 frames and 8 tokens, batch 32, ``"sort"`` + DropTop
+    0.02, the default engine),
+    its launches counted from 0 just before the run: per epoch wall s,
+    loss, F* and backward samples, peak memory; B1's backward each train
+    step, B7 48 times a forward (24 encoder layers, full; 24 decoder,
+    causal); the loss falls and some epoch hides more than DropTop's
+    tail.  Then one step's
+    gradients through the kernels against the plain forwards per leaf
+    (1e-3), the host loop = the scanned engine bit for bit at 2 + 2 layers,
+    one profiled step.  ``full=False`` rehearses it on the CPU, reduced."""
+    from repro_torch.kernels import backend
+    t0 = time.perf_counter()
+    backend.reset_launches()
+    _, launches = lm_train_run(dev, ENCDEC, "kakurenbo", "sort", 0.02, full,
+                               steps=ENCDEC_STEPS, lr=ENCDEC_LR)
+    require(launches == collections.Counter(backend.LAUNCHES),
+            "encdec_lm: launches outside the run")
+    free_memory()
+    lm_grad_check(dev, ENCDEC, full)
+    free_memory()
+    zoo_engines(dev, ENCDEC, layers=2, full=full)
+    free_memory()
+    lm_step_breakdown(dev, ENCDEC, 32, full)
+    free_memory()
+    emit({"phase": "encdec_lm_done", "seconds": time.perf_counter() - t0,
+          "launches": dict(launches)})
+    return launches
+
+
+def context_tv(model, batch: dict) -> float:
+    """How far the predictions depend on the input: the mean total-variation
+    distance of each position's predicted distribution from the batch's
+    mean prediction (0: one prediction for every input, the unigram)."""
+    import torch
+    with torch.no_grad():
+        logits, mask, _ = model(batch)
+        prob = torch.softmax(logits.double(), -1)[mask.bool()]
+        return float(0.5 * (prob - prob.mean(0)).abs().sum(-1).mean())
+
+
+def witness_encdec_lr(dev, lr: float = 1e-2, full: bool = True) -> dict:
+    """Is seamless-m4t's stall at the example's LR of 1e-2 (the loss at the
+    corpus' unigram level, only DropTop's 2% hidden) the LR's or the
+    port's?  Phase 19's run (``"sort"`` + DropTop 0.02; ``LM_STEPS``, 6
+    epochs) at ``lr``, full width and depth, through the kernels and through
+    their plain versions (on the card, ``plain_forwards``), from the same
+    weights; then through the kernels at 2 + 2 layers.  Per epoch loss,
+    F* and backward samples, and at the end how far the predictions
+    depend on the input (``context_tv``), beside the corpus' unigram
+    loss.  The plain run must launch none of B1 and B7."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import backend
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    probe = encdec_trainer(full=False, device=torch.device("cpu"))
+    labels = probe.dataset.get(np.arange(probe.num_samples))["labels"]
+    freq = np.bincount(labels.ravel(), minlength=64) / labels.size
+    unigram = float(-(freq[freq > 0] * np.log(freq[freq > 0])).sum())
+    out = {"phase": "encdec_lr_witness", "lr": lr, "unigram_loss": unigram}
+    failed = []
+    for name, layers in (("kernels", None), ("plain", None),
+                         ("kernels_2_layers", 2)):
+        before = collections.Counter(backend.LAUNCHES)
+        with (plain_forwards() if name == "plain"
+              else contextlib.nullcontext()):
+            tr = encdec_trainer(full=full, lr=lr, steps=LM_STEPS,
+                                selection="sort", drop_top=0.02, device=dev,
+                                num_layers=layers)
+            tr.run()
+            tv = context_tv(tr.model, frames_batch(
+                dev, tr.model.cfg.encoder_input_dim))
+        sync(dev)
+        launches = collections.Counter(backend.LAUNCHES)
+        launches.subtract(before)
+        hist = tr.history
+        row = {"layers": tr.model.cfg.num_layers, "engine": tr.engine.name,
+               "loss": [h.train_loss for h in hist],
+               "F_star": [h.hidden_fraction for h in hist],
+               "bwd_samples": [h.bwd_samples for h in hist],
+               "epoch_wall_s": [h.wall_time for h in hist],
+               "context_tv": tv,
+               "launches": {k: v for k, v in launches.items() if v}}
+        out[name] = row
+        emit({"phase": "encdec_lr_witness_run", "run": name, **row})
+        del tr
+        free_memory()
+        if name == "plain" and (launches["flash_attention"]
+                                or launches["loss_confidence"]):
+            failed.append(f"the plain run launched {dict(launches)}")
+    out["failed"] = failed
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    require(not failed, "encdec LR witness: " + "; ".join(failed))
+    return out
+
+
+def phase_compression(dev, n: int = 50_000, epochs: int = 3) -> dict:
+    """Error-feedback gradient compression (``grad_compression=True``) on
+    the main path (paper CNN, ``SyntheticClassification(50_000)``,
+    KAKURENBO ``"histogram_pallas"`` + DropTop 0.02, fused scoring):
+
+    - the scanned engine = the host loop, losses, plans and the whole train
+      state (the residual among it) bit for bit;
+    - a crash between two blocks of epoch 2, restored from the epoch-2
+      checkpoint (its ``"ef"``) into a trainer built from other weights and
+      seeds, ends bit-identical to the uninterrupted scanned run;
+    - guarded (``skip_update``) over ``POISON_IDS``, on the host loop:
+      every held step leaves the residual bit for bit, the residual stays
+      finite, and the scanned run of the same is bit-identical to it;
+    - the 8-step graph's replay compressed against uncompressed, in turns
+      (the compressor's cost, recorded; no limit);
+    - card against CPU (``phase_card_vs_cpu``'s run, compressed, at LR
+      0.002) within 1e-4 relative.
+    Returns the phase's kernel launches."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.data import SyntheticClassification
+    from repro_torch.kernels import backend
+    from repro_torch.models.cnn import CNN
+    from repro_torch.train import chaos
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    out = {"phase": "compression", "model": CONFIG.name, "n": n,
+           "epochs": epochs}
+
+    def trainer(engine, seed=0, **kw):
+        return main_trainer(dev, "kakurenbo", n, 0, epochs,
+                            CNN(CONFIG, torch.Generator().manual_seed(seed)),
+                            seed=seed, engine=engine, grad_compression=True,
+                            **kw)
+
+    runs = {}
+    for engine in ("host", "scan"):
+        tr = trainer(engine)
+        hist, plans = recorded_run(tr)
+        runs[engine] = (tr, hist, plans, train_state(tr))
+    (_, hh, ph, sh), (scan, hs, ps, ss) = runs["host"], runs["scan"]
+    del runs
+    diff = state_diff(sh, ss)
+    ef = [k for k in ss if k.startswith("/ef/")]
+    out["engines"] = {
+        "engines": [scan.engine.name], "loss": {"host": [h.train_loss for h in hh],
+                                                "scan": [h.train_loss for h in hs]},
+        "epoch_wall_s": {"host": [h.wall_time for h in hh],
+                         "scan": [h.wall_time for h in hs]},
+        "hidden": [len(p[1]) for p in ps], "state_tensors": len(ss),
+        "ef_tensors": len(ef),
+        "ef_max_abs": max(float(ss[k].abs().max()) for k in ef),
+        "state_differs": diff}
+    require(scan.engine.name == "scan" and ef and out["engines"]["ef_max_abs"] > 0,
+            f"compression engines: {out['engines']}")
+    require([h.train_loss for h in hh] == [h.train_loss for h in hs]
+            and same_plans(ph, ps) and not diff,
+            f"compression: host loop and scanned engine differ: {diff}")
+    require(any(out["engines"]["hidden"]), "compression: kakurenbo hid nothing")
+    del sh
+
+    # A crash between two blocks of epoch 2, restored with its residual.
+    root = ROOT / "build" / "chip_smoke_ef_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        tr = trainer("scan", checkpoint_dir=str(root), checkpoint_every=1)
+        tr.run(2)
+        dispatch, calls = tr.engine._dispatch, [0]
+
+        def bomb(size, weighted):
+            if calls[0] == 1:
+                raise RuntimeError("injected failure between blocks")
+            calls[0] += 1
+            dispatch(size, weighted)
+
+        tr.engine._dispatch = bomb
+        crashed = False
+        try:
+            tr.run_epoch(2)
+        except RuntimeError as e:
+            crashed = "between blocks" in str(e)
+        require(crashed, "compression restart: epoch 2 did not crash")
+        del tr
+        tr2 = trainer("scan", seed=7, checkpoint_dir=str(root),
+                      checkpoint_every=1)
+        fresh = not any(bool(e.any()) for e in tr2.ef_state)
+        require(tr2.restore_latest() and tr2.epoch == 2,
+                "compression restart: restore")
+        tr2.run()
+        rdiff = state_diff(train_state(tr2), ss)
+        out["restart"] = {"replays_before_crash": calls[0],
+                          "restored_into_zero_residual": fresh,
+                          "state_differs": rdiff,
+                          "last_loss": [tr2.history[-1].train_loss,
+                                        hs[-1].train_loss]}
+        del tr2
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(not rdiff and out["restart"]["last_loss"][0] == hs[-1].train_loss,
+            f"compression restart: {out['restart']}")
+
+    # The compressor's cost on a replay of the 8-step graph.
+    off = main_trainer(dev, "kakurenbo", n, 0, 1,
+                       CNN(CONFIG, torch.Generator().manual_seed(0)),
+                       engine="scan")
+    off.run()
+    rt = replay_times(dev, {"uncompressed": off, "compressed": scan})
+    rt["cost"] = rt["compressed"]["replay_ms"] / rt["uncompressed"]["replay_ms"] - 1.0
+    rt["extra_device_kernels_per_step"] = (
+        rt["compressed"]["device_kernels"]
+        - rt["uncompressed"]["device_kernels"]) / scan.engine.scan_steps
+    out["replay"] = rt
+    del off, scan, ss
+
+    # Guarded over poisoned samples: each held step keeps the residual.
+    ids = np.asarray(POISON_IDS)
+    poisoned = {}
+    for engine in ("host", "scan"):
+        ds = chaos.poison_samples(SyntheticClassification(num_samples=n, seed=0),
+                                  POISON_IDS)
+        tr = trainer(engine, ds=ds, guard_policy="skip_update")
+        held = []
+        if engine == "host":
+            step = tr.train_step
+
+            def watched(*args, tr=tr, step=step, held=held):
+                before = [e.clone() for e in tr.ef_state]
+                seen = int(tr.guard_state.nonfinite_steps)
+                got = step(*args)
+                if int(tr.guard_state.nonfinite_steps) > seen:
+                    held.append(all(torch.equal(a, b)
+                                    for a, b in zip(before, tr.ef_state)))
+                return got
+
+            tr.train_step = watched
+        hist, plans = recorded_run(tr)
+        poisoned[engine] = (hist, plans, train_state(tr), held,
+                            all(bool(torch.isfinite(e).all())
+                                for e in tr.ef_state))
+        del tr
+    (hh, ph, sh, held, fin_h), (hs, ps, ss, _, fin_s) = (poisoned["host"],
+                                                          poisoned["scan"])
+    want = poisoned_batches(ph, ids)
+    pdiff = state_diff(sh, ss)
+    out["poisoned"] = {
+        "ids": list(POISON_IDS), "nonfinite_steps": [h.nonfinite_steps for h in hh],
+        "poisoned_batches": want, "held_steps_checked": len(held),
+        "held_steps_residual_kept": sum(held), "ef_finite": [fin_h, fin_s],
+        "scan_state_differs": pdiff}
+    require([h.nonfinite_steps for h in hh] == want and held and all(held)
+            and len(held) == sum(want) and fin_h and fin_s,
+            f"compression poisoned: {out['poisoned']}")
+    require(not pdiff and np.array_equal(
+        np.array([h.train_loss for h in hh]), np.array([h.train_loss for h in hs]),
+        equal_nan=True) and same_plans(ph, ps),
+        f"compression poisoned: scanned run differs in {pdiff}")
+    del poisoned, sh, ss
+    launches = collections.Counter(backend.LAUNCHES)
+    # LR 0.002, not phase 12's 0.005: the quantizer's rounding is a step
+    # function, so a last-bit difference can move an element by a whole
+    # quantum, and at 0.005 the CPU control from weights changed by 1e-7
+    # moves epoch 2 by 1.8e-4 (no 1e-4 comparison could hold); at 0.002 by
+    # 5.3e-7 (both on the CPU).
+    out["card_vs_cpu"] = phase_card_vs_cpu(dev, lr=0.002,
+                                           grad_compression=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = dict(launches)
+    emit(out)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 #: Each TPU kernel's row: its port's source and the ``pallas_call`` site it
@@ -3764,8 +4258,11 @@ KERNELS = {
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--hymba-lr-witness"]):
-        print("usage: chip_smoke.py [--hymba-lr-witness]", file=sys.stderr)
+    witnesses = {"--hymba-lr-witness": witness_hymba_lr,
+                 "--encdec-lr-witness": witness_encdec_lr}
+    if not (argv == [] or (len(argv) == 1 and argv[0] in witnesses)):
+        print("usage: chip_smoke.py [--hymba-lr-witness | "
+              "--encdec-lr-witness]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -3797,8 +4294,8 @@ def main(argv: list[str]) -> int:
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    if argv == ["--hymba-lr-witness"]:
-        witness_hymba_lr(dev)
+    if argv:
+        witnesses[argv[0]](dev)
         emit({"phase": "done", "seconds": time.perf_counter() - t_start})
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
@@ -3807,6 +4304,8 @@ def main(argv: list[str]) -> int:
         return 0
     main_rows, lm_rows = phase_kernels(dev)
     zoo_rows = zoo_kernel_checks(dev)
+    for name, extra in encdec_kernel_checks(dev).items():
+        zoo_rows.setdefault(name, []).extend(extra)
     phase_plan(dev)
     launches = collections.Counter(phase_train(dev))
     launches.update(phase_table2(dev))
@@ -3818,14 +4317,16 @@ def main(argv: list[str]) -> int:
     launches.update(phase_resilience(dev))
     launches.update(phase_table3(dev))
     phase_card_vs_cpu(dev)
+    launches.update(phase_compression(dev))
     launches.update(phase_serve(dev, "mamba2-130m"))
     launches.update(phase_serve(dev, "smollm-135m"))
     launches.update(phase_lm_train(dev))
-    for arch, layers, expected in ZOO_SERVE:
+    for arch, layers, expected in (*ZOO_SERVE, ENCDEC_SERVE):
         launches.update(phase_zoo_serve(dev, arch, layers, expected))
     launches.update(phase_zoo_serve(dev, "kimi-k2-1t-a32b", None,
                                     {"flash_attention": 2}, full=False))
     launches.update(phase_zoo_lm(dev))
+    launches.update(phase_encdec_lm(dev))
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -11,7 +11,9 @@
         --arch hymba-1.5b --lr 1e-3 --ckpt-dir ''
 
 The counterpart of ``examples/lm_train.py``, with its flags, defaults and
-setup: a registry architecture (any of the port's nine; reduced unless
+setup: a registry architecture (any decoder-only one, as in the reference,
+whose ``SyntheticLM`` batches carry no frames for the encoder-decoder
+seamless-m4t; reduced unless
 ``--full``; ``--layers`` cuts the depth, so that a large model trains at its
 full width on one card) trained on the
 synthetic LM corpus (``SyntheticLM``: vocab 64, order 1, 70% easy) with
@@ -69,6 +71,11 @@ def make_trainer(arch: str = "smollm-135m", *, full: bool = False,
         cfg = cfg.reduced()
     if num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{arch}: the encoder-decoder reads frames that SyntheticLM's "
+            "batches do not carry (as in the reference's example); train it "
+            "on a frames batch source (tests/test_torch_encdec.py::FramesLM)")
     ds = SyntheticLM(num_samples=num_samples, seq_len=seq_len,
                      vocab_size=min(cfg.vocab_size, 64), order=1,
                      easy_fraction=0.7, seed=0)

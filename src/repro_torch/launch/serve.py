@@ -1,22 +1,26 @@
 """Batched serving: prefill a prompt batch, decode N tokens.
 
-Port of ``repro/launch/serve.py`` for the architectures the port runs
-(``repro_torch.configs.registry``, the nine decoder-only ones; ``--full``
-for the published widths, else the reduced config; ``--layers`` cuts the
-depth).  Reports prefill latency and per-token decode latency and
-throughput; on the card each time is taken between two
+Port of ``repro/launch/serve.py`` for the registry's ten architectures
+(``repro_torch.configs.registry``; ``--full`` for the published widths,
+else the reduced config; ``--layers`` cuts the depth, of both stacks for
+the encoder-decoder).  Reports prefill latency and per-token decode
+latency and throughput; on the card each time is taken between two
 ``torch.cuda.synchronize()``.  On the card, prefill runs attention through
 kernel B7 (outside a sliding window) and the SSD scan through kernel B6
-(mamba2-130m, hymba-1.5b); decode is plain PyTorch (attention against the
-KV cache, the recurrent update), as the reference's is plain jnp.  The VLM
-(llava) gets ``num_patch_tokens`` random patch embeddings in front of each
-prompt, as the reference draws them.
+(mamba2-130m, hymba-1.5b), the encoder-decoder's encoder and decoder
+self-attention through B7 too; decode (and cross-attention) is plain
+PyTorch (attention against the KV cache, the recurrent update), as the
+reference's is plain jnp.  The VLM (llava) gets ``num_patch_tokens``
+random patch embeddings in front of each prompt, the encoder-decoder
+(seamless) ``prompt_len`` random frames of ``encoder_input_dim``, as the
+reference draws them.
 
     python -m repro_torch.launch.serve --full
     python -m repro_torch.launch.serve --device cpu
     python -m repro_torch.launch.serve --arch mamba2-130m --full
     python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --full \
         --layers 4 --prompt-len 2048 --gen-tokens 32
+    python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --full
 """
 from __future__ import annotations
 
@@ -46,21 +50,28 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then decode
     ``gen_tokens`` tokens (greedy).  Weights are drawn on the device from a
     ``torch.Generator`` seeded with ``seed`` (a card draws other numbers
-    than the CPU, of the same distributions); prompts, and the VLM's patch
-    embeddings after them, from numpy's ``default_rng(seed)``.
-    ``num_layers`` cuts the depth.  ``device=None`` means CUDA."""
+    than the CPU, of the same distributions); prompts, and the encdec's
+    frames or the VLM's patch embeddings after them, from numpy's
+    ``default_rng(seed)``.  ``num_layers`` cuts the depth (the encdec's
+    encoder and decoder alike).  ``device=None`` means CUDA."""
     dev = resolve_device(device)
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
     if num_layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+        cfg = dataclasses.replace(
+            cfg, num_layers=num_layers,
+            num_encoder_layers=num_layers if cfg.num_encoder_layers else 0)
     model = build_model(cfg, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (batch, prompt_len))).to(dev)
     pbatch = {"tokens": toks}
+    if cfg.family == "encdec":
+        pbatch["frames"] = torch.from_numpy(rng.normal(
+            size=(batch, prompt_len, cfg.encoder_input_dim)).astype(
+                np.float32)).to(dev)
     if cfg.family == "vlm":
         pbatch["patch_embeds"] = torch.from_numpy(rng.normal(
             size=(batch, cfg.num_patch_tokens, VLM_PATCH_DIM)).astype(

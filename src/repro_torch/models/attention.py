@@ -21,9 +21,11 @@ and differentiates it, the gradient the reference takes through its jnp
 ``attend``; training, the no-grad selection pass and the refresh all see
 the kernel's forward.  ``decode_attend`` is plain PyTorch, as the
 reference's is plain jnp.  ``update_cache`` writes in place (a ring cache's
-index wrapped by the caller, ``models/transformer.py``).
-``cross_attend`` (encdec) and ``decode_attend_sp`` (sequence-parallel,
-mesh) are not ported yet (ROADMAP A.6(d) and A.8).
+index wrapped by the caller, ``models/transformer.py``).  ``cross_attend``
+(the encoder-decoder's, ``models/encdec.py``: queries and keys of different
+lengths, no mask, no rope) is plain PyTorch on every device, as the
+reference's is plain jnp.  ``decode_attend_sp`` (sequence-parallel, mesh)
+is not ported yet (ROADMAP A.8).
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ def attn_param_defs(d_model: int, n_q: int, n_kv: int, dh: int,
     return defs
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` as one matrix product."""
     d, h, k = w.shape
     return (x @ w.to(x.dtype).reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
@@ -57,7 +59,7 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def project_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor,
                 theta: float, qk_norm: bool, norm_eps: float):
-    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+    q, k, v = heads(x, p["wq"]), heads(x, p["wk"]), heads(x, p["wv"])
     if qk_norm:
         q = rms_norm(q, p["q_norm"], norm_eps)
         k = rms_norm(k, p["k_norm"], norm_eps)
@@ -116,6 +118,19 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         out = block(q5, 0)
     return out.reshape(b, s, hq, dh)
+
+
+def cross_attend(q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+    """Encoder-decoder cross attention: q (B, Sq, Hq, Dh) against k, v
+    (B, Sk, Hkv, Dh), no mask and no rope; GQA by reshape, the scores and
+    the softmax in float32 (the reference's ``cross_attend``)."""
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    q5 = q.reshape(b, s, hkv, hq // hkv, dh)
+    scores = _grouped_scores(q5, k, dh ** -0.5)     # (B,Hkv,G,Sq,Sk) f32
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v).reshape(b, s, hq, dh)
 
 
 # ---------------------------------------------------------------------------

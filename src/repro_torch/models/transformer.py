@@ -19,9 +19,11 @@ separate parameters.  A layer by family, as the reference's ``_block``:
 
 The VLM prepends its projected patch embeddings (``patch_embeds @
 mm_proj``) to the text, their loss mask false.  The ``encdec`` family
-(seamless-m4t) waits for ``models/encdec.py`` (ROADMAP A.6(d)):
-``param_defs`` (and so ``Model``) raises ``NotImplementedError`` for it.
-There is no ``ParallelCtx``: the port runs on one device.
+(seamless-m4t) is ``models/encdec.py``; ``models/model.py::Model``
+dispatches on the family, and this module's ``unstack_layers`` and
+``params_from_jax`` carry its two layer stacks (``enc_layers``,
+``dec_layers``) as they carry ``layers``.  There is no ``ParallelCtx``:
+the port runs on one device.
 
 Serving: ``init_cache`` gives stacked (L, ...) caches, a ring buffer of
 ``attn_window`` slots with ``ring=True``.  As in the reference, a decode
@@ -51,17 +53,11 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamDef, gated_mlp, rms_norm, stack_defs
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 #: The CLIP-style frontend stub's output width (llava's projector input).
 VLM_PATCH_DIM = 1024
-
-
-def check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP "
-            f"A.6(d), models/encdec.py); the port runs the families "
-            f"{PORTED_FAMILIES}")
+#: The stacked layer trees of a parameter tree: the decoder-only families'
+#: ``layers``, the encoder-decoder's ``enc_layers`` and ``dec_layers``.
+LAYER_STACKS = ("layers", "enc_layers", "dec_layers")
 
 
 def _d_inner(cfg: ArchConfig) -> int:
@@ -91,7 +87,6 @@ def _block_defs(cfg: ArchConfig) -> dict:
 
 
 def param_defs(cfg: ArchConfig) -> dict:
-    check_family(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     defs: dict[str, Any] = {
         "embed": ParamDef((v, d), init="embed", scale=0.02),
@@ -105,50 +100,56 @@ def param_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
-def _index(tree: Any, i: int) -> Any:
+def index_at(tree: Any, i: int) -> Any:
     """Layer ``i`` of a stacked (L, ...) tree (views, no copies)."""
     if isinstance(tree, torch.Tensor):
         return tree[i]
-    return {k: _index(v, i) for k, v in tree.items()}
+    return {k: index_at(v, i) for k, v in tree.items()}
 
 
-def _layer(layers: Any, i: int) -> Any:
+def layer_at(layers: Any, i: int) -> Any:
     """Layer ``i``'s tree: an entry of a per-layer list, or views into a
     stacked (L, ...) tree."""
-    return layers[i] if isinstance(layers, (list, tuple)) else _index(layers, i)
+    if isinstance(layers, (list, tuple)):
+        return layers[i]
+    return index_at(layers, i)
 
 
 def unstack_layers(params: dict) -> dict:
-    """``params`` with its stacked ``layers`` tree split into a list of L
-    per-layer trees, each leaf a copy with its own storage (a view of the
-    stacked tensor would keep the whole (L, ...) tensor as its base)."""
-    layers = params["layers"]
-    if isinstance(layers, (list, tuple)):
-        return params
-    leaf = layers
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
-    return dict(params, layers=[
-        _map(lambda t: t.clone(), _index(layers, i))
-        for i in range(leaf.shape[0])])
+    """``params`` with each stacked layer tree (``LAYER_STACKS``) split into
+    a list of L per-layer trees, each leaf a copy with its own storage (a
+    view of the stacked tensor would keep the whole (L, ...) tensor as its
+    base)."""
+    out = dict(params)
+    for key in LAYER_STACKS:
+        layers = params.get(key)
+        if layers is None or isinstance(layers, (list, tuple)):
+            continue
+        leaf = layers
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        out[key] = [map_tree(lambda t: t.clone(), index_at(layers, i))
+                    for i in range(leaf.shape[0])]
+    return out
 
 
-def _map(fn, tree: Any) -> Any:
+def map_tree(fn, tree: Any) -> Any:
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: map_tree(fn, v) for k, v in tree.items()}
     return fn(tree)
 
 
 def params_from_jax(np_params: Any, device: str | torch.device | None = None,
                     unstack: bool = False) -> Any:
-    """The port's parameter tree from the JAX LM's (a nested dict of numpy
-    arrays, e.g. ``jax.tree.map(np.asarray, params)``): the same structure,
-    shapes and layout, as float32 tensors on ``device`` (None: CUDA); with
-    ``unstack`` the layers as a list of per-layer trees (``unstack_layers``),
-    the layout ``model.LM`` takes."""
+    """The port's parameter tree from the JAX model's (a nested dict of
+    numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``; any family,
+    the encoder-decoder's too): the same structure, shapes and layout, as
+    float32 tensors on ``device`` (None: CUDA); with ``unstack`` each layer
+    stack as a list of per-layer trees (``unstack_layers``), the layout
+    ``model.LM`` takes."""
     dev = resolve_device(device)
-    tree = _map(lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
-                .to(dev), np_params)
+    tree = map_tree(lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+                    .to(dev), np_params)
     return unstack_layers(tree) if unstack else tree
 
 
@@ -247,12 +248,11 @@ def forward(cfg: ArchConfig, params: dict, batch: dict):
     """Full forward. Returns (logits, loss_mask, moe_aux): the MoE layers'
     aux terms summed in float32 from 0, in layer order (0 for the other
     families)."""
-    check_family(cfg)
     x, mask = embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, flag in enumerate(global_layer_flags(cfg)):
-        x, a, _ = _block(cfg, _layer(params["layers"], i), x, positions, flag)
+        x, a, _ = _block(cfg, layer_at(params["layers"], i), x, positions, flag)
         if a is not None:
             aux = aux + a
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
@@ -376,8 +376,8 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor,
     layer_caches = {k: v for k, v in cache.items() if k != "len"}
     emitted: dict[str, list] = {}
     for i, flag in enumerate(global_layer_flags(cfg)):
-        x, new = _decode_block(cfg, _layer(params["layers"], i), x,
-                               _index(layer_caches, i), n, flag)
+        x, new = _decode_block(cfg, layer_at(params["layers"], i), x,
+                               index_at(layer_caches, i), n, flag)
         for k, t in new.items():
             emitted.setdefault(k, []).append(t)
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
@@ -399,7 +399,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict,
     positions = torch.arange(s, device=x.device)[None, :]
     states, bufs = [], []
     for i, flag in enumerate(global_layer_flags(cfg)):
-        x, _, emit = _block(cfg, _layer(params["layers"], i), x, positions,
+        x, _, emit = _block(cfg, layer_at(params["layers"], i), x, positions,
                             flag, state=True)
         if "k" in emit:
             cache["k"][i, :, :s] = emit["k"]

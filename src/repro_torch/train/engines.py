@@ -27,9 +27,9 @@ LR), so they run the same kernels and give the same bits:
   the host once an epoch.
 
 A graph holds the addresses of what it touches: the parameters, the
-optimizer's state, the strategy's ``step_tensors``, the numeric guard's
-counters, the LR and epoch scalars, the device data and the static
-buffers.  Everything that changes
+optimizer's state, the gradient compression's residual, the strategy's
+``step_tensors``, the numeric guard's counters, the LR and epoch scalars,
+the device data and the static buffers.  Everything that changes
 them does so in place (the optimizer's update, the strategy's hooks, the
 FORGET restart, ``set_device_state``, checkpoint restore); the engine
 checks the addresses before every replay and raises if one moved.  A step
@@ -263,7 +263,7 @@ class ScanEpochEngine:
         """Everything a block writes besides its own buffers and scratch."""
         tr = self.tr
         return [*tr.model.parameters(), *tr.model.buffers(),
-                *tr.opt.state_tensors(),
+                *tr.opt.state_tensors(), *(tr.ef_state or ()),
                 *(t for _, t in flatten(tr.strategy.get_device_state())),
                 *self._guard_counters()]
 
@@ -282,7 +282,8 @@ class ScanEpochEngine:
     def _addresses(self) -> tuple:
         tr = self.tr
         held = [*tr.model.parameters(), *tr.model.buffers(),
-                *tr.opt.state_tensors(), tr.lr_dev, tr.epoch_dev,
+                *tr.opt.state_tensors(), *(tr.ef_state or ()),
+                tr.lr_dev, tr.epoch_dev,
                 *tr.strategy.step_tensors(), *self._guard_counters(),
                 *self._data.values(), *self._bufs.values()]
         return tuple(t.data_ptr() for t in held)
@@ -350,9 +351,9 @@ class ScanEpochEngine:
         elif held != self._held:
             raise RuntimeError(
                 "the scanned engine's blocks no longer hold the trainer's "
-                "tensors (a parameter, optimizer state, strategy state, "
-                "guard counter, LR/epoch scalar or the device data was "
-                "rebound instead of updated in place)")
+                "tensors (a parameter, optimizer state, compression "
+                "residual, strategy state, guard counter, LR/epoch scalar or "
+                "the device data was rebound instead of updated in place)")
         if self.tr.device.type != "cuda":
             self._block(size, weighted)
             return

@@ -10,9 +10,11 @@ scanned engine's CUDA graphs on the card), and never waits on the host:
 - **detection**: ``all_finite`` folds the step loss and every gradient
   into one device flag (one multi-tensor launch on the card);
 - **containment** (``guard_policy="skip_update"``): ``HeldState`` keeps the
-  parameters and the optimizer's state at their pre-step values, bit for
-  bit, when the flag says non-finite (``select``: ``torch.where`` never
-  propagates the discarded branch's NaNs);
+  parameters and the optimizer's state (and the error-feedback residual of
+  gradient compression) at their pre-step values, bit for bit, when the
+  flag says non-finite (``select``: ``torch.where`` never propagates the
+  discarded branch's NaNs); with compression on, ``zero_if`` zeroes the
+  gradients first, so that a poisoned gradient never enters the residual;
 - **score quarantine**: observations with a non-finite loss or confidence
   (``observation_valid``) scatter the sample's previous values back
   (``core/state.py::scatter_observations(valid=)``), so the next plan is
@@ -79,6 +81,16 @@ def all_finite(scalar: torch.Tensor, grads: list[torch.Tensor],
     for group in by_dtype.values():
         torch._amp_foreach_non_finite_check_and_unscale_(group, found, one)
     return (found == 0).reshape(())
+
+
+@torch.no_grad()
+def zero_if(bad: torch.Tensor, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Zero every gradient, in place, when ``bad`` (a 0-dim device bool):
+    applied before error-feedback compression, so that a poisoned gradient
+    never enters the residual (NaNs included: a fill, not a product)."""
+    for g in grads:
+        g.masked_fill_(bad, 0.0)
+    return grads
 
 
 def select(ok: torch.Tensor, new: torch.Tensor,

@@ -46,8 +46,18 @@ supervisor and the chaos injectors are ``train/fault.py`` and
 ``torch.backends.cudnn.deterministic`` on and ``benchmark`` off (the
 caller's values restored after it), which the engines' and restart's
 bit-identity on the card rests on; ``CUDNN_DETERMINISTIC = False`` leaves
-the flags alone, for a control run that measures what they buy.  Left for
-later slices: the mesh and gradient compression.
+the flags alone, for a control run that measures what they buy.
+
+``grad_compression`` quantizes each step's gradients to 8 bits with error
+feedback (``dist/compression.py``) between the backward pass and the
+optimizer, in the reference's order: under the guard the finiteness check,
+then ``guard.zero_if`` (a poisoned gradient never enters the residual),
+then the compressor, the update, and the held select, which restores the
+residual with the parameters and the optimizer's state.  The residual
+(``Trainer.ef_state``, one tensor a parameter) is part of the trajectory:
+the scanned engine's graphs hold it, the checkpoint carries it (``"ef"``,
+only with compression on), and FORGET's restart keeps it, as the
+reference's does.  Left for later slices: the mesh.
 """
 from __future__ import annotations
 
@@ -67,6 +77,7 @@ from repro_torch.core import (ForgetConfig, GradMatchConfig, InfoBatchConfig,
                               ISWRConfig, KakurenboConfig, LRSchedule,
                               SampleStrategy, SBConfig, make_strategy)
 from repro_torch.data.pipeline import Pipeline, materialize
+from repro_torch.dist.compression import compress_grads, init_error_feedback
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.optim import make_optimizer
@@ -135,6 +146,9 @@ class TrainConfig:
     straggler_mitigation: bool = False
     # Workers the straggler monitor models; 0 = 1 (the port has no mesh).
     straggler_workers: int = 0
+    # 8-bit error-feedback compression of the gradients before the
+    # optimizer (dist/compression.py); the residual rides the checkpoint.
+    grad_compression: bool = False
 
 
 @dataclasses.dataclass
@@ -217,6 +231,10 @@ class Trainer:
                               for k, v in self.model.state_dict().items()}
         self.opt = make_optimizer(cfg.optimizer, self.model.parameters(),
                                   **cfg.optimizer_hp)
+        # The error-feedback residual, aligned with opt.params (updated in
+        # place: a captured step holds it).
+        self.ef_state = (init_error_feedback(self.opt.params)
+                         if cfg.grad_compression else None)
         # The step reads the LR and the epoch from the device (fill_ before
         # each epoch): a captured step reads them at replay.
         self.lr_dev = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -265,8 +283,9 @@ class Trainer:
 
     def _init_guard(self) -> None:
         """The guard's device counters and scratch (``guard_policy`` not
-        "off"): the held copies of the parameters and the optimizer's state
-        (and of the fused select's state), and the detection flag."""
+        "off"): the held copies of the parameters, the optimizer's state
+        and the compression residual (and of the fused select's state), and
+        the detection flag."""
         self.guard_state = None
         self._guard_seen = (0, 0)    # cumulative totals already reported
         self._guard_host_q = 0       # the host-observe path's quarantines
@@ -280,7 +299,8 @@ class Trainer:
         dev = self.device
         self.guard_state = guard.init_guard_state(dev)
         self._held = guard.HeldState([*self.model.parameters(),
-                                      *self.opt.state_tensors()])
+                                      *self.opt.state_tensors(),
+                                      *(self.ef_state or ())])
         self._held_sel = (guard.HeldState(
             [t for _, t in flatten(self.strategy.get_device_state())])
             if self._fsel is not None else None)
@@ -334,8 +354,9 @@ class Trainer:
         trainer's device scalars (``epoch_dev``, ``lr_dev``) or numbers.
         Everything it changes it changes in place, so that one call can be
         captured into a CUDA graph (the scanned engine); the guard too
-        waits on nothing.  A non-finite step leaves the parameters and the
-        optimizer's state bit for bit as they were."""
+        waits on nothing.  A non-finite step leaves the parameters, the
+        optimizer's state and the compression residual bit for bit as they
+        were."""
         self.model.train()
         guarded = self.guard_state is not None
         bwd = None
@@ -362,11 +383,16 @@ class Trainer:
         lv, pc = lv.detach(), pc.detach()
         self.opt.zero_grad()
         scalar.backward()
+        params = self.opt.params
+        grads = [p.grad for p in params if p.grad is not None]
         if guarded:
-            ok = guard.all_finite(
-                scalar, [p.grad for p in self.opt.params if p.grad is not None],
-                self._found, self._one)
+            ok = guard.all_finite(scalar, grads, self._found, self._one)
             self._held.save()
+            if self.ef_state is not None:
+                guard.zero_if(torch.logical_not(ok), grads)
+        if self.ef_state is not None:
+            compress_grads(grads, [e for p, e in zip(params, self.ef_state)
+                                   if p.grad is not None])
         self.opt.step(lr)
         quarantined = None
         if guarded:
@@ -452,7 +478,8 @@ class Trainer:
         plan = self.strategy.plan(epoch)
         if plan.reinit_model:
             # FORGET: restart from the initial weights with a fresh optimizer
-            # state, both copied in place (a captured step holds the tensors).
+            # state, both copied in place (a captured step holds the tensors);
+            # the compression residual is kept, as in the reference.
             self.model.load_state_dict(self._init_weights)
             self.opt.reset()
         lr = float(c.lr(epoch)) * plan.lr_scale
@@ -551,12 +578,22 @@ class Trainer:
         """The checkpoint's leaves: the live tensors themselves (a restore
         copies into them) and the strategy's arrays."""
         sd = strategy_sd or self.strategy.state_dict()
-        return {"params": self.model.state_dict(),
+        tree = {"params": self.model.state_dict(),
                 "opt_state": self.opt.state_dict(),
                 "strategy": sd["arrays"],
                 # FORGET's restart point: the same after a restore into a
                 # trainer built from other weights (the reference's key).
                 "init_params": self._init_weights}
+        if self.ef_state is not None:
+            # The residual is trajectory: without it a restart quantizes
+            # from a zero carry.  Only with compression on, as the reference.
+            tree["ef"] = self._ef_tree()
+        return tree
+
+    def _ef_tree(self) -> dict:
+        """The compression residual by parameter name."""
+        return {name: e for (name, _), e in
+                zip(self.model.named_parameters(), self.ef_state)}
 
     def save_checkpoint(self) -> str | None:
         """Checkpoint the epoch boundary: the tree and the host metadata
@@ -608,6 +645,8 @@ class Trainer:
                                     for k, v in tree["params"].items()})
         self.opt.load_state_dict(tree["opt_state"])
         ckpt.copy_into(self._init_weights, tree["init_params"])
+        if self.ef_state is not None:
+            ckpt.copy_into(self._ef_tree(), tree["ef"])
         self.strategy.load_state_dict(
             {"arrays": tree["strategy"], "host": meta["strategy"]})
         self.epoch = meta["epoch"]

@@ -117,7 +117,7 @@ def test_zoo_modules_default_to_cuda():
     _no_cuda()
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import moe
-    assert len(ARCHS) == 9 and moe.moe_ffn.__module__ == "repro_torch.models.moe"
+    assert len(ARCHS) == 10 and moe.moe_ffn.__module__ == "repro_torch.models.moe"
     for arch in ("phi3.5-moe-42b-a6.6b", "hymba-1.5b", "llava-next-mistral-7b",
                  "qwen3-1.7b", "kimi-k2-1t-a32b"):
         cfg = get_arch(arch).reduced()
@@ -130,6 +130,29 @@ def test_zoo_modules_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         transformer.init_cache(get_arch("hymba-1.5b").reduced(), 2, 16,
                                ring=True)
+
+
+def test_encdec_and_compression_default_to_cuda():
+    """``models/encdec.py`` (seamless-m4t) and the compressing trainer hold
+    to the device rule; ``dist/compression.py`` makes nothing of its own."""
+    _no_cuda()
+    from repro_torch.dist import compression
+    from repro_torch.models import encdec
+    arch = "seamless-m4t-large-v2"
+    cfg = get_arch(arch).reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(arch, verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        encdec.init_cache(cfg, 2, 16, 4)
+    ef = compression.init_error_feedback([torch.ones(3)])
+    assert ef[0].device.type == "cpu" and not ef[0].any()
+    ds = SyntheticClassification(num_samples=16, image_size=8, seed=0)
+    model = CNN(CNNConfig(image_size=8, widths=(4,), hidden=8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(TrainConfig(grad_compression=True), model, None, ds,
+                logits_fn=lambda m, b: m(b["images"]))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -43,7 +43,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import loss_confidence as tlc
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ssd_scan as tssd
-from repro_torch.models import LM, build_model, transformer
+from repro_torch.models import LM, build_model, encdec, transformer
 from repro_torch.models.model import loss_and_metrics
 
 DENSE, SSM = "smollm-135m", "mamba2-130m"
@@ -213,18 +213,28 @@ def test_loss_and_metrics_and_gradients_match_jax(arch, weighted):
 
 
 def test_loss_terms_of_unported_families_raise():
-    """The MoE's aux term and the VLM's patch positions are ported (the
-    model zoo's tests hold them to the reference); the encoder-decoder
-    family is not."""
+    """Every family's loss terms are ported: the MoE's aux term and the
+    VLM's patch positions (the model zoo's tests hold them to the
+    reference), and the encoder-decoder's, whose batch carries frames: the
+    module-level ``loss_and_metrics`` and ``LM``'s are the weighted mean of
+    ``encdec``'s per-sequence losses."""
     cfg = get_arch(DENSE).reduced()
     params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
     batch = {k: torch.from_numpy(np.ascontiguousarray(v))
              for k, v in _lm_batch(cfg).items()}
-    encdec = dataclasses.replace(cfg, family="encdec")
-    with pytest.raises(NotImplementedError, match=r"A\.6\(d\)"):
-        loss_and_metrics(encdec, params, batch)
-    with pytest.raises(NotImplementedError, match=r"A\.6\(d\)"):
-        LM(encdec, params)
+    ed = get_arch("seamless-m4t-large-v2").reduced()
+    ed_params = build_model(ed, "cpu").init(torch.Generator().manual_seed(0))
+    ed_batch = dict(batch, frames=torch.from_numpy(np.random.default_rng(0)
+                    .normal(size=(*batch["tokens"].shape[:1], 12, 32))
+                    .astype(np.float32)))
+    scalar, (loss, pa, pc) = loss_and_metrics(ed, ed_params, ed_batch)
+    logits, mask, aux = encdec.forward(ed, ed_params, ed_batch)
+    want = encdec.per_sample_metrics(ed, logits, ed_batch["labels"], mask)
+    assert torch.equal(loss, want[0]) and torch.equal(pa, want[1])
+    assert torch.equal(scalar, (loss * ed_batch["weight"]).mean())
+    assert aux.item() == 0.0
+    lm = LM(ed, ed_params)
+    assert torch.equal(lm.loss_and_metrics(ed_batch)[0], scalar)
     # A config with an MoE block adds router_aux_weight times the aux
     # term, which is 0 for a model without MoE layers.
     moe = dataclasses.replace(cfg, moe=MoEConfig(4, 2, 64))

@@ -9,7 +9,8 @@
   on the port: prefill's last logits equal the forward's at S - 1 within
   2e-4, one decode step's equal the forward's at S within 3e-3;
 - ``serve(..., device="cpu")`` returns the keys of ``repro.launch.serve``;
-- the port's config copies equal the reference's, field for field.
+- the port's config copies equal the reference's, field for field, and
+  the encoder-decoder builds through ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro.launch.serve import serve as jserve
 from repro.models import build_model as jbuild_model
 from repro_torch.configs.registry import get_arch
 from repro_torch.launch.serve import serve
-from repro_torch.models import build_model, transformer
+from repro_torch.models import build_model, encdec, transformer
 
 ARCH = "mamba2-130m"
 DENSE = "smollm-135m"
@@ -124,15 +125,22 @@ def test_configs_are_copies_of_the_reference(reduce):
 
 
 def test_unported_architectures_raise():
-    with pytest.raises(KeyError, match=r"A\.6\(d\)"):
-        get_arch("seamless-m4t-large-v2")
+    """An unknown arch raises ``KeyError``; the encoder-decoder, the last
+    of the reference's ten, is ported: seamless-m4t-large-v2 is the
+    reference's config and builds through ``models/encdec.py``."""
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
-    other = dataclasses.replace(get_arch(DENSE), family="encdec")
-    with pytest.raises(NotImplementedError, match=r"A\.6\(d\)"):
-        build_model(other, "cpu")
-    with pytest.raises(NotImplementedError, match=r"A\.6\(d\)"):
-        transformer.param_defs(other)
+    cfg = get_arch("seamless-m4t-large-v2")
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        jget_arch("seamless-m4t-large-v2"))
+    model = build_model(cfg.reduced(), "cpu")
+    defs = model.param_defs()
+    assert {"enc_in", "enc_layers", "dec_layers"} <= set(defs)
+    assert "xattn" in defs["dec_layers"] and "layers" not in defs
+    assert defs == encdec.param_defs(cfg.reduced())
+    other = dataclasses.replace(get_arch(DENSE), family="encdec",
+                                num_encoder_layers=1, encoder_input_dim=8)
+    assert set(build_model(other, "cpu").param_defs()) == set(defs)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ parameters carried by ``params_from_jax``, on the CPU:
   (the reference's windowed attention there, and the port's B7 route);
 - ``serve(..., device="cpu")`` for each architecture, the configs equal
   the reference's field for field, the parameter shapes at full width
-  equal the reference's, and seamless-m4t-large-v2 raises ``KeyError``.
+  equal the reference's for all ten (seamless-m4t-large-v2 too).
 
 The conditioning controls of ``tests/test_torch_lm.py`` hold on both
 sides: attention projections at their input's fan-in, ``a_log`` drawn
@@ -49,7 +49,8 @@ from repro_torch.launch.serve import serve
 from repro_torch.models import LM, attention, build_model, transformer
 from repro_torch.models.common import map_defs
 
-ZOO = sorted(ARCHS)
+#: The decoder-only architectures (seamless-m4t: tests/test_torch_encdec.py).
+ZOO = sorted(a for a, c in ARCHS.items() if c.family != "encdec")
 HYMBA = "hymba-1.5b"
 TOL = 1e-5
 
@@ -311,14 +312,14 @@ def test_serve_vlm_draws_the_references_patch_embeds(monkeypatch):
 
 @pytest.mark.parametrize("arch", sorted(JARCHS))
 def test_registry_is_the_references(arch):
-    if arch == "seamless-m4t-large-v2":
-        with pytest.raises(KeyError, match=r"A\.6\(d\)"):
-            get_arch(arch)
-        return
+    """All ten: the config and its reduction field for field, and the
+    parameter shapes at full width (the encdec's two stacks too)."""
+    assert sorted(ARCHS) == sorted(JARCHS)
     cfg, jcfg = get_arch(arch), jget_arch(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(
         jcfg.reduced())
     jshapes = jax.tree.map(lambda a: tuple(a.shape),
                            jbuild_model(jcfg).abstract_params())
-    assert map_defs(lambda d: d.shape, transformer.param_defs(cfg)) == jshapes
+    model = build_model(cfg, "cpu")
+    assert map_defs(lambda d: d.shape, model.param_defs()) == jshapes
