@@ -43,7 +43,14 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    plain version's error against a float64 reference.  Then the same at
    the LM training path's shapes (phase 14): B1 forward at (1,024,
    49,152) and (1,024, 50,280), its backward at (1,024, 49,152), B7 at
-   (32, 32, 9, 3, 64) causal, B6 at (32, 32) of mamba2-130m;
+   (32, 32, 9, 3, 64) causal, B6 at (32, 32) of mamba2-130m.  Also the
+   staged histogram selection (``histogram_range``,
+   ``histogram_count``, ``histogram_walk``: three launches of the same
+   source, the mesh's cross-shard plan) against the fused launch bit for
+   bit at N = 50,000 and 1,281,167 (0.3 invalid, non-finite, all equal,
+   nothing valid), each stage timed beside its plain version, a library
+   yardstick and its bound, and the staged call beside the fused one in
+   turns;
 4. plan: ``_plan_step`` at N = 1,281,167 (ImageNet-1K's train size) with
    ``"histogram_pallas"`` (the histogram-select kernel) against
    ``"histogram"`` (plain) on the card and against itself on the CPU (its
@@ -73,7 +80,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    materialize and captures, replays, the plan's copy, the epoch-end
    fetch; both: plan, refresh, ``evaluate``);
 8. engines: the host loop and the scanned engine from the same weights,
-   3 KAKURENBO epochs of the main path and one epoch of each Table 2
+   2 KAKURENBO epochs of the main path (phase 20 holds 3 under the
+   mesh; the time limit) and one epoch of each Table 2
    strategy, under the trainer's defaults (it runs its epochs with
    ``cudnn.deterministic``; the script sets no flag): losses, plans and
    the whole train state bit-identical (and whether two host loops are
@@ -120,7 +128,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    pmax where the plain version has them);
 14. LM training, ``examples/torch_lm_train.py --full`` at its defaults
    (512 sequences of 32 tokens from ``SyntheticLM``, batch 32, AdamW),
-   6 epochs (of the example's 12), through the default engine (CUDA
+   4 epochs (of the example's 12), through the default engine (CUDA
    graphs), its kernels checked at its shapes in phase 3; with the counts
    set to 0, smollm-135m under baseline, KAKURENBO ("sort") and KAKURENBO
    ("histogram_pallas" + DropTop 0.02), and mamba2-130m under KAKURENBO
@@ -133,7 +141,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    fan-in; the reference's init recorded), every leaf a launch without a
    backward left at zero now non-zero; card vs CPU at 2 layers (losses 1e-4
    relative, first plans equal); the host loop = the scanned engine bit for
-   bit over 3 KAKURENBO epochs and a restart from a crash between two
+   bit over 3 KAKURENBO epochs (smollm-135m at 15 of its 30 layers: the
+   time limit) and a restart from a crash between two
    blocks of epoch 2 into a trainer from other weights, bit-identical; one
    train step profiled at (32, 32) and (32, 512) for each arch;
 15. zoo serve: ``repro_torch.launch.serve`` at full width in f32 on
@@ -151,7 +160,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    (``zoo_kernel_checks``);
 16. zoo LM training, ``examples/torch_lm_train.py --full``'s defaults with
    the counts set to 0: phi3.5-moe at 2 layers and hymba-1.5b full at
-   LR 1e-3 (6 epochs each; ``--hymba-lr-witness`` below on why not 1e-2),
+   LR 1e-3 (4 epochs each; ``--hymba-lr-witness`` below on why not 1e-2),
    kimi-k2 reduced (2 epochs): per epoch wall s, loss,
    F* and backward samples, B1's backward a step, B7 (B6) once a layer a
    forward, the loss falls and some epoch hides sequences; the host loop
@@ -175,13 +184,27 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    B7 at its serve and train shapes and B1 at (256, 256,206) are held in
    phase 3 (``encdec_kernel_checks``);
 19. encdec LM training (after phase 16): seamless-m4t at full width and
-   depth (2.04B parameters, AdamW) over ``FramesLM`` (the example's corpus
+   12 + 12 of its 24 + 24 layers (the time limit;
+   AdamW) over ``FramesLM`` (the example's corpus
    at 8 tokens beside 32 N(0, 1) frames), ``"sort"`` + DropTop 0.02, 12
    epochs at LR 1e-3 (``--encdec-lr-witness`` below on why not 1e-2),
-   its launches counted from 0: B1's backward each step, B7 48
+   its launches counted from 0: B1's backward each step, B7 24
    times a forward, the loss falls, some epoch hides more than DropTop's
    tail; the gradient through the kernels vs the plain forwards per leaf
    (1e-3); host = scan bit for bit at 2 + 2 layers; one profiled step.
+20. mesh (after phase 17): the data-parallel trainer
+   (``TrainConfig.mesh_shape``), the main path at N = 50,000, batch 128,
+   8 gradient chunks, 3 KAKURENBO epochs under NCCL at world 1 in this
+   process through the scanned engine (the fold's all-gather captured in
+   its graphs): the three staged launches once a plan (counts from 0),
+   epoch 1's plan = the single-device plan (the fused launch) from the
+   same state and permutation, a crash between two blocks of epoch 2
+   restored into a trainer from other weights bit-identical, the 8-step
+   replay against the single-device one in turns (the fold's cost); then
+   at N = 8,192 (``"histogram_pallas"`` and ``"sort"``, DropTop 0.02)
+   world 1 under NCCL scanned = its host loop bit for bit (losses, plans,
+   train state), and = a world of 2 gloo ranks on this card (host loop;
+   ``launch.mesh.spawn``; NCCL refuses two ranks on one GPU) bit for bit.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -1347,11 +1370,13 @@ def watch_fraction_bound(strategy, checks: list) -> None:
 
 
 def main_trainer(dev, strategy: str, n: int, n_test: int, epochs: int, model,
-                 lr: float = 0.05, tau: float = 0.7, ds=None, **tc_kw):
+                 lr: float = 0.05, tau: float = 0.7, ds=None,
+                 selection: str = "histogram_pallas", **tc_kw):
     """The main path's ``Trainer`` (``examples/torch_quickstart.py --full``):
-    SGD 0.9, cosine LR, KAKURENBO on ``"histogram_pallas"`` with DropTop
-    0.02, fused scoring, the default engine unless ``tc_kw`` says; ``ds``
-    replaces ``SyntheticClassification(n)`` (a poisoned copy)."""
+    SGD 0.9, cosine LR, KAKURENBO on ``"histogram_pallas"`` (or
+    ``selection``) with DropTop 0.02, fused scoring, the default engine
+    unless ``tc_kw`` says; ``ds`` replaces ``SyntheticClassification(n)``
+    (a poisoned copy)."""
     from repro_torch.core import KakurenboConfig, LRSchedule
     from repro_torch.data import SyntheticClassification
     from repro_torch.train import Trainer, TrainConfig
@@ -1365,7 +1390,7 @@ def main_trainer(dev, strategy: str, n: int, n_test: int, epochs: int, model,
                      fused_scoring=True,
                      lr=LRSchedule(lr, "cosine", epochs, 1),
                      kakurenbo=KakurenboConfig(max_fraction=0.3, tau=tau,
-                                               selection="histogram_pallas",
+                                               selection=selection,
                                                drop_top_fraction=0.02),
                      **tc_kw)
     return Trainer(tc, model, None, ds, test, logits_fn=_logits_fn, device=dev)
@@ -2166,11 +2191,14 @@ def supervised_crash(trainer, epochs: int, root, split_dev=None) -> dict:
     return row
 
 
-def phase_resilience(dev, n: int = 50_000, epochs: int = 3) -> dict:
+def phase_resilience(dev, n: int = 50_000, epochs: int = 3,
+                     guard_epochs: int = 2) -> dict:
     """The resilient runtime on the main path (paper CNN, full width,
     ``SyntheticClassification(50_000)``, KAKURENBO ``"histogram_pallas"`` +
     DropTop 0.02, fused scoring), under the trainer's defaults (no cuDNN
-    flag set here):
+    flag set here); the guard's, the host-observe path's and the poisoned
+    runs over ``guard_epochs`` (2: the time limit), the crash
+    recoveries over ``epochs``:
 
     - the guard (``skip_update``) on a clean run, scanned and host loop:
       losses, plans and the whole train state bit-identical to the
@@ -2206,7 +2234,7 @@ def phase_resilience(dev, n: int = 50_000, epochs: int = 3) -> dict:
     t_phase = time.perf_counter()
     root = ROOT / "build" / "chip_smoke_chaos"
     out = {"phase": "resilience", "model": CONFIG.name, "n": n,
-           "epochs": epochs}
+           "epochs": epochs, "guard_epochs": guard_epochs}
 
     def model(seed=0):
         return CNN(CONFIG, torch.Generator().manual_seed(seed))
@@ -2219,7 +2247,7 @@ def phase_resilience(dev, n: int = 50_000, epochs: int = 3) -> dict:
     for engine in ("scan", "host"):
         runs = {}
         for policy in ("off", "skip_update"):
-            tr = main_trainer(dev, "kakurenbo", n, 0, epochs, model(),
+            tr = main_trainer(dev, "kakurenbo", n, 0, guard_epochs, model(),
                               engine=engine, guard_policy=policy)
             hist, plans = recorded_run(tr)
             runs[policy] = (tr, hist, plans, train_state(tr))
@@ -2263,7 +2291,7 @@ def phase_resilience(dev, n: int = 50_000, epochs: int = 3) -> dict:
     del kept["guarded"]
 
     # The host-observe path against the fused (scanned, unguarded) run.
-    tr = main_trainer(dev, "kakurenbo", n, 0, epochs, model(),
+    tr = main_trainer(dev, "kakurenbo", n, 0, guard_epochs, model(),
                       fused_observe=False)
     hist, plans = recorded_run(tr)
     diff = state_diff(train_state(tr), kept["state"])
@@ -2286,8 +2314,8 @@ def phase_resilience(dev, n: int = 50_000, epochs: int = 3) -> dict:
     for policy in ("skip_update", "off"):
         ds = chaos.poison_samples(SyntheticClassification(num_samples=n, seed=0),
                                   POISON_IDS)
-        tr = main_trainer(dev, "kakurenbo", n, 0, epochs, model(), ds=ds,
-                          guard_policy=policy)
+        tr = main_trainer(dev, "kakurenbo", n, 0, guard_epochs, model(),
+                          ds=ds, guard_policy=policy)
         hist, plans = recorded_run(tr)
         st = tr.strategy.state
         row = {"finite_params": finite(tr)}
@@ -2298,7 +2326,7 @@ def phase_resilience(dev, n: int = 50_000, epochs: int = 3) -> dict:
                 quarantined=[h.quarantined_observations for h in hist],
                 seen=st.seen[ids].tolist(), loss=st.loss[ids].tolist(),
                 ever_hidden=bool(any(np.isin(ids, p[1]).any() for p in plans)))
-            nxt = tr.strategy.plan(epochs)
+            nxt = tr.strategy.plan(guard_epochs)
             row.update(
                 next_plan_f_star=nxt.hidden_fraction,
                 next_plan_hides_poisoned=bool(np.isin(ids, nxt.hidden_indices).any()),
@@ -2965,9 +2993,9 @@ def layer_kernels(cfg, seq: int) -> dict:
     return out
 
 
-#: Train steps of the LM phases' runs: 6 epochs of 16 (the example's
+#: Train steps of the LM phases' runs: 4 epochs of 16 (the example's
 #: default is 200, 12 epochs; cut for the script's time limit, PERF.md §4).
-LM_STEPS = 96
+LM_STEPS = 64
 
 
 def lm_train_run(dev, arch: str, strategy: str, selection: str = "sort",
@@ -2975,7 +3003,7 @@ def lm_train_run(dev, arch: str, strategy: str, selection: str = "sort",
                  layers: int | None = None, steps: int = LM_STEPS,
                  lr: float = 1e-2) -> tuple[dict, collections.Counter]:
     """``examples/torch_lm_train.py --full`` at its defaults (512 sequences
-    of 32 tokens, batch 32) for ``steps`` (``LM_STEPS``: 6 epochs) under
+    of 32 tokens, batch 32) for ``steps`` (``LM_STEPS``: 4 epochs) under
     the default engine, no checkpoints, at ``layers`` layers (None: the
     arch's depth) and base LR ``lr`` (``full=False``: the reduced config,
     a rehearsal on the CPU).
@@ -3238,8 +3266,10 @@ def lm_card_vs_cpu(dev, arch: str, n: int = 64, layers: int = 2,
 
 
 def lm_engines_restart(dev, arch: str = "smollm-135m", steps: int = 48,
-                       full: bool = True) -> dict:
-    """The example's trainer at full width for 3 KAKURENBO epochs
+                       full: bool = True, layers: int | None = 15) -> dict:
+    """The example's trainer at full width, at ``layers`` layers (15 of
+    smollm-135m's 30: the script's time limit; None: the
+    arch's depth), for 3 KAKURENBO epochs
     (``"histogram_pallas"`` + DropTop 0.02, which hides from epoch 1): the
     host loop against the scanned engine (losses, plans, every parameter,
     AdamW moment and strategy tensor bit-identical), then the scanned run
@@ -3257,7 +3287,8 @@ def lm_engines_restart(dev, arch: str = "smollm-135m", steps: int = 48,
                                seed=seed, engine=engine,
                                selection="histogram_pallas", drop_top=0.02,
                                ckpt_dir=str(root) if ckpt else None,
-                               checkpoint_every=2)
+                               checkpoint_every=2,
+                               num_layers=layers if full else None)
 
     runs = {}
     for engine in ("host", "scan"):
@@ -3268,7 +3299,9 @@ def lm_engines_restart(dev, arch: str = "smollm-135m", steps: int = 48,
         del tr
     (lh, ph, sh, wh, eh), (ls, ps, ss, ws, es) = runs["host"], runs["scan"]
     diff = state_diff(sh, ss)
-    row = {"phase": "lm_engines_restart", "arch": arch, "epochs": len(lh),
+    row = {"phase": "lm_engines_restart", "arch": arch,
+           "layers": layers if full else None,
+           "epochs": len(lh),
            "engines": [eh, es], "loss": {"host": lh, "scan": ls},
            "epoch_wall_s": {"host": wh, "scan": ws},
            "hidden": [len(p[1]) for p in ps], "losses_equal": lh == ls,
@@ -3752,7 +3785,8 @@ def zoo_engines(dev, arch: str = "phi3.5-moe-42b-a6.6b", layers: int = 1,
 #: width, base LR, steps.  hymba-1.5b at the reference's LR of 1e-2 stalls
 #: at the corpus' unigram loss on an H100 (3.43 from epoch 6 on, nothing
 #: hidden in 12 epochs); it trains at 1e-3, as its CPU test does.  Both
-#: run ``LM_STEPS`` (6 epochs of the example's 12: the time limit).
+#: run ``LM_STEPS`` (4 epochs of the example's 12: the time limit), hymba
+#: at full depth.
 ZOO_LM = (("phi3.5-moe-42b-a6.6b", 2, True, 1e-2, LM_STEPS),
           ("hymba-1.5b", None, True, 1e-3, LM_STEPS),
           ("kimi-k2-1t-a32b", None, False, 1e-2, 32))
@@ -3939,6 +3973,9 @@ ENCDEC_SERVE = (ENCDEC, None, {"flash_attention": 48})
 #: alike (``--encdec-lr-witness``; ROADMAP C): it trains at 1e-3, where
 #: its low-loss tail hides from epoch 5 (in 6 epochs it hides none).
 ENCDEC_STEPS, ENCDEC_LR = 200, 1e-3
+#: The encdec LM run's depth: 12 of each stack's 24 layers
+#: (the script's time limit; the gradient check stays at full depth).
+ENCDEC_LM_LAYERS = 12
 
 
 def encdec_kernel_checks(dev) -> dict:
@@ -3959,13 +3996,14 @@ def encdec_kernel_checks(dev) -> dict:
 
 
 def phase_encdec_lm(dev, full: bool = True) -> collections.Counter:
-    """KAKURENBO training of seamless-m4t-large-v2 at full width and depth
-    (2.04B parameters, AdamW at ``ENCDEC_LR``) over ``FramesLM`` (512
+    """KAKURENBO training of seamless-m4t-large-v2 at full width and
+    ``ENCDEC_LM_LAYERS`` + ``ENCDEC_LM_LAYERS`` layers (the time limit;
+    AdamW at ``ENCDEC_LR``) over ``FramesLM`` (512
     sequences of 32 frames and 8 tokens, batch 32, ``"sort"`` + DropTop
     0.02, the default engine),
     its launches counted from 0 just before the run: per epoch wall s,
     loss, F* and backward samples, peak memory; B1's backward each train
-    step, B7 48 times a forward (24 encoder layers, full; 24 decoder,
+    step, B7 once a layer a forward (the encoder's full, the decoder's
     causal); the loss falls and some epoch hides more than DropTop's
     tail.  Then one step's
     gradients through the kernels against the plain forwards per leaf
@@ -3975,6 +4013,7 @@ def phase_encdec_lm(dev, full: bool = True) -> collections.Counter:
     t0 = time.perf_counter()
     backend.reset_launches()
     _, launches = lm_train_run(dev, ENCDEC, "kakurenbo", "sort", 0.02, full,
+                               layers=ENCDEC_LM_LAYERS if full else None,
                                steps=ENCDEC_STEPS, lr=ENCDEC_LR)
     require(launches == collections.Counter(backend.LAUNCHES),
             "encdec_lm: launches outside the run")
@@ -4004,7 +4043,7 @@ def context_tv(model, batch: dict) -> float:
 def witness_encdec_lr(dev, lr: float = 1e-2, full: bool = True) -> dict:
     """Is seamless-m4t's stall at the example's LR of 1e-2 (the loss at the
     corpus' unigram level, only DropTop's 2% hidden) the LR's or the
-    port's?  Phase 19's run (``"sort"`` + DropTop 0.02; ``LM_STEPS``, 6
+    port's?  Phase 19's run (``"sort"`` + DropTop 0.02; 96 steps, 6
     epochs) at ``lr``, full width and depth, through the kernels and through
     their plain versions (on the card, ``plain_forwards``), from the same
     weights; then through the kernels at 2 + 2 layers.  Per epoch loss,
@@ -4027,7 +4066,7 @@ def witness_encdec_lr(dev, lr: float = 1e-2, full: bool = True) -> dict:
         before = collections.Counter(backend.LAUNCHES)
         with (plain_forwards() if name == "plain"
               else contextlib.nullcontext()):
-            tr = encdec_trainer(full=full, lr=lr, steps=LM_STEPS,
+            tr = encdec_trainer(full=full, lr=lr, steps=96,
                                 selection="sort", drop_top=0.02, device=dev,
                                 num_layers=layers)
             tr.run()
@@ -4232,6 +4271,428 @@ def phase_compression(dev, n: int = 50_000, epochs: int = 3) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The data-parallel trainer (mesh_shape over torch.distributed)
+# ---------------------------------------------------------------------------
+
+#: The staged histogram selection's kernels: (kernel, its stage's plain
+#: version, what it replaces).  Their rows join the ``kernels`` line.
+STAGED = ("histogram_range", "histogram_count", "histogram_walk")
+
+
+def staged_inputs(dev, n: int, kind: str, seed: int = 1):
+    """Losses and flags for the staged-vs-fused checks; ``"empty"`` has
+    nothing valid."""
+    import torch
+    loss, valid = selection_inputs(dev, n, 0.3, seed,
+                                   "exp" if kind == "empty" else kind)
+    return loss, torch.zeros_like(valid) if kind == "empty" else valid
+
+
+def stage_err(stage: str, got, want, tag: str) -> float:
+    """One staged launch's outputs against its plain version's on the same
+    inputs, each bit for bit (the range by ``==``); the largest absolute
+    difference (0 where both hold the same value, so the range's
+    sentinels compare too)."""
+    import torch
+    err = 0.0
+    for a, b in zip(got, want):
+        require((a is None) == (b is None), f"{stage}: None differs ({tag})")
+        if a is None:
+            continue
+        d = torch.where(a.double() == b.double(), 0.0, a.double() - b.double())
+        err = max(err, float(d.abs().max()))
+        require(torch.equal(a, b), f"{stage} differs from its plain version "
+                f"in {int((a != b).sum())} places ({tag})")
+    return err
+
+
+def staged_kernel_checks(dev, reps: int = 100) -> dict:
+    """The staged histogram selection (B2's range, B3's count and the walk
+    with the masks, three launches) at N = 50,000 and 1,281,167 (0.3
+    invalid, non-finite losses, all equal, nothing valid; F in {0.3, 1} x
+    DropTop {0.02, 0}): each launch against its plain version on the same
+    inputs bit for bit, and at one rank the three against the fused
+    histogram-select launch (masks, histogram, raw range and walk).  A
+    second rank's rows (another draw) then make a world of two: the range
+    and counts over the joint range summed, and each rank's walk over the
+    global histogram with ``n_count = 2 N`` against ``walk_plain``.  Each
+    stage is timed (CUDA events and device-only) beside its plain version,
+    its library yardstick and its bound, and the whole staged call beside
+    the fused one.  Returns the kernel rows by name (N = 50,000, with the
+    largest difference from the plain version over every case) and the
+    timings at both N."""
+    import torch
+    from repro_torch.kernels import threshold_select as ts
+    cases, errs = 0, dict.fromkeys(STAGED, 0.0)
+
+    def held(stage, got, want, tag):
+        errs[stage] = max(errs[stage], stage_err(stage, got, want, tag))
+
+    for n in (50_000, 1_281_167):
+        for kind in ("exp", "naninf", "equal", "empty"):
+            loss, valid = staged_inputs(dev, n, kind)
+            other = staged_inputs(dev, n, kind, seed=2)
+            for low, high in ((0.3, 0.02), (1.0, 0.0)):
+                tag = f"N={n} {kind} F={low} top={high}"
+                f = torch.full((), low, device=dev)
+                fused = ts.histogram_select(loss, valid, f, high)
+                lo_hi = ts.histogram_range(loss, valid)
+                held("histogram_range", (lo_hi,),
+                     (ts.range_plain(loss, valid),), tag)
+                hist = ts.histogram_count(loss, valid, lo_hi)
+                held("histogram_count", (hist,),
+                     (ts.count_plain(loss, valid, lo_hi),), tag)
+                lm, hm, walk = ts.histogram_walk(loss, valid, hist, lo_hi, n,
+                                                 f, high)
+                held("histogram_walk", (lm, hm, walk),
+                     ts.walk_plain(loss, valid, hist, lo_hi, n, f, high), tag)
+                for name, a, b in (("low", lm, fused[0]), ("high", hm, fused[1]),
+                                   ("hist", hist, fused[2]),
+                                   ("walk", walk, fused[4])):
+                    require((a is None) == (b is None)
+                            and (a is None or torch.equal(a, b)),
+                            f"staged {name} differs from the fused launch ({tag})")
+                require(torch.equal(lo_hi.view(torch.int32),
+                                    fused[3].view(torch.int32)),
+                        f"staged range {lo_hi.tolist()} != {fused[3].tolist()} "
+                        f"({tag})")
+                # World 2: this rank's rows and the other's, reduced as
+                # planops.histogram_masks reduces them over a group.
+                tag2 = f"{tag} world 2"
+                r2 = ts.histogram_range(*other)
+                held("histogram_range", (r2,), (ts.range_plain(*other),), tag2)
+                g = torch.stack([torch.minimum(lo_hi[0], r2[0]),
+                                 torch.maximum(lo_hi[1], r2[1])])
+                total = torch.zeros_like(hist)
+                for rows in ((loss, valid), other):
+                    h = ts.histogram_count(*rows, g)
+                    held("histogram_count", (h,),
+                         (ts.count_plain(*rows, g),), tag2)
+                    total += h
+                for rows in ((loss, valid), other):
+                    held("histogram_walk",
+                         ts.histogram_walk(*rows, total, g, 2 * n, f, high),
+                         ts.walk_plain(*rows, total, g, 2 * n, f, high), tag2)
+                cases += 1
+    rows, timing = {}, []
+    for n in (50_000, 1_281_167):
+        loss, valid = staged_inputs(dev, n, "exp")
+        f = torch.full((), 0.3, device=dev)
+        lo_hi = ts.histogram_range(loss, valid)
+        hist = ts.histogram_count(loss, valid, lo_hi)
+        lo, hi = (float(v) for v in lo_hi)
+        nv = int((valid & torch.isfinite(loss)).sum())
+        stages = {
+            # Bytes: the losses and flags read once (and the bins, the
+            # masks); ops at the fp32 rate as time_histogram_select counts.
+            "histogram_range": (lambda: ts.histogram_range(loss, valid),
+                                lambda: ts.range_plain(loss, valid),
+                                lambda: torch.aminmax(loss),
+                                "torch.aminmax (no validity mask)",
+                                bound(5 * n + 8, n + 2 * nv)),
+            "histogram_count": (lambda: ts.histogram_count(loss, valid, lo_hi),
+                                lambda: ts.count_plain(loss, valid, lo_hi),
+                                lambda: torch.histc(loss, 512, lo, hi),
+                                "torch.histc over [lo, hi] (no validity mask)",
+                                bound(5 * n + 8 + 4 * 512, n + 6 * nv)),
+            "histogram_walk": (lambda: ts.histogram_walk(
+                                   loss, valid, hist, lo_hi, n, f, 0.02),
+                               lambda: ts.walk_plain(loss, valid, hist, lo_hi,
+                                                     n, f, 0.02),
+                               None, None,
+                               bound(5 * n + 8 + 4 * 512 + 2 * n,
+                                     n + 8 * nv + 4 * 512)),
+        }
+        for name, (kern, plain, lib, lib_name, (b_ms, b_by)) in stages.items():
+            d_ms, d_launch, _ = device_profile(kern, 20)
+            row = {"n": n, "max_abs_err": errs[name], "ms": time_ms(kern, reps),
+                   "device_ms": d_ms, "cuda_launches": d_launch,
+                   "plain_ms": time_ms(plain, reps),
+                   "library_ms": time_ms(lib, reps) if lib else None,
+                   "library_backend": lib_name or "null: no PyTorch call "
+                   "walks a histogram's CDF into masks",
+                   "bound_ms": b_ms, "bound_by": b_by}
+            if n == 50_000:
+                rows[name] = row
+            timing.append({"stage": name, **row})
+
+        def staged():
+            r = ts.histogram_range(loss, valid)
+            return ts.histogram_walk(loss, valid,
+                                     ts.histogram_count(loss, valid, r),
+                                     r, n, f, 0.02)
+
+        def fused():
+            return ts.histogram_select(loss, valid, f, 0.02)
+
+        s_dev, s_launch, _ = device_profile(staged, 20)
+        f_dev, f_launch, _ = device_profile(fused, 20)
+        order = [staged, fused, fused, staged]
+        turns = {staged: [], fused: []}
+        for fn in order:
+            turns[fn].append(time_ms(fn, reps))
+        timing.append({"stage": "staged_vs_fused", "n": n,
+                       "staged_ms": turns[staged], "fused_ms": turns[fused],
+                       "staged_device_ms": s_dev, "fused_device_ms": f_dev,
+                       "staged_cuda_launches": s_launch,
+                       "fused_cuda_launches": f_launch,
+                       "bound_ms": bound(5 * n + 2 * n, n + 10 * nv)[0]})
+    emit({"phase": "staged_kernel_checks", "cases": cases, "timing": timing})
+    return rows
+
+
+def mesh_trainer(dev, n: int, epochs: int, world, seed: int = 0, **kw):
+    """The main path's trainer under ``mesh_shape=(world,)`` (None: one
+    device, the default engine), no test set, weights drawn from ``seed``."""
+    import torch
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.models.cnn import CNN
+    model = CNN(CONFIG, torch.Generator().manual_seed(seed))
+    mesh = dict(mesh_shape=(world,), grad_chunks=8) if world else {}
+    return main_trainer(dev, "kakurenbo", n, 0, epochs, model, seed=seed,
+                        **mesh, **kw)
+
+
+def mesh_run(dev, n: int, epochs: int, world, **kw):
+    """``mesh_trainer`` run through: (trainer, history, recorded plans)."""
+    tr = mesh_trainer(dev, n, epochs, world, **kw)
+    hist, plans = recorded_run(tr)
+    return tr, hist, plans
+
+
+def watch_epoch1(inner) -> dict:
+    """Record the sampler's permutations and a copy of its state just
+    before epoch 1's plan."""
+    seen = {"perms": []}
+    draw, begin = inner.draw_permutation, inner.begin_epoch
+
+    def drawn():
+        p = draw()
+        seen["perms"].append(p.clone())
+        return p
+
+    def begun(epoch):
+        if epoch == 1:
+            seen["state"] = copy.deepcopy(inner.state)
+        return begin(epoch)
+
+    inner.draw_permutation, inner.begin_epoch = drawn, begun
+    return seen
+
+
+def mesh_restart(dev, n: int, epochs: int, root, want: dict,
+                 want_loss: float) -> dict:
+    """World 1, scanned: epoch 2 dies after its first replay; the epoch-2
+    checkpoint restored into a trainer from other weights and seeds ends
+    bit-identical to the uninterrupted run (``want``)."""
+    kw = dict(engine="scan", checkpoint_dir=str(root), checkpoint_every=1)
+    tr = mesh_trainer(dev, n, epochs, 1, **kw)
+    tr.run(2)
+    dispatch, calls = tr.engine._dispatch, [0]
+
+    def bomb(size, weighted):
+        if calls[0] == 1:
+            raise RuntimeError("injected failure between blocks")
+        calls[0] += 1
+        dispatch(size, weighted)
+
+    tr.engine._dispatch = bomb
+    try:
+        tr.run_epoch(2)
+    except RuntimeError as e:
+        require("between blocks" in str(e), f"mesh restart: {e}")
+    tr2 = mesh_trainer(dev, n, epochs, 1, seed=7, **kw)
+    require(tr2.restore_latest() and tr2.epoch == 2, "mesh restore")
+    tr2.run()
+    out = {"replays_before_crash": calls[0],
+           "state_differs": state_diff(train_state(tr2), want),
+           "last_loss": [tr2.history[-1].train_loss, want_loss]}
+    require(not out["state_differs"] and out["last_loss"][0] == want_loss,
+            f"mesh restart: {out}")
+    return out
+
+
+def mesh_records(dev, world: int, n: int, epochs: int,
+                 engine: str = "host", state: bool = False) -> dict:
+    """The small mesh runs: ``"histogram_pallas"`` and ``"sort"``, both
+    with DropTop 0.02, under ``engine``: per-epoch losses, engines, wall s,
+    host syncs, plans and final parameters (and, with ``state``, every
+    tensor of the train state)."""
+    out = {}
+    for selection in ("histogram_pallas", "sort"):
+        tr, hist, plans = mesh_run(dev, n, epochs, world, engine=engine,
+                                   selection=selection)
+        out[selection] = {
+            "loss": [h.train_loss for h in hist],
+            "engine": [h.engine for h in hist],
+            "wall_s": [h.wall_time for h in hist],
+            "host_syncs": [h.host_syncs for h in hist],
+            "plans": plans,
+            "params": [p.detach().cpu() for p in tr.model.parameters()]}
+        if state:
+            out[selection]["state"] = train_state(tr)
+    return out
+
+
+def tf32_flags() -> tuple[bool, bool]:
+    """cuDNN's and cuBLAS's TF32 switches (earlier phases turn them off)."""
+    import torch
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def mesh_gloo_rank(rank: int, world: int, device_type: str, n: int,
+                   epochs: int, flags: tuple[bool, bool]) -> dict:
+    """One rank of the gloo world (``launch.mesh.spawn``) on
+    ``device_type``: on the card both ranks share it (NCCL refuses two
+    ranks on one GPU).  The spawning process' TF32 switches (``flags``)
+    are taken, so that both worlds run the same convolutions."""
+    import torch
+    from repro_torch.launch.mesh import rank_device
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    return mesh_records(rank_device(device_type, rank), world, n, epochs)
+
+
+def same_records(a: dict, b: dict) -> bool:
+    import torch
+    return all(a[s]["loss"] == b[s]["loss"]
+               and same_plans(a[s]["plans"], b[s]["plans"])
+               and all(torch.equal(x, y)
+                       for x, y in zip(a[s]["params"], b[s]["params"]))
+               for s in a)
+
+
+def plan_from_state(inner, state, perm, epoch: int):
+    """The single-device plan (``kakurenbo._plan_step``, no group: the
+    fused histogram-select launch) from a copy of a sampler's state."""
+    import numpy as np
+    from repro_torch.core.kakurenbo import _plan_step
+    c = inner.config
+    hidden, moved_back, order, num_hidden, _, _ = _plan_step(
+        state, perm, float(inner._fraction_schedule(epoch)),
+        method=c.selection, tau=c.tau, drop_top=c.drop_top_fraction,
+        moveback=c.moveback, adjust_lr=c.adjust_lr)
+    order, nh = order.cpu().numpy(), int(num_hidden)
+    return (order[:len(order) - nh], np.sort(order[len(order) - nh:]),
+            np.flatnonzero(moved_back.cpu().numpy()))
+
+
+def phase_mesh(dev, n: int = 50_000, epochs: int = 3, n_small: int = 8_192,
+               gloo_device: str = "cuda") -> collections.Counter:
+    """The data-parallel trainer (``TrainConfig.mesh_shape``).
+
+    World 1 under NCCL in this process (``gloo`` when rehearsed on the
+    CPU), the main path at N = ``n`` through the scanned engine, its NCCL
+    collectives inside the CUDA graphs, with the staged histogram launches
+    in every plan and their counts from 0; epoch 1's plan against the
+    single-device plan from the same state and permutation; a crash
+    between two blocks of epoch 2 restored into a trainer from other
+    weights, bit-identical; the 8-step replay against the single-device
+    one, in turns.  Then at N = ``n_small`` (``"histogram_pallas"`` and
+    ``"sort"``, DropTop 0.02): world 1 scanned against its host loop bit
+    for bit (losses, plans, the whole train state), and a world of 2 gloo
+    ranks on ``gloo_device`` (host loop) against world 1, bit for bit."""
+    import shutil
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.kernels import backend
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    row = {"phase": "mesh", "n": n, "epochs": epochs, "grad_chunks": 8}
+    try:
+        backend.reset_launches()
+        scan = mesh_trainer(dev, n, epochs, 1)
+        seen = watch_epoch1(scan.strategy._inner)
+        hist_s, plans_s = recorded_run(scan)
+        launches = collections.Counter(backend.LAUNCHES)
+        row["backend"] = scan.ctx.backend
+        row["launches"] = dict(launches)
+        for name in (*STAGED, "loss_confidence", "loss_confidence_bwd"):
+            require(launches.get(name, 0) > 0, f"mesh: {name} never launched")
+        for name in STAGED:
+            require(launches[name] == epochs,
+                    f"mesh: {name} ran {launches[name]} times in {epochs} plans")
+        require(launches.get("histogram_select", 0) == 0,
+                "mesh: the fused launch ran under the group")
+        want = train_state(scan)
+        row.update({
+            "engine": hist_s[0].engine,
+            "loss": [h.train_loss for h in hist_s],
+            "wall_s": [h.wall_time for h in hist_s],
+            "hidden": [len(p[1]) for p in plans_s]})
+        require(row["engine"] == "scan", f"mesh engine {row['engine']}")
+        require(any(len(p[1]) for p in plans_s), "mesh: nothing hidden")
+        require(all(h.host_syncs == 1 for h in hist_s), "mesh: host syncs")
+        # Epoch 1's plan on one device (the fused launch) from the state
+        # and permutation the mesh planned it from.
+        single = plan_from_state(scan.strategy._inner, seen["state"],
+                                 seen["perms"][1], 1)
+        row["plan1_single_device_equal"] = all(
+            np.array_equal(a, b) for a, b in zip(single, plans_s[1][:3]))
+        require(row["plan1_single_device_equal"],
+                "mesh: epoch 1's plan differs from the single-device plan")
+        # A crash between two blocks of epoch 2, restored.
+        root = ROOT / "build" / "chip_smoke_mesh_ckpt"
+        shutil.rmtree(root, ignore_errors=True)
+        try:
+            row["restart"] = mesh_restart(dev, n, epochs, root, want,
+                                          hist_s[-1].train_loss)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        # The 8-step replay, fold vs one device, in turns.
+        if dev.type == "cuda":
+            single = mesh_trainer(dev, n, epochs, None)
+            single.engine._setup()
+            single.engine._capture(single.engine.scan_steps, False)
+            row["replay"] = replay_times(dev, {"single_device": single,
+                                               "mesh_fold": scan})
+            row["fold_cost"] = (row["replay"]["mesh_fold"]["replay_ms"]
+                                / row["replay"]["single_device"]["replay_ms"])
+        # World 1 at N = n_small: scanned = host loop.
+        one = mesh_records(dev, 1, n_small, epochs, "scan", state=True)
+        host = mesh_records(dev, 1, n_small, epochs, "host", state=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    row["scan_vs_host"] = {
+        "n": n_small,
+        "engines": {s: [one[s]["engine"][0], host[s]["engine"][0]]
+                    for s in one},
+        "loss": {s: {"scan": one[s]["loss"], "host": host[s]["loss"]}
+                 for s in one},
+        "wall_s": {s: {"scan": one[s]["wall_s"], "host": host[s]["wall_s"]}
+                   for s in one},
+        "state_tensors": {s: len(one[s]["state"]) for s in one},
+        "state_differs": {s: state_diff(one[s]["state"], host[s]["state"])
+                          for s in one},
+        "equal": same_records(one, host)}
+    require(all(e == ["scan", "host"]
+                for e in row["scan_vs_host"]["engines"].values()),
+            f"mesh engines {row['scan_vs_host']['engines']}")
+    require(row["scan_vs_host"]["equal"]
+            and not any(row["scan_vs_host"]["state_differs"].values()),
+            f"mesh: scan vs host differ: {row['scan_vs_host']}")
+    require(all(one[s]["host_syncs"] == [1] * epochs for s in one),
+            "mesh: host syncs")
+    ranks = mesh_lib.spawn(mesh_gloo_rank, 2, "gloo", gloo_device,
+                           (gloo_device, n_small, epochs, tf32_flags()))
+    for s in one:
+        require(ranks[0][s]["engine"] == ["host"] * epochs, "gloo engine")
+    row["gloo_world2"] = {
+        "n": n_small, "tf32_flags": tf32_flags(),
+        "loss": {s: ranks[0][s]["loss"] for s in one},
+        "world1_loss": {s: one[s]["loss"] for s in one},
+        "equal_to_world1": same_records(one, ranks[0]),
+        "ranks_agree": same_records(ranks[0], ranks[1]),
+        "hidden": {s: [len(p[1]) for p in one[s]["plans"]] for s in one}}
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    require(row["gloo_world2"]["equal_to_world1"],
+            "mesh: gloo world 2 differs from NCCL world 1")
+    require(row["gloo_world2"]["ranks_agree"], "mesh: gloo ranks differ")
+    return launches
+
+# ---------------------------------------------------------------------------
 
 
 #: Each TPU kernel's row: its port's source and the ``pallas_call`` site it
@@ -4246,6 +4707,15 @@ KERNELS = {
                "src/repro/kernels/threshold_select.py:114"),
     "histogram": ("src/repro_torch/kernels/csrc/threshold_select.cu",
                   "src/repro/kernels/threshold_select.py:71"),
+    # The staged path of the same kernel source (the mesh's cross-shard
+    # plan): B2 and B3 as launches of their own, then the CDF walks with
+    # the masks (the reference's jnp walk after its psum).
+    "histogram_range": ("src/repro_torch/kernels/csrc/threshold_select.cu",
+                        "src/repro/kernels/threshold_select.py:114"),
+    "histogram_count": ("src/repro_torch/kernels/csrc/threshold_select.cu",
+                        "src/repro/kernels/threshold_select.py:71"),
+    "histogram_walk": ("src/repro_torch/kernels/csrc/threshold_select.cu",
+                       "src/repro/core/planops.py:384"),
     "byte_histogram": ("src/repro_torch/kernels/csrc/rank_select.cu",
                        "src/repro/kernels/threshold_select.py:225"),
     "select_mask": ("src/repro_torch/kernels/csrc/rank_select.cu",
@@ -4303,6 +4773,7 @@ def main(argv: list[str]) -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
     main_rows, lm_rows = phase_kernels(dev)
+    main_rows.update(staged_kernel_checks(dev))
     zoo_rows = zoo_kernel_checks(dev)
     for name, extra in encdec_kernel_checks(dev).items():
         zoo_rows.setdefault(name, []).extend(extra)
@@ -4312,12 +4783,13 @@ def main(argv: list[str]) -> int:
     phase_train_step(dev)
     for engine in ("host", "scan"):
         emit(epoch_split(dev, engine))
-    phase_engines(dev)
+    phase_engines(dev, epochs=2)
     phase_restart(dev)
     launches.update(phase_resilience(dev))
     launches.update(phase_table3(dev))
     phase_card_vs_cpu(dev)
     launches.update(phase_compression(dev))
+    launches.update(phase_mesh(dev))
     launches.update(phase_serve(dev, "mamba2-130m"))
     launches.update(phase_serve(dev, "smollm-135m"))
     launches.update(phase_lm_train(dev))

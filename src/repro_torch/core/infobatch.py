@@ -9,7 +9,9 @@ unbiased.  No pruning in the final ``anneal`` fraction of training;
 The soft prune (``planops.weighted_keep``) and the kept-first shuffle
 (``masked_order``) are one device step over uniforms and a permutation from
 the strategy's own ``torch.Generator``; the order, prune count and weights
-cross to the host once per epoch.
+cross to the host once per epoch.  Under a data-parallel group (``ctx``)
+the state is row-sharded, as the reference's; the plan gathers the scores
+and is the same on every rank.
 """
 from __future__ import annotations
 
@@ -18,11 +20,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.checkpoint import copy_into
 from repro_torch.core import planops
-from repro_torch.core.state import (SampleState, init_sample_state,
+from repro_torch.core.state import (RowLayout, SampleState,
                                     scatter_observations)
 from repro_torch.core.strategy import EpochPlan, SampleStrategy, register_strategy
+from repro_torch.dist.sharding import ParallelCtx
 from repro_torch.kernels.backend import resolve_device
 
 
@@ -34,17 +36,19 @@ class InfoBatchConfig:
 
 
 def _plan_step(state: SampleState, perm: torch.Tensor, u: torch.Tensor,
-               prune_ratio: float, *, annealed: bool):
+               prune_ratio: float, *, annealed: bool,
+               ctx: ParallelCtx | None = None):
     """``(order with the kept samples first, prune count, weights)``.  In
     the anneal phase nothing is pruned and the weights are uniform; with
-    nothing observed yet ``weighted_keep`` gives the same."""
-    n, dev = state.num_samples, state.loss.device
+    nothing observed yet ``weighted_keep`` gives the same.  Over every
+    rank's samples under ``ctx`` (``state`` is this rank's rows)."""
+    n, dev = perm.shape[0], state.loss.device
     if annealed:
         prune = torch.zeros(n, dtype=torch.bool, device=dev)
         weights = torch.ones(n, dtype=torch.float32, device=dev)
     else:
         prune, weights = planops.weighted_keep(state.loss, state.seen >= 0,
-                                               prune_ratio, u)
+                                               prune_ratio, u, ctx)
     order, num_prune = planops.masked_order(perm, prune)
     return order, num_prune, weights
 
@@ -58,13 +62,17 @@ class InfoBatchStrategy(SampleStrategy):
 
     def __init__(self, num_samples: int, config: InfoBatchConfig | None = None,
                  seed: int = 0, total_epochs: int | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 ctx: ParallelCtx | None = None):
         cfg = config or InfoBatchConfig()
         if total_epochs is not None:
             cfg = dataclasses.replace(cfg, total_epochs=total_epochs)
         super().__init__(num_samples, cfg, seed)
         self.device = resolve_device(device)
-        self.state = init_sample_state(num_samples, self.device)
+        self.rows = RowLayout(num_samples, ctx)
+        self.ctx = self.rows.ctx
+        self.state = self.rows.init_state(self.device)
+        self.fused_observe = self.rows.scatter
         self._gen = planops.make_generator(seed, "infobatch", self.device)
         self.weights = np.ones(num_samples, np.float32)
 
@@ -82,7 +90,8 @@ class InfoBatchStrategy(SampleStrategy):
         annealed = epoch >= int(c.anneal * c.total_epochs)
         u, perm = self.draw_uniform(), self.draw_permutation()
         order, num_prune, weights = _plan_step(self.state, perm, u,
-                                               c.prune_ratio, annealed=annealed)
+                                               c.prune_ratio, annealed=annealed,
+                                               ctx=self.ctx)
         order = order.cpu().numpy()           # the epoch's host crossing
         self.weights = weights.cpu().numpy()
         kept = n - int(num_prune)
@@ -92,17 +101,17 @@ class InfoBatchStrategy(SampleStrategy):
                          hidden_fraction=len(pruned) / n, host_syncs=1)
 
     def observe(self, indices, loss, pa, pc, epoch: int) -> None:
-        self.state = scatter_observations(self.state, indices, loss, pa, pc,
-                                          epoch)
+        self.state = self.fused_observe(self.state, indices, loss, pa, pc,
+                                        epoch)
 
     def state_dict(self) -> dict:
         # The weights are not saved: plan() rebuilds them before any lookup.
-        return {"arrays": {"state": self.state,
+        return {"arrays": {"state": self.rows.gather(self.state),
                            "rng_key": planops.generator_state(self._gen)},
                 "host": {}}
 
     def load_state_dict(self, state: dict) -> None:
-        copy_into(self.state, state["arrays"]["state"])
+        self.rows.load(self.state, state["arrays"]["state"])
         planops.load_generator_state(self._gen, state["arrays"]["rng_key"])
 
     def batch_weights(self, indices: np.ndarray) -> np.ndarray:

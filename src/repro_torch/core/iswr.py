@@ -9,7 +9,9 @@ The plan is one device step (``importance_probs`` + the inverse-CDF draw)
 over uniforms from the strategy's own ``torch.Generator``; the draw (and,
 for the unbiased variant, the probabilities) crosses to the host once per
 epoch.  A batch may repeat an index: ``scatter_observations`` keeps the
-last occurrence, as the reference does.
+last occurrence, as the reference does.  Under a data-parallel group
+(``ctx``) the state is row-sharded, as the reference's; the probabilities
+are over every rank's samples and the draw is the same on every rank.
 """
 from __future__ import annotations
 
@@ -18,11 +20,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.checkpoint import copy_into
 from repro_torch.core import planops
-from repro_torch.core.state import (SampleState, init_sample_state,
+from repro_torch.core.state import (RowLayout, SampleState,
                                     scatter_observations)
 from repro_torch.core.strategy import EpochPlan, SampleStrategy, register_strategy
+from repro_torch.dist.sharding import ParallelCtx
 from repro_torch.kernels.backend import resolve_device
 
 
@@ -32,9 +34,11 @@ class ISWRConfig:
     unbiased: bool = False    # weight each loss by 1/(N p_i)
 
 
-def _plan_step(state: SampleState, u: torch.Tensor, smoothing: float):
-    """Loss-proportional probabilities and N draws: ``(draw, p)``."""
-    p = planops.importance_probs(state.loss, state.seen >= 0, smoothing)
+def _plan_step(state: SampleState, u: torch.Tensor, smoothing: float,
+               ctx: ParallelCtx | None = None):
+    """Loss-proportional probabilities and N draws: ``(draw, p)``, over
+    every rank's samples under ``ctx``."""
+    p = planops.importance_probs(state.loss, state.seen >= 0, smoothing, ctx)
     return planops.with_replacement(p, u), p
 
 
@@ -46,10 +50,14 @@ class ISWRStrategy(SampleStrategy):
     fused_observe = staticmethod(scatter_observations)
 
     def __init__(self, num_samples: int, config: ISWRConfig | None = None,
-                 seed: int = 0, device: str | torch.device | None = None):
+                 seed: int = 0, device: str | torch.device | None = None,
+                 ctx: ParallelCtx | None = None):
         super().__init__(num_samples, config or ISWRConfig(), seed)
         self.device = resolve_device(device)
-        self.state = init_sample_state(num_samples, self.device, init_loss=1.0)
+        self.rows = RowLayout(num_samples, ctx)
+        self.ctx = self.rows.ctx
+        self.state = self.rows.init_state(self.device, init_loss=1.0)
+        self.fused_observe = self.rows.scatter
         self._gen = planops.make_generator(seed, "iswr", self.device)
         self._last_p: np.ndarray | None = None
 
@@ -61,24 +69,24 @@ class ISWRStrategy(SampleStrategy):
 
     def plan(self, epoch: int) -> EpochPlan:
         draw, p = _plan_step(self.state, self.draw_uniform(),
-                             self.config.smoothing)
+                             self.config.smoothing, self.ctx)
         draw = draw.cpu().numpy()             # the epoch's host crossing
         if self.config.unbiased:
             self._last_p = p.cpu().numpy()
         return EpochPlan(epoch=epoch, visible_indices=draw, host_syncs=1)
 
     def observe(self, indices, loss, pa, pc, epoch: int) -> None:
-        self.state = scatter_observations(self.state, indices, loss, pa, pc,
-                                          epoch)
+        self.state = self.fused_observe(self.state, indices, loss, pa, pc,
+                                        epoch)
 
     def state_dict(self) -> dict:
         # _last_p is not saved: plan() recomputes it before any lookup.
-        return {"arrays": {"state": self.state,
+        return {"arrays": {"state": self.rows.gather(self.state),
                            "rng_key": planops.generator_state(self._gen)},
                 "host": {}}
 
     def load_state_dict(self, state: dict) -> None:
-        copy_into(self.state, state["arrays"]["state"])
+        self.rows.load(self.state, state["arrays"]["state"])
         planops.load_generator_state(self._gen, state["arrays"]["rng_key"])
 
     def batch_weights(self, indices: np.ndarray) -> np.ndarray:

@@ -18,6 +18,17 @@ epoch, when ``begin_epoch`` materialises the ``EpochPlan``.
 it with ``torch.randperm`` from a ``torch.Generator`` on the device
 (``draw_permutation``); tests replace that method to inject the reference's
 permutations.
+
+Under a data-parallel group (``ctx``, ``dist/sharding.py``) the state is
+row-sharded over the ranks, as in the reference: each rank's sampler holds
+its rows, its fused observe scatters the batch's gathered observations
+into them (``scatter_observations(offset=)``), the plan selects over them
+(``select_hidden(ctx=)``: the histogram methods' cross-shard plan, or the
+gathered state under ``"sort"``) and gathers the hidden mask for the
+visible-first order.  Every rank's generator is seeded alike, so the
+permutation, and with it the plan, is the same on every rank.  A
+checkpoint holds the whole state (``state_dict`` gathers it, and
+``load_state_dict`` takes this rank's rows).
 """
 from __future__ import annotations
 
@@ -27,13 +38,13 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.checkpoint import copy_into
 from repro_torch.core import planops
 from repro_torch.core import selection as sel
 from repro_torch.core.schedule import FractionSchedule, kakurenbo_lr
-from repro_torch.core.state import (SampleState, init_sample_state,
+from repro_torch.core.state import (RowLayout, SampleState,
                                     scatter_observations)
 from repro_torch.core.strategy import EpochPlan, SampleStrategy, register_strategy
+from repro_torch.dist.sharding import ParallelCtx
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.threshold_select import device_scalar
 
@@ -54,23 +65,30 @@ class KakurenboConfig:
 
 def _plan_step(state: SampleState, perm: torch.Tensor, f_max: float, *,
                method: str, tau: float, drop_top: float, moveback: bool,
-               adjust_lr: bool):
+               adjust_lr: bool, ctx: ParallelCtx | None = None):
     """The whole epoch plan on the state's device.
 
     Returns (hidden mask, moved-back mask, ``perm`` reordered with the
     visible set first, hidden count, F*, Eq. 8 LR factor), all tensors.
+    Under a group (``ctx``) ``state`` and the hidden mask are this rank's
+    rows, the rest is over every rank's samples (the same on each).
     """
     dev = state.loss.device
     f_max = device_scalar(f_max, torch.float32, dev)
     hidden = sel.select_hidden(state, f_max, method=method, tau=tau,
-                               drop_top_fraction=drop_top, moveback=moveback)
+                               drop_top_fraction=drop_top, moveback=moveback,
+                               ctx=ctx)
     # Move-back set (Sec. 3.1): hidden last epoch, visible again this epoch.
     moved_back = state.hidden & ~hidden
-    order, num_hidden = planops.masked_order(perm.to(dev), hidden)
+    hidden_all = hidden
+    if ctx is not None and ctx.group is not None:
+        both = ctx.gather_rows(torch.stack([hidden, moved_back], dim=1))
+        hidden_all, moved_back = both[:, 0], both[:, 1]
+    order, num_hidden = planops.masked_order(perm.to(dev), hidden_all)
     # The reference's ``num_hidden / n`` compiles (XLA) to a product with the
     # float32 reciprocal of the constant n, which is not always the
     # correctly rounded quotient; multiply the same way to match it.
-    inv_n = torch.reciprocal(device_scalar(float(state.num_samples),
+    inv_n = torch.reciprocal(device_scalar(float(hidden_all.shape[0]),
                                            torch.float32, dev))
     f_star = num_hidden.to(torch.float32) * inv_n
     one = torch.ones((), dtype=torch.float32, device=dev)
@@ -82,10 +100,16 @@ class KakurenboSampler:
     """Owns the SampleState and the epoch plan."""
 
     def __init__(self, num_samples: int, config: KakurenboConfig | None = None,
-                 seed: int = 0, device: str | torch.device | None = None):
+                 seed: int = 0, device: str | torch.device | None = None,
+                 ctx: ParallelCtx | None = None):
         self.config = c = config or KakurenboConfig()
         self.device = resolve_device(device)
-        self.state = init_sample_state(num_samples, self.device)
+        self.rows = RowLayout(num_samples, ctx)
+        self.ctx = self.rows.ctx
+        self.num_samples = num_samples
+        self.state = self.rows.init_state(self.device)
+        #: The scatter into this rank's rows (the plain one off-mesh).
+        self.scatter = self.rows.scatter
         self._gen = planops.make_generator(seed, "kakurenbo", self.device)
         self._fraction_schedule = FractionSchedule(
             max_fraction=c.max_fraction,
@@ -95,7 +119,7 @@ class KakurenboSampler:
 
     def draw_permutation(self) -> torch.Tensor:
         """This epoch's shuffle of ``range(N)``, on the device."""
-        return planops.device_permutation(self._gen, self.state.num_samples)
+        return planops.device_permutation(self._gen, self.num_samples)
 
     def begin_epoch(self, epoch: int) -> EpochPlan:
         c = self.config
@@ -103,12 +127,12 @@ class KakurenboSampler:
         hidden, moved_back, order, num_hidden, f_star, lr_scale = _plan_step(
             self.state, self.draw_permutation(), f_max, method=c.selection,
             tau=c.tau, drop_top=c.drop_top_fraction, moveback=c.moveback,
-            adjust_lr=c.adjust_lr)
+            adjust_lr=c.adjust_lr, ctx=self.ctx)
         self.state.hidden = hidden
         # The epoch's one crossing to the host: the plan's arrays and scalars.
         order_np, mb_np = order.cpu().numpy(), moved_back.cpu().numpy()
         nh, f_star, lr_scale = int(num_hidden), float(f_star), float(lr_scale)
-        n = self.state.num_samples
+        n = self.num_samples
         return EpochPlan(
             epoch=epoch,
             visible_indices=order_np[: n - nh],
@@ -124,8 +148,7 @@ class KakurenboSampler:
     def observe(self, indices: np.ndarray, loss: torch.Tensor,
                 pa: torch.Tensor, pc: torch.Tensor, epoch: int) -> None:
         """Record lagging loss/PA/PC from a refresh (or training) batch."""
-        self.state = scatter_observations(self.state, indices, loss, pa, pc,
-                                          epoch)
+        self.state = self.scatter(self.state, indices, loss, pa, pc, epoch)
 
     def refresh_hidden(self, plan: EpochPlan,
                        eval_forward: Callable[[np.ndarray], tuple],
@@ -160,9 +183,11 @@ class KakurenboStrategy(SampleStrategy):
     fused_observe = staticmethod(scatter_observations)
 
     def __init__(self, num_samples: int, config: KakurenboConfig | None = None,
-                 seed: int = 0, device: str | torch.device | None = None):
+                 seed: int = 0, device: str | torch.device | None = None,
+                 ctx: ParallelCtx | None = None):
         super().__init__(num_samples, config, seed)
-        self._inner = KakurenboSampler(num_samples, config, seed, device)
+        self._inner = KakurenboSampler(num_samples, config, seed, device, ctx)
+        self.fused_observe = self._inner.scatter
 
     @property
     def state(self) -> SampleState:
@@ -181,11 +206,12 @@ class KakurenboStrategy(SampleStrategy):
         return self._inner.refresh_hidden(plan, eval_forward, batch_size)
 
     def state_dict(self) -> dict:
-        return {"arrays": {"state": self._inner.state,
-                           "rng_key": planops.generator_state(self._inner._gen)},
+        inner = self._inner
+        return {"arrays": {"state": inner.rows.gather(inner.state),
+                           "rng_key": planops.generator_state(inner._gen)},
                 "host": {}}
 
     def load_state_dict(self, state: dict) -> None:
-        copy_into(self._inner.state, state["arrays"]["state"])
+        self._inner.rows.load(self._inner.state, state["arrays"]["state"])
         planops.load_generator_state(self._inner._gen,
                                      state["arrays"]["rng_key"])

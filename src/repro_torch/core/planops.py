@@ -14,8 +14,15 @@ counterpart, so here the random numbers are inputs: a permutation, or
 uniforms in [0, 1).  Each sampler draws them from its own
 ``torch.Generator`` (seeded by ``strategy_seed``), or, where a held step
 must hold the stream as a held key does, from ``counter_uniform``; the
-parity tests hand in the reference's.  Single-device only: the mesh's ``axis_names`` psum
-belongs to a later slice.
+parity tests hand in the reference's.
+
+Under a data-parallel group (``ctx``, ``dist/sharding.py``) the ops take
+row-sharded score inputs and gather them whole on every rank first
+(``ctx.gather_rows``, the reference's ``_rep``), so the plan math is the
+single-device computation on every rank and plans are bit-identical
+across world sizes; ``histogram_masks`` instead runs its stages on the
+local rows with the range and the histogram reduced over the ranks
+(O(bins) communication), as the reference's does inside ``shard_map``.
 """
 from __future__ import annotations
 
@@ -109,9 +116,15 @@ def counter_uniform(key: torch.Tensor, counter: torch.Tensor,
     return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def masked_order(perm: torch.Tensor, mask: torch.Tensor):
+def _gather(x: torch.Tensor, ctx) -> torch.Tensor:
+    """A row-sharded input whole on every rank (itself without a group)."""
+    return x if ctx is None else ctx.gather_rows(x)
+
+
+def masked_order(perm: torch.Tensor, mask: torch.Tensor, ctx=None):
     """``(order, num_masked)``: ``perm`` stable-sorted by ``mask`` so the
     kept (False) entries come first, in shuffled order."""
+    mask = _gather(mask, ctx)
     order = perm[torch.argsort(mask[perm].to(torch.uint8), stable=True)]
     return order, mask.sum().to(torch.int32)
 
@@ -137,11 +150,12 @@ def stable_rank_order(scores: torch.Tensor) -> torch.Tensor:
     return rank
 
 
-def topk_hide(scores: torch.Tensor, k) -> torch.Tensor:
+def topk_hide(scores: torch.Tensor, k, ctx=None) -> torch.Tensor:
     """Mask of the ``k`` smallest scores, ties by index (FORGET's prune
     set): equal to ``stable_rank_order(scores) < k``, by the radix
-    count-then-select (the rank-select kernel on the card) instead of a sort."""
-    return kernel_ops.rank_select(scores, k)
+    count-then-select (the rank-select kernel on the card) instead of a
+    sort.  Over every rank's scores under ``ctx``."""
+    return kernel_ops.rank_select(_gather(scores, ctx), k)
 
 
 def sort_high_mask(loss: torch.Tensor, valid: torch.Tensor,
@@ -176,13 +190,15 @@ def _valid_mean(loss: torch.Tensor, valid: torch.Tensor):
 
 
 def importance_probs(loss: torch.Tensor, valid: torch.Tensor,
-                     smoothing: float) -> torch.Tensor:
-    """Loss-proportional draw probabilities (ISWR).
+                     smoothing: float, ctx=None) -> torch.Tensor:
+    """Loss-proportional draw probabilities (ISWR), over every rank's
+    samples under ``ctx``.
 
     Never-seen samples take the mean seen loss (1.0 when nothing is seen);
     ``smoothing`` keeps zero-loss samples drawable; a non-finite loss counts
     as not seen.
     """
+    loss, valid = _gather(loss, ctx), _gather(valid, ctx)
     valid = valid & torch.isfinite(loss)
     mean, cnt = _valid_mean(loss, valid)
     fill = torch.where(cnt > 0, mean, 1.0)
@@ -225,13 +241,15 @@ def with_replacement(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 
 def weighted_keep(loss: torch.Tensor, valid: torch.Tensor, prune_ratio: float,
-                  u: torch.Tensor):
-    """InfoBatch soft pruning: ``(prune_mask, weights)``.
+                  u: torch.Tensor, ctx=None):
+    """InfoBatch soft pruning: ``(prune_mask, weights)``, over every rank's
+    samples under ``ctx`` (``u`` is the (N,) uniforms of all of them).
 
     Prunes the below-mean valid samples whose uniform ``u`` falls below
     ``prune_ratio`` and weights every kept below-mean sample by
     ``1/(1 - r)``.  Non-finite losses count as not valid.
     """
+    loss, valid = _gather(loss, ctx), _gather(valid, ctx)
     valid = valid & torch.isfinite(loss)
     mean, _ = _valid_mean(loss, valid)
     below = valid & (loss < mean)
@@ -245,7 +263,7 @@ def weighted_keep(loss: torch.Tensor, valid: torch.Tensor, prune_ratio: float,
 
 def histogram_masks(loss: torch.Tensor, valid: torch.Tensor, low_fraction,
                     high_fraction: float = 0.0, *, bins: int = HIST_BINS,
-                    use_kernel: bool = False):
+                    use_kernel: bool = False, ctx=None):
     """Histogram-CDF threshold masks ``(low_mask, high_mask)``.
 
     One pass builds the histogram of the valid losses; the CDF walk gives
@@ -258,11 +276,51 @@ def histogram_masks(loss: torch.Tensor, valid: torch.Tensor, low_fraction,
     histogram_select`` (the one histogram-select kernel on a CUDA tensor,
     the plain version on a CPU one); ``False`` runs the plain composition
     on any device.
+
+    Under a group (``ctx``) the rows are this rank's and the plan is the
+    cross-shard one: the local ``[lo, hi]`` (B2's stage) reduced to the
+    global range (one ``all_reduce`` MIN of ``[lo, -hi]``), the local
+    histogram over it (B3's) summed (one ``all_reduce``, int32: exact),
+    then both walks over the global counts to ``floor(F * N)`` of the
+    global N and this rank's masks.  Min, max and integer sums do not
+    depend on the order of reduction, so the masks are the rows of the
+    single-device masks.  ``use_kernel`` runs each stage's kernel
+    (``histogram_range``, ``histogram_count``, ``histogram_walk``).
     """
-    select = ts.histogram_select if use_kernel else ts.histogram_select_plain
-    low_mask, high_mask, *_ = select(loss, valid, low_fraction, high_fraction,
-                                     bins)
+    if ctx is None or ctx.group is None:
+        select = (ts.histogram_select if use_kernel
+                  else ts.histogram_select_plain)
+        low_mask, high_mask, *_ = select(loss, valid, low_fraction,
+                                         high_fraction, bins)
+        return low_mask, high_mask
+    low_mask, high_mask, *_ = histogram_select_staged(
+        loss, valid, low_fraction, high_fraction, bins=bins,
+        use_kernel=use_kernel, ctx=ctx)
     return low_mask, high_mask
+
+
+def histogram_select_staged(loss: torch.Tensor, valid: torch.Tensor,
+                            low_fraction, high_fraction: float = 0.0, *,
+                            bins: int = HIST_BINS, use_kernel: bool = False,
+                            ctx):
+    """The cross-shard histogram selection of ``histogram_masks``:
+    ``(low_mask, high_mask, hist, lo_hi, walk)`` with the global histogram
+    and range, as ``threshold_select.histogram_select`` gives them."""
+    if use_kernel:
+        rng, cnt, walk = (ts.histogram_range, ts.histogram_count,
+                          ts.histogram_walk)
+    else:
+        rng, cnt, walk = ts.range_plain, ts.count_plain, ts.walk_plain
+    lo_hi = rng(loss, valid)
+    # One MIN reduces both ends: max(hi) = -min(-hi), and negation is exact.
+    lo_hi[1:].neg_()
+    ctx.all_reduce(lo_hi, "min")
+    lo_hi[1:].neg_()
+    hist = ctx.all_reduce(cnt(loss, valid, lo_hi, bins), "sum")
+    n_count = loss.shape[0] * ctx.dp_size
+    low_mask, high_mask, w = walk(loss, valid, hist, lo_hi, n_count,
+                                  low_fraction, high_fraction)
+    return low_mask, high_mask, hist, lo_hi, w
 
 
 def threshold_mask(loss: torch.Tensor, valid: torch.Tensor, fraction, *,

@@ -17,13 +17,19 @@ are never hidden.  DropTop (App. D) hides the highest-loss tail on top,
 regardless of move-back: under ``"sort"`` by the exact rank window of
 ``planops.sort_high_mask`` (the radix select, one kernel on the card),
 under the histogram methods by the CDF walk mirrored from the top bin.
+
+Under a data-parallel group (``ctx``) the state is this rank's row slice
+and the mask is over its rows: the histogram methods run the cross-shard
+plan of ``planops.histogram_masks`` (O(bins) communicated), ``"sort"``
+ranks the gathered state (``state.gather_state``, O(N)) and keeps its
+rows, as the reference's global argsort does.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import planops
-from repro_torch.core.state import SampleState
+from repro_torch.core.state import SampleState, gather_state
 
 #: Methods accepted by ``select_hidden`` / ``KakurenboConfig.selection``.
 SELECTION_METHODS = ("sort", "histogram", "histogram_pallas")
@@ -54,13 +60,13 @@ def select_hidden_histogram(state: SampleState, max_fraction,
                             tau: float = 0.7, bins: int = planops.HIST_BINS,
                             drop_top_fraction: float = 0.0,
                             moveback: bool = True,
-                            use_kernel: bool = False) -> torch.Tensor:
+                            use_kernel: bool = False, ctx=None) -> torch.Tensor:
     """Histogram-CDF threshold instead of a sort.  The hidden count is at
     most ``floor(F * N)`` plus half the boundary bin (see
     ``planops.histogram_masks``)."""
     candidate, top = planops.histogram_masks(
         state.loss, state.seen >= 0, max_fraction, drop_top_fraction,
-        bins=bins, use_kernel=use_kernel)
+        bins=bins, use_kernel=use_kernel, ctx=ctx)
     hidden = candidate & _eligible(state, tau, moveback)
     if top is not None:
         hidden = hidden | top
@@ -69,14 +75,17 @@ def select_hidden_histogram(state: SampleState, max_fraction,
 
 def select_hidden(state: SampleState, max_fraction, *, method: str = "sort",
                   tau: float = 0.7, drop_top_fraction: float = 0.0,
-                  moveback: bool = True) -> torch.Tensor:
-    """(N,) bool hidden mask by ``method``."""
+                  moveback: bool = True, ctx=None) -> torch.Tensor:
+    """(N,) bool hidden mask by ``method`` (under ``ctx``: over this rank's
+    rows of the state)."""
     if method == "sort":
-        return select_hidden_sort(state, max_fraction, tau, drop_top_fraction,
-                                  moveback)
+        whole = select_hidden_sort(gather_state(state, ctx), max_fraction,
+                                   tau, drop_top_fraction, moveback)
+        return whole if ctx is None else ctx.shard_rows(whole)
     if method in ("histogram", "histogram_pallas"):
         return select_hidden_histogram(
             state, max_fraction, tau, drop_top_fraction=drop_top_fraction,
-            moveback=moveback, use_kernel=(method == "histogram_pallas"))
+            moveback=moveback, use_kernel=(method == "histogram_pallas"),
+            ctx=ctx)
     raise ValueError(
         f"unknown selection method {method!r}; known: {SELECTION_METHODS}")

@@ -15,6 +15,11 @@ counter), and the parity tests hand in the reference's.  Key and counter
 are state like the reference's carried key: a guarded step that holds the
 selection state (a non-finite selection loss) holds the counter too, so
 the next step draws what the held one drew, as the held key does.
+
+Under a data-parallel group (``ctx``) the selection state is replicated,
+as the reference's (``selective_backprop.py:115``): the trainer gathers
+the batch's forward-only loss, every rank runs the same select on it and
+takes its rows of the weights.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 from repro_torch.checkpoint.checkpoint import copy_into
 from repro_torch.core import planops
 from repro_torch.core.strategy import EpochPlan, SampleStrategy, register_strategy
+from repro_torch.dist.sharding import ParallelCtx
 from repro_torch.kernels.backend import resolve_device
 
 
@@ -87,9 +93,12 @@ class SBStrategy(SampleStrategy):
     config_cls, config_field = SBConfig, "sb"
 
     def __init__(self, num_samples: int, config: SBConfig | None = None,
-                 seed: int = 0, device: str | torch.device | None = None):
+                 seed: int = 0, device: str | torch.device | None = None,
+                 ctx: ParallelCtx | None = None):
         super().__init__(num_samples, config or SBConfig(), seed)
         self.device = resolve_device(device)
+        # Made alike on every rank: replicated with nothing to broadcast.
+        self.ctx = ctx or ParallelCtx()
         self._sel = init_select_state(self.config, self.device, seed)
         self._gen = planops.make_generator(seed, "sb-plan", self.device)
 

@@ -10,13 +10,27 @@ batch and lets a captured train step (CUDA graphs) hold their addresses;
 a checkpoint restore copies into them too.  The numeric guard's
 ``valid=`` mask (``train/guard.py``) makes a non-finite observation a
 bit-exact no-op for its sample.
+
+Under a data-parallel group (``dist/sharding.py``) each rank keeps a row
+slice of the state, as the reference row-shards it over its mesh:
+``init_sample_state(rows=)`` builds one, ``scatter_observations(offset=)``
+maps the batch's global ids to its rows and skips the others, and
+``gather_state`` puts the ranks' slices back together.  ``RowLayout`` is
+the one place a strategy learns that layout from: it builds the slice,
+gives the scatter into it and carries the state to and from a
+checkpoint's global arrays.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.checkpoint.checkpoint import copy_into
+from repro_torch.dist.sharding import ParallelCtx
 
 
 @dataclasses.dataclass
@@ -49,10 +63,13 @@ OBSERVED_FIELDS = ("loss", "pa", "pc", "seen", "forget_events",
 
 
 def init_sample_state(num_samples: int, device: torch.device | str,
-                      init_loss: float = 1e9) -> SampleState:
+                      init_loss: float = 1e9,
+                      rows: tuple[int, int] | None = None) -> SampleState:
     """Fresh state: everything visible, never-seen samples maximally
-    important (a large loss, so they are never hidden)."""
-    n, dev = num_samples, torch.device(device)
+    important (a large loss, so they are never hidden).  ``rows`` (``[start,
+    stop)`` of ``num_samples``) builds that row slice only."""
+    n = num_samples if rows is None else rows[1] - rows[0]
+    dev = torch.device(device)
     return SampleState(
         loss=torch.full((n,), init_loss, dtype=torch.float32, device=dev),
         pa=torch.zeros(n, dtype=torch.bool, device=dev),
@@ -89,7 +106,8 @@ def scatter_observations(state: SampleState,
                          loss: torch.Tensor, pa: torch.Tensor,
                          pc: torch.Tensor,
                          epoch: int | torch.Tensor,
-                         valid: torch.Tensor | None = None) -> SampleState:
+                         valid: torch.Tensor | None = None,
+                         offset: int | None = None) -> SampleState:
     """Record (loss, PA, PC) for the samples at ``indices``, in place.
 
     ``epoch`` is a Python int or a 0-dim int32 tensor on the state's device
@@ -114,9 +132,26 @@ def scatter_observations(state: SampleState,
     reference's last-write-wins scatter does.  Static shapes only
     (``torch.where`` against the gathered values), so a captured step can
     hold it.  ``None`` is the unguarded path, unchanged.
+
+    ``offset`` makes ``state`` the row slice ``[offset, offset + n)`` of a
+    larger state (a rank's, under a data-parallel group): the global ids in
+    ``indices`` map to its rows, and an occurrence outside them is skipped
+    as an invalid one is.  Such occurrences are moved ahead of the others
+    (a stable sort of the batch), so that a slot any of the batch's own
+    rows writes takes that row's values; they target a row of the slice
+    only to keep the shapes static.  The slice's rows end as the global
+    scatter leaves them, bit for bit.
     """
     dev = state.loss.device
     idx = torch.as_tensor(indices).to(device=dev, dtype=torch.int64)
+    if offset is not None:
+        n = state.num_samples
+        local = idx - offset
+        inside = (local >= 0) & (local < n)
+        first = torch.argsort(inside.to(torch.uint8), stable=True)
+        idx = local.clamp(0, n - 1)[first]
+        loss, pa, pc = loss[first], pa[first], pc[first]
+        valid = (inside if valid is None else valid & inside)[first]
     # A forgetting event (FORGET baseline) is a correct -> incorrect flip.
     forget_inc = state.prev_correct[idx] & ~pa
     if valid is not None:
@@ -145,3 +180,85 @@ def scatter_observations(state: SampleState,
     state.forget_events.index_add_(0, idx, forget_inc)
     state.prev_correct[idx] = prev_last
     return state
+
+
+def _words(t: torch.Tensor) -> torch.Tensor:
+    """A float32, int32 or bool field as int32 words, bit for bit."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t.to(torch.int32)
+
+
+def _from_words(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    w = w.contiguous()
+    if dtype == torch.float32:
+        return w.view(torch.float32)
+    return w != 0 if dtype == torch.bool else w
+
+
+def gather_state(state: SampleState, ctx) -> SampleState:
+    """The whole state from every rank's row slice, in rank order: one
+    all-gather of the fields packed as int32 words (bit for bit).  ``state``
+    itself when ``ctx`` spans one process without a group."""
+    if ctx is None or ctx.group is None:
+        return state
+    names = [f.name for f in dataclasses.fields(state)]
+    fields = [getattr(state, k) for k in names]
+    got = ctx.gather_rows(torch.stack([_words(t) for t in fields], dim=1))
+    return SampleState(**{k: _from_words(got[:, i], t.dtype)
+                          for i, (k, t) in enumerate(zip(names, fields))})
+
+
+class RowLayout:
+    """Where a strategy's per-sample rows live under ``ctx``: this rank's
+    contiguous slice ``[start, stop)`` of ``num_samples`` (all of them
+    without a group).  The strategies that row-shard their state
+    (KAKURENBO and random, FORGET, InfoBatch, ISWR) hold one and pass only
+    ``ctx`` to it."""
+
+    def __init__(self, num_samples: int, ctx: ParallelCtx | None = None):
+        self.num_samples = num_samples
+        self.ctx = ctx or ParallelCtx()
+        self.start, self.stop = self.ctx.rows(num_samples)
+
+    def init_state(self, device: torch.device | str,
+                   init_loss: float = 1e9) -> SampleState:
+        """A fresh ``SampleState`` of this rank's rows."""
+        return init_sample_state(self.num_samples, device, init_loss,
+                                 rows=(self.start, self.stop))
+
+    @property
+    def scatter(self):
+        """``scatter_observations`` into this rank's rows (``offset=`` their
+        first id): a strategy's ``fused_observe``; the plain one without a
+        group."""
+        if self.ctx.group is None:
+            return scatter_observations
+        return functools.partial(scatter_observations, offset=self.start)
+
+    def shard(self, x):
+        """This rank's rows of a global ``(N, ...)`` tensor."""
+        return self.ctx.shard_rows(x)
+
+    def gather(self, x):
+        """The global value of a row-sharded ``SampleState`` or tensor: what
+        a checkpoint holds."""
+        if isinstance(x, SampleState):
+            return gather_state(x, self.ctx)
+        return self.ctx.gather_rows(x)
+
+    def load(self, own: Any, whole: Any) -> None:
+        """Copy this rank's rows of ``whole`` (a checkpoint's global arrays:
+        a tensor, a ``SampleState``, the dict of its fields, or a dict of
+        these) into ``own``, in place."""
+        copy_into(own, self._rows_of(whole))
+
+    def _rows_of(self, whole: Any) -> Any:
+        if self.ctx.group is None:
+            return whole
+        if dataclasses.is_dataclass(whole):
+            whole = {f.name: getattr(whole, f.name)
+                     for f in dataclasses.fields(whole)}
+        if isinstance(whole, dict):
+            return {k: self._rows_of(v) for k, v in whole.items()}
+        return self.ctx.shard_rows(whole)

@@ -129,6 +129,9 @@ _SIGNATURES = {
     "lc_backward_f32": [_P, _P, _P, _P, _LL, _P, _I, _I, _I, _P],
     "lc_backward_bf16": [_P, _P, _P, _P, _LL, _P, _I, _I, _I, _P],
     "hs_histogram_select": [_P, _P, _P, _F, _F, _I, _P, _I, _P, _P, _I, _I, _P],
+    "hs_range": [_P, _P, _P, _I, _P, _I, _I, _P],
+    "hs_count": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "hs_walk": [_P, _P, _P, _P, _P, _F, _F, _I, _I, _P, _P, _P, _I, _I, _P],
     "rs_rank_select": [_P, _P, _I, _LL, _I, _P, _I, _P, _I, _I, _P],
     # Not a launch: the floats of B6's scratch (-1 if too large).
     "ssd_scan_scratch_floats": [_I] * 6,

@@ -118,34 +118,16 @@ __device__ __forceinline__ void block_minmax(float& lo, float& hi, float* wlo,
   __syncthreads();                      // wlo, whi are reused
 }
 
+// The slice's raw min and max (invalid as BIG and -BIG; an empty slice
+// +inf and -inf), per thread (block_minmax folds them).  With kShared the
+// loaded values, NaN for "not valid", are kept in xs.
 template <bool kShared>
-__global__ void __launch_bounds__(kThreads, 1)
-histogram_select_kernel(const float* __restrict__ loss,
-                        const unsigned char* __restrict__ valid,
-                        const float* frac_ptr, float frac_value,
-                        float high_fraction, int bins, int* __restrict__ scratch,
-                        unsigned char* __restrict__ low,
-                        unsigned char* __restrict__ high, int n, int slice) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  long long* cdf = reinterpret_cast<long long*>(smem);        // (bins,)
-  int* counts = reinterpret_cast<int*>(cdf + bins);            // (bins,)
-  float* xs = reinterpret_cast<float*>(counts + bins);         // (slice,)
-  __shared__ float wlo[kWarps], whi[kWarps];
-  __shared__ long long wsum[kWarps];
-  __shared__ int picked[2];
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const long long start = static_cast<long long>(blockIdx.x) * slice;
-  const int len = static_cast<int>(
-      start >= n ? 0 : (n - start < slice ? n - start : slice));
-  const float* lp = loss + start;
-  const unsigned char* vp = valid + start;
-  int* hist = scratch + kHistWord;
-  float* posts = reinterpret_cast<float*>(hist + bins);
-  const cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-
-  // 1. Load the slice; the block's min and max, invalid as BIG and -BIG.
-  float lo = inf_f(), hi = -inf_f();
+__device__ __forceinline__ void slice_minmax(const float* lp,
+                                             const unsigned char* vp, int len,
+                                             float* xs, float& lo, float& hi) {
+  const int tid = threadIdx.x;
+  lo = inf_f();
+  hi = -inf_f();
   for (int base = 0; base < len; base += kThreads * kUnroll) {
     float v[kUnroll];
 #pragma unroll
@@ -164,28 +146,18 @@ histogram_select_kernel(const float* __restrict__ loss,
       }
     }
   }
-  for (int j = tid; j < bins; j += kThreads) counts[j] = 0;
-  block_minmax(lo, hi, wlo, whi);
-  if (tid == 0) {
-    posts[2 * blockIdx.x] = lo;
-    posts[2 * blockIdx.x + 1] = hi;
-  }
-  grid.sync();
+}
 
-  // 2. The range: every block reduces all the posts.
-  lo = inf_f();
-  hi = -inf_f();
-  for (int j = tid; j < static_cast<int>(gridDim.x); j += kThreads) {
-    lo = fminf(lo, __ldcg(&posts[2 * j]));
-    hi = fmaxf(hi, __ldcg(&posts[2 * j + 1]));
-  }
-  block_minmax(lo, hi, wlo, whi);
-  const float lo_b = fminf(lo, hi);     // nothing valid: [BIG, -BIG]
-  const float span = fmaxf(__fsub_rn(hi, lo_b), 1e-12f);
-  const float fbins = static_cast<float>(bins);
-
-  // 3. The histogram.  The trip count is the same for every thread, so
-  // whole warps vote.
+// The slice's valid losses counted into the block's shared `counts`.  The
+// trip count is the same for every thread, so whole warps vote; lanes that
+// hit one bin merge by __match_any_sync and add once.
+template <bool kShared>
+__device__ __forceinline__ void count_slice(const float* lp,
+                                            const unsigned char* vp, int len,
+                                            const float* xs, float lo_b,
+                                            float span, float fbins, int bins,
+                                            int* counts) {
+  const int tid = threadIdx.x, lane = tid % 32;
   for (int base = 0; base < len; base += kThreads * kUnroll) {
     float v[kUnroll];
 #pragma unroll
@@ -204,15 +176,26 @@ histogram_select_kernel(const float* __restrict__ loss,
       }
     }
   }
-  __syncthreads();
-  for (int j = tid; j < bins; j += kThreads)
-    if (counts[j]) atomicAdd(&hist[j], counts[j]);
-  grid.sync();
+}
 
-  // 4. The walks, in every block: inclusive int64 scan of the counts in
-  // rounds of kThreads bins, then the first bin whose running count reaches
-  // the target (none: bins - 1).  rcdf[j], the count in the top j + 1 bins,
-  // is total - cdf[bins - 2 - j].
+// The CDF walks over a histogram in global memory (`hist`, `bins` counts),
+// run by a whole block: inclusive int64 scan of the counts in rounds of
+// kThreads bins into `cdf` (the counts themselves into `counts`), then the
+// first bin whose running count reaches the target (none: bins - 1), and
+// whether to include it.  rcdf[j], the count in the top j + 1 bins, is
+// total - cdf[bins - 2 - j].  Every thread returns the same walk.
+struct Walk {
+  long long num_hide, num_top;
+  int b, b_top;
+  bool include_b, include_bt;
+};
+
+__device__ __forceinline__ Walk walk_counts(const int* hist, int bins,
+                                            long long num_hide,
+                                            long long num_top, bool want_high,
+                                            long long* cdf, int* counts,
+                                            long long* wsum, int* picked) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   long long total = 0;
   for (int base = 0; base < bins; base += kThreads) {
     const int j = base + tid;
@@ -233,9 +216,6 @@ histogram_select_kernel(const float* __restrict__ loss,
     if (j < bins) cdf[j] = c + before;
     __syncthreads();                    // wsum is reused
   }
-  const bool want_high = high != nullptr;
-  const long long num_hide = count_of(frac_ptr ? *frac_ptr : frac_value, n);
-  const long long num_top = want_high ? count_of(high_fraction, n) : 0;
   if (tid == 0) picked[0] = picked[1] = bins - 1;
   __syncthreads();
   // Running counts never fall, so at most one thread writes each.
@@ -248,24 +228,107 @@ histogram_select_kernel(const float* __restrict__ loss,
     }
   }
   __syncthreads();
-  const int b = picked[0];
-  const bool include_b = (num_hide - (b > 0 ? cdf[b - 1] : 0)) * 2 >= counts[b];
-  int b_top = 0;
-  bool include_bt = false;
+  Walk w;
+  w.num_hide = num_hide;
+  w.num_top = num_top;
+  w.b = picked[0];
+  w.include_b = (num_hide - (w.b > 0 ? cdf[w.b - 1] : 0)) * 2 >= counts[w.b];
+  w.b_top = 0;
+  w.include_bt = false;
   if (want_high) {
     const int bt = picked[1];
-    b_top = bins - 1 - bt;
-    include_bt = (num_top - (bt > 0 ? total - cdf[bins - 1 - bt] : 0)) * 2 >=
-                 counts[b_top];
+    w.b_top = bins - 1 - bt;
+    w.include_bt = (num_top - (bt > 0 ? total - cdf[bins - 1 - bt] : 0)) * 2 >=
+                   counts[w.b_top];
   }
+  return w;
+}
+
+__device__ __forceinline__ void write_walk(long long* out, const Walk& w) {
+  out[0] = w.num_hide;
+  out[1] = w.b;
+  out[2] = w.include_b;
+  out[3] = w.num_top;
+  out[4] = w.b_top;
+  out[5] = w.include_bt;
+}
+
+// The masks of one loss x (NaN: not valid) from the walk's bins.
+__device__ __forceinline__ void masks_of(float x, float lo_b, float span,
+                                         float fbins, int bins, const Walk& w,
+                                         bool& l, bool& h) {
+  l = h = false;
+  if (x == x) {
+    const int idx = bin_of(x, lo_b, span, fbins, bins);
+    l = w.include_b ? idx <= w.b : idx < w.b;
+    h = w.include_bt ? idx >= w.b_top : idx > w.b_top;
+  }
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads, 1)
+histogram_select_kernel(const float* __restrict__ loss,
+                        const unsigned char* __restrict__ valid,
+                        const float* frac_ptr, float frac_value,
+                        float high_fraction, int bins, int* __restrict__ scratch,
+                        unsigned char* __restrict__ low,
+                        unsigned char* __restrict__ high, int n, int slice) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long* cdf = reinterpret_cast<long long*>(smem);        // (bins,)
+  int* counts = reinterpret_cast<int*>(cdf + bins);            // (bins,)
+  float* xs = reinterpret_cast<float*>(counts + bins);         // (slice,)
+  __shared__ float wlo[kWarps], whi[kWarps];
+  __shared__ long long wsum[kWarps];
+  __shared__ int picked[2];
+
+  const int tid = threadIdx.x;
+  const long long start = static_cast<long long>(blockIdx.x) * slice;
+  const int len = static_cast<int>(
+      start >= n ? 0 : (n - start < slice ? n - start : slice));
+  const float* lp = loss + start;
+  const unsigned char* vp = valid + start;
+  int* hist = scratch + kHistWord;
+  float* posts = reinterpret_cast<float*>(hist + bins);
+  const cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+
+  // 1. Load the slice; the block's min and max, invalid as BIG and -BIG.
+  float lo, hi;
+  slice_minmax<kShared>(lp, vp, len, xs, lo, hi);
+  for (int j = tid; j < bins; j += kThreads) counts[j] = 0;
+  block_minmax(lo, hi, wlo, whi);
+  if (tid == 0) {
+    posts[2 * blockIdx.x] = lo;
+    posts[2 * blockIdx.x + 1] = hi;
+  }
+  grid.sync();
+
+  // 2. The range: every block reduces all the posts.
+  lo = inf_f();
+  hi = -inf_f();
+  for (int j = tid; j < static_cast<int>(gridDim.x); j += kThreads) {
+    lo = fminf(lo, __ldcg(&posts[2 * j]));
+    hi = fmaxf(hi, __ldcg(&posts[2 * j + 1]));
+  }
+  block_minmax(lo, hi, wlo, whi);
+  const float lo_b = fminf(lo, hi);     // nothing valid: [BIG, -BIG]
+  const float span = fmaxf(__fsub_rn(hi, lo_b), 1e-12f);
+  const float fbins = static_cast<float>(bins);
+
+  // 3. The histogram.
+  count_slice<kShared>(lp, vp, len, xs, lo_b, span, fbins, bins, counts);
+  __syncthreads();
+  for (int j = tid; j < bins; j += kThreads)
+    if (counts[j]) atomicAdd(&hist[j], counts[j]);
+  grid.sync();
+
+  // 4. The walks, in every block.
+  const bool want_high = high != nullptr;
+  const Walk w = walk_counts(
+      hist, bins, count_of(frac_ptr ? *frac_ptr : frac_value, n),
+      want_high ? count_of(high_fraction, n) : 0, want_high, cdf, counts, wsum,
+      picked);
   if (blockIdx.x == 0 && tid == 0) {
-    long long* walk = reinterpret_cast<long long*>(scratch);
-    walk[0] = num_hide;
-    walk[1] = b;
-    walk[2] = include_b;
-    walk[3] = num_top;
-    walk[4] = b_top;
-    walk[5] = include_bt;
+    write_walk(reinterpret_cast<long long*>(scratch), w);
     float* lo_hi = reinterpret_cast<float*>(scratch + kLoHiWord);
     lo_hi[0] = lo;
     lo_hi[1] = hi;
@@ -276,15 +339,124 @@ histogram_select_kernel(const float* __restrict__ loss,
     const int i = base + tid;
     if (i < len) {
       const float x = kShared ? xs[i] : load_x(lp, vp, i);
-      bool l = false, h = false;
-      if (x == x) {
-        const int idx = bin_of(x, lo_b, span, fbins, bins);
-        l = include_b ? idx <= b : idx < b;
-        h = include_bt ? idx >= b_top : idx > b_top;
-      }
+      bool l, h;
+      masks_of(x, lo_b, span, fbins, bins, w, l, h);
       low[start + i] = l;
       if (want_high) high[start + i] = h;
     }
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// The staged path: the same stages as separate launches, for a plan whose
+// rows are split over ranks (core/planops.py::histogram_masks under a
+// group).  Between them the caller reduces [lo, hi] (min, max) and the
+// histogram (sum) over the ranks, which one launch cannot hold.  Each
+// stage reads its inputs from device memory and shares the fused kernel's
+// device functions (load_x, bin_of, count_of, walk_counts, masks_of), so a
+// world of one gives the fused launch's bits.  range and count are
+// cooperative (one 1,024-thread block a SM, all resident); the walk is an
+// ordinary launch whose blocks each repeat the walk over the bins.
+
+// B2: the raw local [lo, hi] into lo_hi[0..1]; posts (2 x grid) scratch.
+__global__ void __launch_bounds__(kThreads, 1)
+range_kernel(const float* __restrict__ loss,
+             const unsigned char* __restrict__ valid, float* __restrict__ posts,
+             float* __restrict__ lo_hi, int n, int slice) {
+  __shared__ float wlo[kWarps], whi[kWarps];
+  const long long start = static_cast<long long>(blockIdx.x) * slice;
+  const int len = static_cast<int>(
+      start >= n ? 0 : (n - start < slice ? n - start : slice));
+  float lo, hi;
+  slice_minmax<false>(loss + start, valid + start, len, nullptr, lo, hi);
+  block_minmax(lo, hi, wlo, whi);
+  if (threadIdx.x == 0) {
+    posts[2 * blockIdx.x] = lo;
+    posts[2 * blockIdx.x + 1] = hi;
+  }
+  cooperative_groups::this_grid().sync();
+  if (blockIdx.x != 0) return;
+  lo = inf_f();
+  hi = -inf_f();
+  for (int j = threadIdx.x; j < static_cast<int>(gridDim.x); j += kThreads) {
+    lo = fminf(lo, __ldcg(&posts[2 * j]));
+    hi = fmaxf(hi, __ldcg(&posts[2 * j + 1]));
+  }
+  block_minmax(lo, hi, wlo, whi);
+  if (threadIdx.x == 0) {
+    lo_hi[0] = lo;
+    lo_hi[1] = hi;
+  }
+}
+
+// The bin arithmetic's range from a raw [lo, hi] in device memory.
+__device__ __forceinline__ void span_of(const float* lo_hi, float& lo_b,
+                                        float& span) {
+  const float lo = __ldcg(&lo_hi[0]), hi = __ldcg(&lo_hi[1]);
+  lo_b = fminf(lo, hi);                 // nothing valid: [BIG, -BIG]
+  span = fmaxf(__fsub_rn(hi, lo_b), 1e-12f);
+}
+
+// B3: the local counts over the [lo, hi] in lo_hi into hist (bins,), which
+// the kernel zeroes itself before its grid barrier.
+__global__ void __launch_bounds__(kThreads, 1)
+count_kernel(const float* __restrict__ loss,
+             const unsigned char* __restrict__ valid,
+             const float* __restrict__ lo_hi, int* __restrict__ hist, int bins,
+             int n, int slice) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* counts = reinterpret_cast<int*>(smem);                  // (bins,)
+  const int tid = threadIdx.x;
+  const long long start = static_cast<long long>(blockIdx.x) * slice;
+  const int len = static_cast<int>(
+      start >= n ? 0 : (n - start < slice ? n - start : slice));
+  for (int j = tid; j < bins; j += kThreads) counts[j] = 0;
+  for (int j = blockIdx.x * kThreads + tid; j < bins; j += gridDim.x * kThreads)
+    hist[j] = 0;
+  float lo_b, span;
+  span_of(lo_hi, lo_b, span);
+  __syncthreads();
+  count_slice<false>(loss + start, valid + start, len, nullptr, lo_b, span,
+                     static_cast<float>(bins), bins, counts);
+  __syncthreads();
+  cooperative_groups::this_grid().sync();   // every zero before any add
+  for (int j = tid; j < bins; j += kThreads)
+    if (counts[j]) atomicAdd(&hist[j], counts[j]);
+}
+
+// The walks over the (reduced) histogram in device memory, the counts from
+// n_count rows (the ranks' total), then this rank's masks; block 0 writes
+// the walk.
+__global__ void __launch_bounds__(kThreads)
+walk_kernel(const float* __restrict__ loss,
+            const unsigned char* __restrict__ valid,
+            const int* __restrict__ hist, const float* __restrict__ lo_hi,
+            const float* frac_ptr, float frac_value, float high_fraction,
+            int bins, int n_count, long long* __restrict__ walk,
+            unsigned char* __restrict__ low, unsigned char* __restrict__ high,
+            int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long* cdf = reinterpret_cast<long long*>(smem);        // (bins,)
+  int* counts = reinterpret_cast<int*>(cdf + bins);            // (bins,)
+  __shared__ long long wsum[kWarps];
+  __shared__ int picked[2];
+  const bool want_high = high != nullptr;
+  const Walk w = walk_counts(
+      hist, bins, count_of(frac_ptr ? *frac_ptr : frac_value, n_count),
+      want_high ? count_of(high_fraction, n_count) : 0, want_high, cdf, counts,
+      wsum, picked);
+  if (blockIdx.x == 0 && threadIdx.x == 0) write_walk(walk, w);
+  float lo_b, span;
+  span_of(lo_hi, lo_b, span);
+  const float fbins = static_cast<float>(bins);
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * kThreads) {
+    bool l, h;
+    masks_of(load_x(loss, valid, static_cast<int>(i)), lo_b, span, fbins, bins,
+             w, l, h);
+    low[i] = l;
+    if (want_high) high[i] = h;
   }
 }
 
@@ -378,5 +550,96 @@ extern "C" int hs_histogram_select(const void* loss, const void* valid,
              : reinterpret_cast<const void*>(histogram_select_kernel<false>),
       dim3(static_cast<unsigned>(grid)), dim3(kThreads), args, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// The staged grids: one block of kThreads a SM at most, never more blocks
+// than N has rows of kThreads elements.
+static int staged_grid(int n, int device, int* grid, int* slice) {
+  DeviceInfo* d = nullptr;
+  cudaError_t err = device_info(device, &d);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = (static_cast<long long>(n) + kThreads - 1) / kThreads;
+  *grid = static_cast<int>(rows < d->sms ? rows : d->sms);
+  *slice = static_cast<int>((n + *grid - 1) / *grid);
+  return 0;
+}
+
+// loss (n,) f32, valid (n,) bool -> lo_hi (2,) f32, the raw local [lo, hi];
+// posts (2 x posts_blocks,) f32 scratch.
+extern "C" int hs_range(const void* loss, const void* valid, void* posts,
+                        int posts_blocks, void* lo_hi, int n, int device,
+                        void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int grid = 0, slice = 0;
+  int code = staged_grid(n, device, &grid, &slice);
+  if (code != 0) return code;
+  if (grid > posts_blocks) return static_cast<int>(cudaErrorInvalidValue);
+  const float* lp = static_cast<const float*>(loss);
+  const unsigned char* vp = static_cast<const unsigned char*>(valid);
+  float* pp = static_cast<float*>(posts);
+  float* out = static_cast<float*>(lo_hi);
+  void* args[] = {&lp, &vp, &pp, &out, &n, &slice};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(range_kernel),
+                                    dim3(grid), dim3(kThreads), args, 0,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// loss (n,) f32, valid (n,) bool, lo_hi (2,) f32 -> hist (bins,) i32.
+extern "C" int hs_count(const void* loss, const void* valid, const void* lo_hi,
+                        void* hist, int bins, int n, int device, void* stream) {
+  if (n < 1 || bins < 1 || bins > kMaxBins)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int grid = 0, slice = 0;
+  int code = staged_grid(n, device, &grid, &slice);
+  if (code != 0) return code;
+  const float* lp = static_cast<const float*>(loss);
+  const unsigned char* vp = static_cast<const unsigned char*>(valid);
+  const float* lh = static_cast<const float*>(lo_hi);
+  int* hp = static_cast<int*>(hist);
+  void* args[] = {&lp, &vp, &lh, &hp, &bins, &n, &slice};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(count_kernel),
+                                    dim3(grid), dim3(kThreads), args,
+                                    sizeof(int) * bins,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// loss (n,) f32, valid (n,) bool, hist (bins,) i32 and lo_hi (2,) f32 (the
+// ranks' reduced ones); low_fraction from frac_ptr (a device f32) or, when
+// it is null, frac_value; the counts from n_count rows -> walk (6,) int64,
+// low (n,) bool and, when not null, high (n,) bool.
+extern "C" int hs_walk(const void* loss, const void* valid, const void* hist,
+                       const void* lo_hi, const void* frac_ptr, float frac_value,
+                       float high_fraction, int bins, int n_count, void* walk,
+                       void* low, void* high, int n, int device, void* stream) {
+  if (n < 1 || bins < 1 || bins > kMaxBins)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int grid = 0, slice = 0;
+  int code = staged_grid(n, device, &grid, &slice);
+  if (code != 0) return code;
+  const size_t smem = 12 * static_cast<size_t>(bins);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(walk_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  walk_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(loss), static_cast<const unsigned char*>(valid),
+      static_cast<const int*>(hist), static_cast<const float*>(lo_hi),
+      static_cast<const float*>(frac_ptr), frac_value, high_fraction, bins,
+      n_count, static_cast<long long*>(walk), static_cast<unsigned char*>(low),
+      static_cast<unsigned char*>(high), n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,9 +8,12 @@ Port of ``repro/kernels/threshold_select.py``:
   losses (B2's function), their ``bins``-bin histogram (B3's), walks the
   histogram's CDF to ``floor(F * N)`` from the bottom (and, for DropTop,
   from the top) and writes the masks.  Its plain version
-  ``histogram_select_plain`` composes the per-stage specs ``minmax_plain``
+  ``histogram_select_plain`` composes the per-stage specs ``range_plain``
   (the *raw* ``[lo, hi]``: ``[BIG, -BIG]`` when nothing is valid),
-  ``bin_index``, ``histogram_plain`` and ``cdf_walk``;
+  ``count_plain`` and ``walk_plain`` (over ``bin_index`` and ``cdf_walk``).
+  The same stages are kernels of their own too (``histogram_range``,
+  ``histogram_count``, ``histogram_walk``), for a plan whose rows are split
+  over ranks, which reduces the range and the histogram between them;
 - ``rank_select`` (B4 and B5 in one kernel), the exact count-then-select
   that replaces a stable argsort where a plan needs only a rank window
   (FORGET's prune, DropTop's top tail): one persistent CUDA kernel in
@@ -103,11 +106,53 @@ def cdf_walk(hist: torch.Tensor, count: torch.Tensor):
     return b, (count - below) * 2 >= hist[b]
 
 
+def range_plain(loss: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """B2's stage of the histogram-CDF selection: the (2,) f32 raw ``[lo,
+    hi]`` of the valid and finite losses."""
+    return minmax_plain(loss, valid & torch.isfinite(loss))
+
+
+def count_plain(loss: torch.Tensor, valid: torch.Tensor, lo_hi: torch.Tensor,
+                bins: int = HIST_BINS) -> torch.Tensor:
+    """B3's stage: the (bins,) i32 count of the valid and finite losses over
+    the raw ``lo_hi``."""
+    return histogram_plain(loss, valid & torch.isfinite(loss), lo_hi, bins)
+
+
+def walk_plain(loss: torch.Tensor, valid: torch.Tensor, hist: torch.Tensor,
+               lo_hi: torch.Tensor, n_count: int, low_fraction,
+               high_fraction: float = 0.0):
+    """The last stage: the CDF walks over ``hist`` to ``floor(F *
+    n_count)`` (``n_count`` the rows ``hist`` counts, over every rank) and
+    this rank's masks, ``(low_mask, high_mask, walk)`` as
+    ``histogram_select_plain`` gives them."""
+    dev = loss.device
+    bins = hist.shape[0]
+    valid = valid & torch.isfinite(loss)
+    num_hide = fraction_count(low_fraction, n_count, dev)
+    hi = lo_hi[1]
+    idx = bin_index(loss, torch.minimum(lo_hi[0], hi), hi, bins)
+    b, include_b = cdf_walk(hist, num_hide)
+    low_mask = torch.where(include_b, idx <= b, idx < b) & valid
+    high_mask = None
+    top = (torch.zeros((), dtype=torch.int64, device=dev),) * 3
+    if high_fraction > 0.0:
+        num_top = fraction_count(high_fraction, n_count, dev)
+        bt, include_bt = cdf_walk(hist.flip(0), num_top)
+        b_top = bins - 1 - bt
+        high_mask = torch.where(include_bt, idx >= b_top, idx > b_top) & valid
+        top = (num_top, b_top, include_bt)
+    walk = torch.stack([t.to(torch.int64)
+                        for t in (num_hide, b, include_b, *top)])
+    return low_mask, high_mask, walk
+
+
 def histogram_select_plain(loss: torch.Tensor, valid: torch.Tensor,
                            low_fraction, high_fraction: float = 0.0,
                            bins: int = HIST_BINS):
     """The histogram-CDF selection's plain version, on the loss's device:
-    ``(low_mask, high_mask, hist, lo_hi, walk)``.
+    ``(low_mask, high_mask, hist, lo_hi, walk)``, its three stages
+    (``range_plain``, ``count_plain``, ``walk_plain``) on one rank's rows.
 
     ``low_mask`` holds the lowest-loss candidates for ``low_fraction``;
     ``high_mask`` the mirrored top tail for ``high_fraction > 0`` (else
@@ -116,26 +161,11 @@ def histogram_select_plain(loss: torch.Tensor, valid: torch.Tensor,
     b, include_b, num_top, b_top, include_bt)`` (the last three 0 without a
     top tail).  Non-finite losses count as invalid.
     """
-    dev = loss.device
-    n = loss.shape[0]
-    valid = valid & torch.isfinite(loss)
-    num_hide = fraction_count(low_fraction, n, dev)
-    lo_hi = minmax_plain(loss, valid)
-    hi = lo_hi[1]
-    idx = bin_index(loss, torch.minimum(lo_hi[0], hi), hi, bins)
-    hist = _count_bins(idx, valid, bins)
-    b, include_b = cdf_walk(hist, num_hide)
-    low_mask = torch.where(include_b, idx <= b, idx < b) & valid
-    high_mask = None
-    top = (torch.zeros((), dtype=torch.int64, device=dev),) * 3
-    if high_fraction > 0.0:
-        num_top = fraction_count(high_fraction, n, dev)
-        bt, include_bt = cdf_walk(hist.flip(0), num_top)
-        b_top = bins - 1 - bt
-        high_mask = torch.where(include_bt, idx >= b_top, idx > b_top) & valid
-        top = (num_top, b_top, include_bt)
-    walk = torch.stack([t.to(torch.int64)
-                        for t in (num_hide, b, include_b, *top)])
+    lo_hi = range_plain(loss, valid)
+    hist = count_plain(loss, valid, lo_hi, bins)
+    low_mask, high_mask, walk = walk_plain(loss, valid, hist, lo_hi,
+                                           loss.shape[0], low_fraction,
+                                           high_fraction)
     return low_mask, high_mask, hist, lo_hi, walk
 
 
@@ -168,6 +198,34 @@ def _fraction_argument(f, dev: torch.device) -> tuple[int | None, float]:
     return None, float(f)
 
 
+def _on_cpu(loss, valid, *device_args) -> bool:
+    """A wrapper's choice: the plain version when every tensor is on the
+    CPU (a device-resident fraction sends it to the kernel)."""
+    return all(not isinstance(t, torch.Tensor) or t.device.type == "cpu"
+               for t in (loss, valid, *device_args))
+
+
+def _check_losses(name: str, loss: torch.Tensor, valid: torch.Tensor,
+                  **more: torch.Tensor) -> torch.device:
+    """The histogram wrappers' checks: (N,) float32 loss and bool valid,
+    contiguous, on one CUDA device with ``more``; 1 <= N < 2**31."""
+    if loss.dim() != 1 or valid.shape != loss.shape:
+        raise ValueError(f"{name}: want loss (N,) and valid (N,); got "
+                         f"{tuple(loss.shape)} and {tuple(valid.shape)}")
+    dev = backend.check_cuda(name, {"loss": loss, "valid": valid, **more})
+    if loss.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise ValueError(f"{name}: want float32 loss and bool valid; got "
+                         f"{loss.dtype} and {valid.dtype}")
+    if not 1 <= loss.numel() < 2 ** 31:
+        raise ValueError(f"{name}: N={loss.numel()} outside [1, 2**31)")
+    return dev
+
+
+def _check_bins(name: str, bins: int) -> None:
+    if not 1 <= bins <= HS_MAX_BINS:
+        raise ValueError(f"{name}: bins={bins} outside [1, {HS_MAX_BINS}]")
+
+
 def histogram_select(loss: torch.Tensor, valid: torch.Tensor, low_fraction,
                      high_fraction: float = 0.0, bins: int = HIST_BINS):
     """Kernel B2+B3: the histogram-CDF selection in one launch,
@@ -180,23 +238,12 @@ def histogram_select(loss: torch.Tensor, valid: torch.Tensor, low_fraction,
     ``high_fraction`` a number.  A call is two CUDA launches, the memset of
     the histogram and the kernel.  CPU tensors take the plain version.
     """
-    if (loss.device.type == "cpu" and valid.device.type == "cpu" and not (
-            isinstance(low_fraction, torch.Tensor)
-            and low_fraction.device.type != "cpu")):
+    if _on_cpu(loss, valid, low_fraction):
         return histogram_select_plain(loss, valid, low_fraction, high_fraction,
                                       bins)
-    if loss.dim() != 1 or valid.shape != loss.shape:
-        raise ValueError("histogram_select: want loss (N,) and valid (N,); got "
-                         f"{tuple(loss.shape)} and {tuple(valid.shape)}")
-    dev = backend.check_cuda("histogram_select", {"loss": loss, "valid": valid})
-    if loss.dtype != torch.float32 or valid.dtype != torch.bool:
-        raise ValueError("histogram_select: want float32 loss and bool valid; "
-                         f"got {loss.dtype} and {valid.dtype}")
+    dev = _check_losses("histogram_select", loss, valid)
+    _check_bins("histogram_select", bins)
     n = loss.numel()
-    if not 1 <= n < 2 ** 31:
-        raise ValueError(f"histogram_select: N={n} outside [1, 2**31)")
-    if not 1 <= bins <= HS_MAX_BINS:
-        raise ValueError(f"histogram_select: bins={bins} outside [1, {HS_MAX_BINS}]")
     f_ptr, f_value = _fraction_argument(low_fraction, dev)
     scratch = torch.empty(_HS_HIST_WORD + bins + 2 * _HS_MAX_BLOCKS,
                           dtype=torch.int32, device=dev)
@@ -212,6 +259,78 @@ def histogram_select(loss: torch.Tensor, valid: torch.Tensor, low_fraction,
     lo_hi = scratch[_HS_LOHI_WORD:_HS_HIST_WORD].view(torch.float32)
     hist = scratch[_HS_HIST_WORD:_HS_HIST_WORD + bins]
     return low, high, hist, lo_hi, walk
+
+
+# The staged path: the same selection as three launches, for rows split
+# over ranks.  ``core/planops.py::histogram_masks`` reduces the range (min,
+# max) and the histogram (sum) over the ranks between them; at one rank
+# the three stages give ``histogram_select``'s bits.
+
+def histogram_range(loss: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Kernel B2, staged: the (2,) f32 raw ``[lo, hi]`` of the valid and
+    finite losses (``range_plain``), one cooperative launch.  CPU tensors
+    take the plain version."""
+    if _on_cpu(loss, valid):
+        return range_plain(loss, valid)
+    dev = _check_losses("histogram_range", loss, valid)
+    out = torch.empty(2 + 2 * _HS_MAX_BLOCKS, dtype=torch.float32, device=dev)
+    lo_hi = out[:2]
+    backend.launch("hs_range", "histogram_range", dev, loss.data_ptr(),
+                   valid.data_ptr(), out[2:].data_ptr(), _HS_MAX_BLOCKS,
+                   lo_hi.data_ptr(), loss.numel())
+    return lo_hi
+
+
+def histogram_count(loss: torch.Tensor, valid: torch.Tensor,
+                    lo_hi: torch.Tensor, bins: int = HIST_BINS) -> torch.Tensor:
+    """Kernel B3, staged: the (bins,) i32 count of the valid and finite
+    losses over the raw ``lo_hi`` (2,) f32 read from the device
+    (``count_plain``), one cooperative launch that zeroes the histogram
+    itself.  CPU tensors take the plain version."""
+    if _on_cpu(loss, valid, lo_hi):
+        return count_plain(loss, valid, lo_hi, bins)
+    dev = _check_losses("histogram_count", loss, valid, lo_hi=lo_hi)
+    _check_bins("histogram_count", bins)
+    if lo_hi.shape != (2,) or lo_hi.dtype != torch.float32:
+        raise ValueError("histogram_count: want lo_hi (2,) float32; got "
+                         f"{tuple(lo_hi.shape)} {lo_hi.dtype}")
+    hist = torch.empty(bins, dtype=torch.int32, device=dev)
+    backend.launch("hs_count", "histogram_count", dev, loss.data_ptr(),
+                   valid.data_ptr(), lo_hi.data_ptr(), hist.data_ptr(), bins,
+                   loss.numel())
+    return hist
+
+
+def histogram_walk(loss: torch.Tensor, valid: torch.Tensor, hist: torch.Tensor,
+                   lo_hi: torch.Tensor, n_count: int, low_fraction,
+                   high_fraction: float = 0.0):
+    """The staged path's last launch: both CDF walks over ``hist`` (the
+    ranks' summed counts, read from the device) to ``floor(F * n_count)``,
+    then this rank's masks; ``(low_mask, high_mask, walk)`` as
+    ``walk_plain`` gives them.  CPU tensors take the plain version."""
+    if _on_cpu(loss, valid, hist, lo_hi, low_fraction):
+        return walk_plain(loss, valid, hist, lo_hi, n_count, low_fraction,
+                          high_fraction)
+    dev = _check_losses("histogram_walk", loss, valid, hist=hist, lo_hi=lo_hi)
+    bins = hist.numel()
+    _check_bins("histogram_walk", bins)
+    if hist.dtype != torch.int32 or lo_hi.shape != (2,):
+        raise ValueError("histogram_walk: want hist int32 and lo_hi (2,); got "
+                         f"{hist.dtype} and {tuple(lo_hi.shape)}")
+    if not 1 <= n_count < 2 ** 31:
+        raise ValueError(f"histogram_walk: n_count={n_count} outside [1, 2**31)")
+    n = loss.numel()
+    f_ptr, f_value = _fraction_argument(low_fraction, dev)
+    walk = torch.empty(6, dtype=torch.int64, device=dev)
+    low = torch.empty(n, dtype=torch.bool, device=dev)
+    high = (torch.empty(n, dtype=torch.bool, device=dev)
+            if high_fraction > 0.0 else None)
+    backend.launch("hs_walk", "histogram_walk", dev, loss.data_ptr(),
+                   valid.data_ptr(), hist.data_ptr(), lo_hi.data_ptr(), f_ptr,
+                   f_value, float(high_fraction), bins, int(n_count),
+                   walk.data_ptr(), low.data_ptr(),
+                   None if high is None else high.data_ptr(), n)
+    return low, high, walk
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,1 @@
-"""Launch tools of the port: the serving entry point so far."""
+"""Launch tools of the port: the serving entry point and the data mesh."""

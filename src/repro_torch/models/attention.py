@@ -24,8 +24,8 @@ reference's is plain jnp.  ``update_cache`` writes in place (a ring cache's
 index wrapped by the caller, ``models/transformer.py``).  ``cross_attend``
 (the encoder-decoder's, ``models/encdec.py``: queries and keys of different
 lengths, no mask, no rope) is plain PyTorch on every device, as the
-reference's is plain jnp.  ``decode_attend_sp`` (sequence-parallel, mesh)
-is not ported yet (ROADMAP A.8).
+reference's is plain jnp.  ``decode_attend_sp`` (sequence-parallel over a
+mesh's model axis) waits for the pod-scale launcher (ROADMAP A.9).
 """
 from __future__ import annotations
 

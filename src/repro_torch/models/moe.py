@@ -4,8 +4,9 @@ batched expert products and a weighted combine.
 Port of ``repro/models/moe.py`` for one device: ``moe_param_defs`` in its
 ``"gather"`` layout and ``moe_ffn``'s local path (``_route_local`` with
 ``e0 = 0`` and ``e_loc = E``, no collectives).  The ``"partial"`` layout and
-the expert-parallel path under a mesh wait for data parallelism (ROADMAP
-A.8).  Per token, as the reference:
+the expert-parallel path under a mesh's model axis wait for the
+pod-scale launcher (ROADMAP A.9): the trainer's data mesh has no model
+axis, so the reference takes the local path there too.  Per token, as the reference:
 
 - the router's logits ``x @ router``, a float32 softmax, the ``top_k``
   experts and their probabilities renormalised to sum to one;

@@ -44,6 +44,16 @@ between replays (scanned) it is the last completed step's or block's, and
 ``state_dict`` works (checkpoint on fault).  An error inside a replay is
 not recoverable, as in the reference.
 
+Under a data-parallel group (``TrainConfig.mesh_shape``) each rank takes
+its rows of every batch: the host loop slices the host batch, the scanned
+engine gathers its columns of the plan's rows (the ``(num_steps, B)`` plan
+is the same on every rank).  Under NCCL the step's collectives are stream
+work and the graphs capture them (one eager collective before the first
+capture makes the communicator); gloo's run on the host, so the trainer
+gives a gloo group on CUDA the host loop (``Trainer._make_engine``).  On the
+CPU the scanned engine runs its blocks eagerly under gloo, as without a
+group.
+
 Kernel launches under replay: ``backend.launch`` counts on the host, and a
 replay calls no wrapper.  So a capture takes back the counts its wrappers
 added (a capture launches nothing) and keeps them as the graph's own, and
@@ -124,7 +134,8 @@ class HostLoopEngine:
                 if weight is not None:
                     batch = dict(batch, weight=np.asarray(weight, np.float32))
                 state, scalar, bwd, metrics = tr.train_step(
-                    state, tr.to_device(batch), idx, tr.epoch_dev, tr.lr_dev)
+                    state, tr.to_device(tr.local_rows(batch)), idx,
+                    tr.epoch_dev, tr.lr_dev)
                 losses.append(scalar)
                 if bwd is not None:
                     bwds.append(bwd)
@@ -224,6 +235,9 @@ class ScanEpochEngine:
             tr, k = self.tr, self.scan_steps
             b, dev = tr.cfg.batch_size, tr.device
             self._data = tr.device_data()
+            if tr.ctx.group is not None:
+                # The communicator exists before any capture needs it.
+                tr.ctx.all_reduce(torch.zeros(1, device=dev))
             self._bufs = {
                 "idx": torch.zeros((k, b), dtype=torch.int64, device=dev),
                 "w": torch.ones((k, b), dtype=torch.float32, device=dev),
@@ -236,9 +250,10 @@ class ScanEpochEngine:
         device."""
         tr, buf = self.tr, self._bufs
         idx = buf["idx"][k]
-        batch = {name: v.index_select(0, idx) for name, v in self._data.items()}
+        rows = tr.ctx.shard_rows(idx)           # this rank's (all off-mesh)
+        batch = {name: v.index_select(0, rows) for name, v in self._data.items()}
         if weighted:
-            batch["weight"] = buf["w"][k]
+            batch["weight"] = tr.ctx.shard_rows(buf["w"][k])
         own = tr.strategy.get_device_state()
         state, scalar, bwd, _ = tr.train_step(own, batch, idx, tr.epoch_dev,
                                               tr.lr_dev)
@@ -322,8 +337,12 @@ class ScanEpochEngine:
         # capture ends; a full collection here would cost ~0.2 s a capture.
         gc_was_enabled = gc.isenabled()
         gc.disable()
+        # Under a group another thread (NCCL's watchdog) queries events
+        # while the capture runs: only this thread's calls are checked.
+        mode = "global" if tr.ctx.group is None else "thread_local"
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+            with torch.cuda.graph(graph, pool=self._pool, stream=side,
+                                  capture_error_mode=mode):
                 self._block(size, weighted)
         finally:
             if gc_was_enabled:

@@ -20,9 +20,9 @@ The port's own copy of ``repro/train/fault.py`` (numpy only):
    a fraction of its rows to the fastest workers.  The trainer feeds it
    each epoch (``TrainConfig.straggler_mitigation``; latencies measured, or
    injected through ``Trainer.shard_latency_fn``) and re-slices the next
-   plan when a worker is flagged.  The port has no mesh: its world is
-   ``straggler_workers`` simulated workers in one process (1 by default,
-   where the monitor never flags).
+   plan when a worker is flagged.  Its world is ``straggler_workers``, or
+   else the trainer's data-parallel degree (``ctx.dp_size``, 1 off-mesh,
+   where the monitor never flags), as the reference's.
 """
 from __future__ import annotations
 

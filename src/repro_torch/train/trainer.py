@@ -57,7 +57,35 @@ residual with the parameters and the optimizer's state.  The residual
 (``Trainer.ef_state``, one tensor a parameter) is part of the trajectory:
 the scanned engine's graphs hold it, the checkpoint carries it (``"ef"``,
 only with compression on), and FORGET's restart keeps it, as the
-reference's does.  Left for later slices: the mesh.
+reference's does.
+
+``mesh_shape`` trains data-parallel over a ``torch.distributed`` group
+(``launch/mesh.py``: every rank builds its own Trainer; the reference's
+``_jit_steps_mesh``).  The model, the optimizer's state and the
+compression residual are replicated, each rank takes the rows ``[r B/D,
+(r + 1) B/D)`` of every batch (global chunks ``r C/D .. (r + 1) C/D - 1``
+of ``grad_chunks`` C, in order), and the strategies' ``SampleState`` is
+row-sharded (``core/*``, ``ctx``).  ``grad_allreduce="fold"`` runs a
+forward and backward a chunk, all-gathers the ``(C, P)`` gradients with
+the chunk losses and per-sample metrics (one collective a step), and folds
+them left to right in chunk order, then divides by C: the gradients and
+the loss depend on C alone, never on D, so training is bit-identical
+across world sizes.  ``"psum"`` takes one backward over the local rows
+and an all-reduce divided by D: reproducible at one world size only.  The
+guard and the compressor then act on the reduced gradients in the
+single-device order, so ``ok`` is the same on every rank.  The fused
+observe gathers the batch's (loss, PA, PC) and each rank writes its own
+rows; Selective-Backprop's select runs a forward-only loss over the local
+rows (chunk by chunk), gathers it and runs on its replicated state.
+Evaluation and the refresh take per-sample metrics over the local rows,
+gathered.  The step waits on nothing, and its collectives run on the
+calling stream, so that the scanned engine still captures it (NCCL).
+Unlike the reference, which row-shards the device-resident dataset and
+leans on GSPMD for the gathers across shards, each rank keeps the whole
+training set on its device and gathers its own rows of each batch:
+torch has no such partitioner, and the bits are the same.  A checkpoint
+holds the global arrays (rank 0 writes, every rank waits at a barrier),
+so it restores at any world size.
 """
 from __future__ import annotations
 
@@ -65,6 +93,7 @@ import contextlib
 import dataclasses
 import inspect
 import logging
+import math
 import time
 from typing import Any, Callable
 
@@ -78,8 +107,10 @@ from repro_torch.core import (ForgetConfig, GradMatchConfig, InfoBatchConfig,
                               SampleStrategy, SBConfig, make_strategy)
 from repro_torch.data.pipeline import Pipeline, materialize
 from repro_torch.dist.compression import compress_grads, init_error_feedback
+from repro_torch.dist.sharding import ParallelCtx
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.optim import make_optimizer
 from repro_torch.train import fault, guard
 from repro_torch.train.engines import HostLoopEngine, ScanEpochEngine
@@ -144,11 +175,24 @@ class TrainConfig:
     # Trainer.shard_latency_fn) and re-slice the next plan around a flagged
     # worker; off by default (uniform latencies never flag).
     straggler_mitigation: bool = False
-    # Workers the straggler monitor models; 0 = 1 (the port has no mesh).
+    # Workers the straggler monitor models; 0 = the data-parallel degree
+    # (1 off-mesh).
     straggler_workers: int = 0
     # 8-bit error-feedback compression of the gradients before the
     # optimizer (dist/compression.py); the residual rides the checkpoint.
     grad_compression: bool = False
+    # Data-parallel training over the (D,) mesh of a torch.distributed
+    # group (launch/mesh.py): e.g. (4,) in each of 4 ranks.  None = the
+    # single-device path, bit for bit the trainer without it.
+    mesh_shape: tuple[int, ...] | None = None
+    # Gradients are reduced as a fold over this many fixed-size chunks of
+    # the batch in chunk order whatever D: bit-identical across world
+    # sizes dividing it.  Must divide batch_size.
+    grad_chunks: int = 8
+    # "fold": the chunk-major fold above (O(grad_chunks x params) gathered
+    # a step); "psum": one O(params) all-reduce, reproducible per world
+    # size only.
+    grad_allreduce: str = "fold"
 
 
 @dataclasses.dataclass
@@ -222,7 +266,12 @@ class Trainer:
         else:
             self.loss_fn = loss_fn
         self._validate()
+        self.ctx = self._build_ctx()
         self.model = model.to(self.device)
+        with torch.no_grad():
+            # Under the mesh every rank starts from rank 0's weights.
+            for t in [*self.model.parameters(), *self.model.buffers()]:
+                self.ctx.replicate(t)
         # FORGET restarts from the initial weights, as the reference re-inits
         # from the same key: keep a copy of them (checkpointed too), in host
         # memory (read only at that restart and by checkpoints; a model
@@ -241,10 +290,12 @@ class Trainer:
         self.epoch_dev = torch.zeros((), dtype=torch.int32, device=self.device)
         self.pipeline = Pipeline(dataset.get, cfg.batch_size)
         self.num_samples = dataset.num_samples
+        # ctx reaches the strategies that declare it: their SampleState is
+        # row-sharded and their plans run over every rank's samples.
         self.strategy = strategy or make_strategy(
             cfg.strategy, self.num_samples, cfg=cfg, seed=cfg.seed,
             num_classes=num_classes, total_epochs=cfg.epochs,
-            device=self.device)
+            device=self.device, ctx=self.ctx)
         self.feats_fn = feats_fn
         # The strategy's in-step hooks run on its device state, when it has
         # one: selection before the backward pass, bookkeeping after it
@@ -254,7 +305,8 @@ class Trainer:
                       if has_state and cfg.fused_observe else None)
         self._fsel = self.strategy.fused_select if has_state else None
         self._init_guard()
-        self._straggler = (fault.StragglerMonitor(cfg.straggler_workers or 1)
+        self._straggler = (fault.StragglerMonitor(cfg.straggler_workers
+                                                  or self.ctx.dp_size)
                            if cfg.straggler_mitigation else None)
         #: epoch -> per-worker latencies for the straggler monitor (tests and
         #: the chaos harness inject skew here); None measures the epoch.
@@ -280,6 +332,31 @@ class Trainer:
                 "TrainConfig.guard_abort_after requires "
                 "guard_policy='skip_update': with the guard off no "
                 "non-finite step is ever counted")
+        if c.grad_allreduce not in ("fold", "psum"):
+            raise ValueError(
+                f"TrainConfig.grad_allreduce={c.grad_allreduce!r}: must be "
+                "'fold' (deterministic chunk-major fold) or 'psum' (fast "
+                "O(params) all-reduce)")
+
+    def _build_ctx(self) -> ParallelCtx:
+        """The reference's mesh checks, then the data mesh: the process
+        group this rank joined (a world of one joins its own, under the
+        device's default backend)."""
+        c = self.cfg
+        if not c.mesh_shape:
+            return ParallelCtx()
+        num_devices = math.prod(c.mesh_shape)
+        if c.batch_size % c.grad_chunks:
+            raise ValueError(
+                f"batch_size={c.batch_size} must be a multiple of "
+                f"grad_chunks={c.grad_chunks}")
+        if c.grad_chunks % num_devices:
+            raise ValueError(
+                f"grad_chunks={c.grad_chunks} must be a multiple of the mesh "
+                f"size {num_devices}: it is the fixed reduction layout that "
+                "keeps losses bit-identical across mesh sizes")
+        return mesh_lib.data_parallel_ctx(
+            num_devices, mesh_lib.default_backend(self.device))
 
     def _init_guard(self) -> None:
         """The guard's device counters and scratch (``guard_policy`` not
@@ -324,9 +401,18 @@ class Trainer:
             raise ValueError(
                 "engine='scan' requires device_data=True: the scanned engine "
                 "gathers its batches from the device-resident dataset")
+        # gloo's collectives run on the host: a CUDA graph cannot hold them.
+        host_collectives = (self.ctx.backend == "gloo"
+                            and self.device.type == "cuda")
+        if c.engine == "scan" and host_collectives:
+            raise ValueError(
+                "engine='scan' under a gloo group on CUDA: gloo's collectives "
+                "run on the host and cannot be captured; use an NCCL group "
+                "or engine='host'")
         use_scan = c.engine == "scan" or (c.engine == "auto" and scannable
                                           and c.device_data
-                                          and c.scan_steps > 0)
+                                          and c.scan_steps > 0
+                                          and not host_collectives)
         return ScanEpochEngine(self) if use_scan else HostLoopEngine(self)
 
     def device_data(self) -> dict:
@@ -345,6 +431,88 @@ class Trainer:
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
+    def local_rows(self, batch: dict) -> dict:
+        """This rank's rows of a global batch (the batch itself off-mesh)."""
+        if self.ctx.group is None:
+            return batch
+        return {k: self.ctx.shard_rows(v) for k, v in batch.items()}
+
+    def _chunks(self, batch: dict):
+        """The batch in ``grad_chunks``-sized pieces of B / C rows, in
+        order (views)."""
+        rows = self.cfg.batch_size // self.cfg.grad_chunks
+        n = next(iter(batch.values())).shape[0]
+        for start in range(0, n, rows):
+            yield {k: v[start:start + rows] for k, v in batch.items()}
+
+    def _gather_metrics(self, lv, pa, pc):
+        """The per-sample (loss, PA, PC) of every rank's rows, in batch
+        order: one all-gather of the three packed as float32."""
+        got = self.ctx.gather_rows(torch.stack(
+            [lv.float(), pa.to(torch.float32), pc.float()], dim=1))
+        return got[:, 0], got[:, 1] != 0, got[:, 2]
+
+    def _select_loss(self, batch: dict) -> torch.Tensor:
+        """The fused select's (B,) forward-only loss: the whole batch's;
+        under the mesh chunk by chunk over the local rows (each piece the
+        same rows at every world size), gathered."""
+        if self.ctx.group is None:
+            return self.loss_fn(self.model, batch)[1][0]
+        local = torch.cat([self.loss_fn(self.model, cb)[1][0]
+                           for cb in self._chunks(batch)])
+        return self.ctx.gather_rows(local)
+
+    def _mesh_grads(self, batch: dict):
+        """The mesh step's forward and backward over this rank's rows:
+        every parameter's ``grad`` set to the reduced gradient; returns the
+        reduced loss scalar and the whole batch's per-sample metrics."""
+        ctx, c = self.ctx, self.cfg
+        params = self.opt.params
+        sizes = [p.numel() for p in params]
+        width = sum(sizes)
+
+        def flat_grads(scalar, out):
+            grads = torch.autograd.grad(scalar, params, allow_unused=True)
+            torch.cat([torch.zeros_like(p).reshape(-1) if g is None
+                       else g.reshape(-1) for p, g in zip(params, grads)],
+                      out=out)
+
+        if c.grad_allreduce == "psum":
+            scalar, (lv, pa, pc) = self.loss_fn(self.model, batch)
+            buf = torch.empty(width + 1, dtype=torch.float32,
+                              device=self.device)
+            flat_grads(scalar, buf[:width])
+            buf[width].copy_(scalar.detach())
+            ctx.all_reduce(buf, "sum")
+            reduced = buf / ctx.dp_size
+            lv, pa, pc = self._gather_metrics(lv.detach(), pa, pc.detach())
+        else:
+            chunks = c.grad_chunks
+            rows = c.batch_size // chunks
+            local = list(self._chunks(batch))
+            buf = torch.empty((len(local), width + 1 + 3 * rows),
+                              dtype=torch.float32, device=self.device)
+            for i, cb in enumerate(local):
+                s_i, (lv, pa, pc) = self.loss_fn(self.model, cb)
+                flat_grads(s_i, buf[i, :width])
+                buf[i, width].copy_(s_i.detach())
+                torch.stack([lv.detach().float(), pa.to(torch.float32),
+                             pc.detach().float()],
+                            out=buf[i, width + 1:].view(3, rows))
+            got = ctx.gather_rows(buf)       # (C, ...): chunk-major
+            acc = got[0, :width + 1]
+            for j in range(1, chunks):
+                acc = acc + got[j, :width + 1]
+            reduced = acc / chunks
+            mets = got[:, width + 1:].reshape(chunks, 3, rows)
+            lv, pa, pc = (mets[:, 0].reshape(-1), mets[:, 1].reshape(-1) != 0,
+                          mets[:, 2].reshape(-1))
+        off = 0
+        for p, n in zip(params, sizes):
+            p.grad = reduced[off:off + n].view_as(p)
+            off += n
+        return reduced[width], (lv, pa, pc)
+
     def train_step(self, state, batch: dict, indices, epoch, lr):
         """One update; returns (strategy state, loss scalar on the device,
         backward samples as a device scalar or None for the whole batch,
@@ -352,6 +520,9 @@ class Trainer:
 
         ``indices`` are host or device sample ids, ``epoch`` and ``lr`` the
         trainer's device scalars (``epoch_dev``, ``lr_dev``) or numbers.
+        Under the mesh ``batch`` is this rank's rows (``local_rows``) and
+        ``indices`` the whole batch's ids; the loss, the backward count and
+        the metrics returned are the whole batch's.
         Everything it changes it changes in place, so that one call can be
         captured into a CUDA graph (the scanned engine); the guard too
         waits on nothing.  A non-finite step leaves the parameters, the
@@ -364,7 +535,7 @@ class Trainer:
             # A forward-only loss at the current weights drives the in-step
             # selection; its weights mask the backward pass.
             with torch.no_grad():
-                _, (lv0, _, _) = self.loss_fn(self.model, batch)
+                lv0 = self._select_loss(batch)
             if guarded:
                 # A non-finite selection loss would poison the selection's
                 # history: hold its state, train the whole batch.
@@ -375,14 +546,18 @@ class Trainer:
                 w_sel = torch.where(ok0, w_new, torch.ones_like(w_new))
             else:
                 w_sel, state = self._fsel(state, lv0)
+            bwd = torch.count_nonzero(w_sel)
+            w_sel = self.ctx.shard_rows(w_sel)
             batch = dict(batch)
             batch["weight"] = (batch["weight"] * w_sel if "weight" in batch
                                else w_sel)
-            bwd = torch.count_nonzero(w_sel)
-        scalar, (lv, pa, pc) = self.loss_fn(self.model, batch)
-        lv, pc = lv.detach(), pc.detach()
-        self.opt.zero_grad()
-        scalar.backward()
+        if self.ctx.group is None:
+            scalar, (lv, pa, pc) = self.loss_fn(self.model, batch)
+            lv, pc = lv.detach(), pc.detach()
+            self.opt.zero_grad()
+            scalar.backward()
+        else:
+            scalar, (lv, pa, pc) = self._mesh_grads(batch)
         params = self.opt.params
         grads = [p.grad for p in params if p.grad is not None]
         if guarded:
@@ -411,9 +586,16 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: dict):
+        """Per-sample (loss, PA, PC) of a batch (under the mesh: of this
+        rank's rows, chunk by chunk, gathered: the same at every world
+        size)."""
         self.model.eval()
-        _, metrics = self.loss_fn(self.model, batch)
-        return metrics
+        if self.ctx.group is None:
+            _, metrics = self.loss_fn(self.model, batch)
+            return metrics
+        parts = [self.loss_fn(self.model, cb)[1]
+                 for cb in self._chunks(self.local_rows(batch))]
+        return self._gather_metrics(*(torch.cat(x) for x in zip(*parts)))
 
     @torch.no_grad()
     def _collect_feats(self) -> tuple[np.ndarray, np.ndarray]:
@@ -490,8 +672,9 @@ class Trainer:
             indices = self._rebalanced_order(indices)
         res = self.engine.run_epoch(epoch, indices, plan, lr)
         if self._straggler is not None:
-            # One process: measured latencies are uniform across the
-            # simulated workers (never flagged); skew comes injected.
+            # Measured latencies are uniform across the workers (never
+            # flagged), the same decision on every rank; skew comes
+            # injected.
             w = self._straggler.world_size
             lat = (self.shard_latency_fn(epoch)
                    if self.shard_latency_fn is not None
@@ -597,21 +780,29 @@ class Trainer:
 
     def save_checkpoint(self) -> str | None:
         """Checkpoint the epoch boundary: the tree and the host metadata
-        (the epoch, the strategy's host state)."""
+        (the epoch, the strategy's host state).  Under the mesh every rank
+        gathers the row-sharded state, rank 0 writes the global arrays and
+        every rank waits for it at a barrier (an async save: for its
+        start)."""
         if not self.cfg.checkpoint_dir:
             return None
         sd = self.strategy.state_dict()
         meta = {"epoch": self.epoch, "strategy": sd["host"]}
-        if self.cfg.async_checkpoint:
-            # Join the previous save first (re-raising its failure); GC
-            # waits until the newer save is on disk.
-            self.finish_checkpoints()
-            self._pending_save = ckpt.save_async(
-                self.cfg.checkpoint_dir, self.epoch, self._ckpt_tree(sd),
-                metadata=meta, keep=None)
-            return self._pending_save.path
-        return ckpt.save(self.cfg.checkpoint_dir, self.epoch,
-                         self._ckpt_tree(sd), metadata=meta)
+        path = None
+        if self.ctx.rank == 0:
+            if self.cfg.async_checkpoint:
+                # Join the previous save first (re-raising its failure); GC
+                # waits until the newer save is on disk.
+                self.finish_checkpoints()
+                self._pending_save = ckpt.save_async(
+                    self.cfg.checkpoint_dir, self.epoch, self._ckpt_tree(sd),
+                    metadata=meta, keep=None)
+                path = self._pending_save.path
+            else:
+                path = ckpt.save(self.cfg.checkpoint_dir, self.epoch,
+                                 self._ckpt_tree(sd), metadata=meta)
+        self.ctx.barrier()
+        return path
 
     def finish_checkpoints(self) -> None:
         """Join a pending async save (re-raising its failure), then GC the
@@ -622,14 +813,37 @@ class Trainer:
         self._pending_save = None
         ckpt.gc(self.cfg.checkpoint_dir)
 
+    def _restore_agreed(self, like: dict):
+        """``ckpt.restore_latest`` under the mesh: rank 0 picks the step
+        (quarantining corrupt ones), every rank reads that one."""
+        self.ctx.barrier()
+        step, err = -1, None
+        if self.ctx.rank == 0:
+            try:
+                res = ckpt.restore_latest(self.cfg.checkpoint_dir, like)
+                step = -1 if res is None else res[2]
+            except ValueError as e:
+                step, err = -2, e
+        chosen = torch.tensor([step], dtype=torch.int64, device=self.device)
+        step = int(self.ctx.replicate(chosen).item())
+        if err is not None:
+            raise err
+        if step == -2:
+            raise ValueError("rank 0 found no compatible checkpoint")
+        if step < 0 or self.ctx.rank == 0:
+            return None if step < 0 else res
+        return (*ckpt.restore(self.cfg.checkpoint_dir, step, like), step)
+
     def restore_latest(self) -> bool:
         """Restore the newest good checkpoint into this trainer, in place;
-        False when there is none."""
+        False when there is none.  Under the mesh each rank reads the
+        global arrays and takes its rows."""
         if not self.cfg.checkpoint_dir:
             return False
         like = self._ckpt_tree()
         try:
-            res = ckpt.restore_latest(self.cfg.checkpoint_dir, like)
+            res = (ckpt.restore_latest(self.cfg.checkpoint_dir, like)
+                   if self.ctx.group is None else self._restore_agreed(like))
         except ValueError as e:
             raise ValueError(
                 f"incompatible checkpoint in {self.cfg.checkpoint_dir!r}: "

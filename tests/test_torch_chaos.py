@@ -195,5 +195,6 @@ def test_straggler_mitigation_uniform_latency_is_bit_exact():
     ref.run(3)
     _assert_state_equal(ref, mon, "uniform-latency")
     assert not mon._straggler.stragglers().any()
-    # the port has no mesh: no straggler_workers means a world of one
+    # off-mesh, no straggler_workers means a world of one (ctx.dp_size;
+    # under a mesh: tests/test_torch_mesh.py)
     assert _mk("scan", straggler_mitigation=True)._straggler.world_size == 1

@@ -191,3 +191,36 @@ def test_registry_is_the_ports_own():
     gm.prepare(1, never)
     with pytest.raises(ValueError, match="num_classes"):
         gm.prepare(0, lambda: (np.zeros((10, 2)), np.zeros(10)))
+
+
+def test_mesh_modules_without_a_group():
+    """``dist/sharding.py`` and ``launch/mesh.py`` in one process: with no
+    group every helper is the identity, a larger mesh refuses to start
+    without its ranks, and the backend is always named."""
+    from repro_torch.dist.sharding import ParallelCtx
+    from repro_torch.launch import mesh
+    ctx = ParallelCtx()
+    x = torch.arange(6.0).reshape(3, 2)
+    assert ctx.mesh is None and ctx.rank == 0 and ctx.dp_size == 1
+    assert ctx.backend is None and ctx.rows(3) == (0, 3)
+    assert ctx.shard_rows(x) is x and ctx.gather_rows(x) is x
+    assert ctx.replicate(x) is x and ctx.all_reduce(x, "min") is x
+    ctx.check_rows(7)
+    ctx.barrier()
+    assert mesh.default_backend("cpu") == "gloo"
+    assert mesh.default_backend(torch.device("cuda", 0)) == "nccl"
+    if not torch.distributed.is_initialized():
+        with pytest.raises(RuntimeError, match="spawn"):
+            mesh.make_data_mesh(2)
+        with pytest.raises(ValueError, match="backend"):
+            mesh.make_data_mesh(1)
+    with pytest.raises(ValueError, match="backend"):
+        mesh.spawn(print, 2, "mpi")
+    with pytest.raises(ValueError, match="device_type='cuda'"):
+        mesh.spawn(print, 2, "nccl", "cpu")
+    ds = SyntheticClassification(num_samples=64, image_size=8, seed=0)
+    model = CNN(CNNConfig(image_size=8, widths=(8,), hidden=16))
+    with pytest.raises(RuntimeError, match="spawn"):
+        Trainer(TrainConfig(mesh_shape=(2,), grad_chunks=8,
+                            fused_scoring=True), model, None, ds,
+                logits_fn=lambda m, b: m(b["images"]), device="cpu")
