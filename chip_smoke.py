@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --hymba-lr-witness
     python3 chip_smoke.py --encdec-lr-witness
+    python3 chip_smoke.py --model-axis
 
 Phases, each printed as one JSON line; any failure exits non-zero:
 
@@ -133,8 +134,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    set to 0, smollm-135m under baseline, KAKURENBO ("sort") and KAKURENBO
    ("histogram_pallas" + DropTop 0.02), and mamba2-130m under KAKURENBO
    ("sort" + DropTop 0.02): per epoch wall s, loss, F* and backward
-   samples; B1's backward at least once a train step, B7 (B6) 30 (24) times
-   a forward, the histogram-select and the rank-select launched; the loss
+   samples; B1's backward at least once a train step, B7 (B6) once a
+   layer a forward (at 15 of smollm's 30 layers and 12 of mamba2's 24:
+   the time limit), the histogram-select and the rank-select launched; the loss
    must fall and some epoch hide sequences.  Then one train step's
    gradients through the kernel forwards against the plain forwards at full
    width and depth, per leaf (1e-3 relative, the attention at its input's
@@ -144,22 +146,23 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    bit over 3 KAKURENBO epochs (smollm-135m at 15 of its 30 layers: the
    time limit) and a restart from a crash between two
    blocks of epoch 2 into a trainer from other weights, bit-identical; one
-   train step profiled at (32, 32) and (32, 512) for each arch;
+   train step profiled at (32, 32) and (32, 512) for each arch (at the
+   runs' depth);
 15. zoo serve: ``repro_torch.launch.serve`` at full width in f32 on
    phi3.5-moe-42b-a6.6b (4 of 32 layers: 16 experts top-2), hymba-1.5b
-   (32 layers: attention and SSM heads mean-fused, a 1,024-token window
-   except in 3 layers), qwen3-1.7b (28 layers, qk_norm) and
+   (16 of 32 layers: attention and SSM heads mean-fused, a 1,024-token
+   window except in 3 layers), qwen3-1.7b (28 layers, qk_norm) and
    llava-next-mistral-7b (8 of 32 layers, 576 patch embeddings before
    the prompt), then kimi-k2 reduced: prefill of 4 x 2,048 tokens and 32
    greedy tokens, the B7 (and B6) launches of the one prefill (4; 3 and
-   32; 28; 8; 2), prefill and one decode step against the forward (the
+   16; 28; 8; 2), prefill and one decode step against the forward (the
    MoE at a capacity no expert overflows), one prefill and one decode
    step profiled, card vs CPU at 2 layers and 4 prompts of 128 tokens;
    B7 at these prefill shapes and kimi-k2's (4, 2048, 64, 8, 112), B6 at
    hymba's and B1 at their vocabularies are held in phase 3
    (``zoo_kernel_checks``);
 16. zoo LM training, ``examples/torch_lm_train.py --full``'s defaults with
-   the counts set to 0: phi3.5-moe at 2 layers and hymba-1.5b full at
+   the counts set to 0: phi3.5-moe at 1 layer and hymba-1.5b at 16 layers,
    LR 1e-3 (4 epochs each; ``--hymba-lr-witness`` below on why not 1e-2),
    kimi-k2 reduced (2 epochs): per epoch wall s, loss,
    F* and backward samples, B1's backward a step, B7 (B6) once a layer a
@@ -184,11 +187,11 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    B7 at its serve and train shapes and B1 at (256, 256,206) are held in
    phase 3 (``encdec_kernel_checks``);
 19. encdec LM training (after phase 16): seamless-m4t at full width and
-   12 + 12 of its 24 + 24 layers (the time limit;
+   8 + 8 of its 24 + 24 layers (the time limit;
    AdamW) over ``FramesLM`` (the example's corpus
    at 8 tokens beside 32 N(0, 1) frames), ``"sort"`` + DropTop 0.02, 12
    epochs at LR 1e-3 (``--encdec-lr-witness`` below on why not 1e-2),
-   its launches counted from 0: B1's backward each step, B7 24
+   its launches counted from 0: B1's backward each step, B7 16
    times a forward, the loss falls, some epoch hides more than DropTop's
    tail; the gradient through the kernels vs the plain forwards per leaf
    (1e-3); host = scan bit for bit at 2 + 2 layers; one profiled step.
@@ -205,6 +208,23 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    world 1 under NCCL scanned = its host loop bit for bit (losses, plans,
    train state), and = a world of 2 gloo ranks on this card (host loop;
    ``launch.mesh.spawn``; NCCL refuses two ranks on one GPU) bit for bit.
+21. model axis (after phase 20): ``launch/train.py::make_train_step`` on
+   a ``("data", "model")`` mesh (``launch/mesh.py::make_data_model_mesh``,
+   ``build_ctx`` with FSDP and layer remat).  qwen3-1.7b (28 layers) and
+   mamba2-130m (24) at full width, batch 2 x 256 tokens: one AdamW step on
+   a (1, 1) mesh under NCCL equals the step without a context bit for bit
+   (the loss, the per-sample metrics, every updated leaf; the two runs one
+   after the other, the first one's gradients and moments freed before
+   the second, its updated leaves kept on the card).  Then a gloo
+   world of 4 ranks on this card as (2, 2) (``launch.mesh.spawn``), both
+   archs at full width and 4 layers, batch 4 x 256: four AdamW steps over
+   ``plan_global_batches`` of a KAKURENBO plan at ``plan_lr``, the first
+   one's loss and per-sample losses within 1e-5 of one device and every
+   rank's block of every gradient within 1e-4 of the leaf's max |g| (each
+   rank runs the one-device step itself), every rank alike; B7 at qwen3's local shape (2, 256, 8, 4, 128) and B6 at
+   mamba2's (2, 256) against their plain versions; the card's stream-copy
+   rate beside the datasheet's 3.35 TB/s.  Its launches (the mesh runs'
+   and the ranks', counted from 0) join the ``kernels`` line.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -223,6 +243,7 @@ CPU run from weights changed by 1e-7.  ``--encdec-lr-witness`` runs phases
 through the kernels and through their plain versions (on the card), and
 through the kernels at 2 + 2 layers: per epoch loss and F*, how far the
 predictions depend on the input, beside the corpus' unigram loss.
+``--model-axis`` runs phases 1-2 and then phase 21 alone.
 Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
@@ -2191,14 +2212,14 @@ def supervised_crash(trainer, epochs: int, root, split_dev=None) -> dict:
     return row
 
 
-def phase_resilience(dev, n: int = 50_000, epochs: int = 3,
+def phase_resilience(dev, n: int = 50_000, epochs: int = 2,
                      guard_epochs: int = 2) -> dict:
     """The resilient runtime on the main path (paper CNN, full width,
     ``SyntheticClassification(50_000)``, KAKURENBO ``"histogram_pallas"`` +
     DropTop 0.02, fused scoring), under the trainer's defaults (no cuDNN
     flag set here); the guard's, the host-observe path's and the poisoned
-    runs over ``guard_epochs`` (2: the time limit), the crash
-    recoveries over ``epochs``:
+    runs over ``guard_epochs`` and the crash recoveries over ``epochs`` (2
+    each: the time limit):
 
     - the guard (``skip_update``) on a clean run, scanned and host loop:
       losses, plans and the whole train state bit-identical to the
@@ -2213,9 +2234,9 @@ def phase_resilience(dev, n: int = 50_000, epochs: int = 3,
       classified restartable;
     - a ``CrashAtStep`` in the middle of epoch 1 recovered by
       ``run_with_restarts`` bit-identical to the uninterrupted run: the
-      seven Table 2 strategies scanned (guard on; FORGET prunes at epoch 2,
-      through the rank-select), Grad-Match at N = 1,024, KAKURENBO on the
-      host loop;
+      seven Table 2 strategies scanned (guard on; FORGET prunes in the
+      last epoch, the crashed one, through the rank-select), Grad-Match at
+      N = 1,024, KAKURENBO on the host loop;
     - the host-observe path (``fused_observe=False``) bit-identical to the
       fused one, ``host_syncs`` above 1 against 1;
     - AdamW, RMSProp and Adafactor, one epoch scanned and on the host loop,
@@ -2376,7 +2397,7 @@ def phase_resilience(dev, n: int = 50_000, epochs: int = 3,
             return main_trainer(
                 dev, strategy, n, 0, epochs, model(), engine="scan",
                 guard_policy="skip_update",
-                forget=ForgetConfig(fraction=0.3, warmup_epochs=2),
+                forget=ForgetConfig(fraction=0.3, warmup_epochs=epochs - 1),
                 checkpoint_dir=str(d) if d else None,
                 checkpoint_every=1 if d else 0)
         chaos_rows[strategy] = supervised_crash(trainer, epochs,
@@ -2697,7 +2718,7 @@ def serve_card_vs_cpu(dev, small, p_dev, p_cpu, ids, pe, max_len: int,
     cpu = torch.device("cpu")
     runs = {}
     for name, p, d in (("card", p_dev, dev), ("cpu", p_cpu, cpu)):
-        m = build_model(small, d)
+        m = build_model(small, device=d)
         t = time.perf_counter()
         with torch.no_grad():
             lg, c = m.prefill(p, with_inputs(
@@ -2790,7 +2811,7 @@ def phase_serve(dev, arch: str = "mamba2-130m", batch: int = 4,
         p = m.init(torch.Generator().manual_seed(0))
         return attention_fan_in(p, c) if c.family == "dense" else p
 
-    model = build_model(cfg, dev)
+    model = build_model(cfg, device=dev)
     params = weights(model, cfg)
     ids = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (batch, prompt + 1))).to(dev)
@@ -2826,7 +2847,7 @@ def phase_serve(dev, arch: str = "mamba2-130m", batch: int = 4,
     # Card (the kernel) against CPU (its plain version), full width, cut
     # depth: the prefill logits and every cache tensor.
     small = dataclasses.replace(cfg, num_layers=cpu_layers)
-    p_cpu = weights(build_model(small, "cpu"), small)
+    p_cpu = weights(build_model(small, device="cpu"), small)
     ids = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (batch, prompt)))
     # The cache holds the decoded tokens too, as serve() sizes it.
@@ -3132,7 +3153,7 @@ def lm_grad_check(dev, arch: str, full: bool = True) -> dict:
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import build_model
     cfg = get_arch(arch) if full else get_arch(arch).reduced()
-    model = build_model(cfg, dev)
+    model = build_model(cfg, device=dev)
     attends = cfg.family in ("dense", "encdec")
     if cfg.family == "encdec":
         batch = frames_batch(dev, cfg.encoder_input_dim)
@@ -3216,7 +3237,7 @@ def lm_card_vs_cpu(dev, arch: str, n: int = 64, layers: int = 2,
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_arch(arch) if full else get_arch(arch).reduced()
     cfg = dataclasses.replace(cfg, num_layers=layers)
-    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     if cfg.family == "dense":
         attention_fan_in(params, cfg)
     g = torch.Generator().manual_seed(3)
@@ -3476,9 +3497,16 @@ def free_memory() -> None:
         torch.cuda.empty_cache()
 
 
+#: The LM runs' and their profiled steps' depth: 15 of smollm-135m's 30
+#: layers and 12 of mamba2-130m's 24 (the script's time limit; the
+#: gradient check and card vs CPU keep theirs).
+LM_LAYERS = {"smollm-135m": 15, "mamba2-130m": 12}
+
+
 def phase_lm_train(dev, full: bool = True) -> collections.Counter:
-    """LM training (``examples/torch_lm_train.py --full``; its kernels at
-    its shapes are checked in ``phase_kernels``): smollm-135m under
+    """LM training (``examples/torch_lm_train.py --full`` at
+    ``LM_LAYERS``; its kernels at its shapes are checked in
+    ``phase_kernels``): smollm-135m under
     baseline, KAKURENBO ("sort") and KAKURENBO ("histogram_pallas" +
     DropTop 0.02), mamba2-130m under KAKURENBO ("sort" + DropTop 0.02),
     their launches counted from 0 just
@@ -3495,7 +3523,8 @@ def phase_lm_train(dev, full: bool = True) -> collections.Counter:
             ("smollm-135m", "kakurenbo", "sort", 0.0),
             ("smollm-135m", "kakurenbo", "histogram_pallas", 0.02),
             ("mamba2-130m", "kakurenbo", "sort", 0.02)):
-        _, got = lm_train_run(dev, arch, strategy, selection, drop_top, full)
+        _, got = lm_train_run(dev, arch, strategy, selection, drop_top, full,
+                              layers=LM_LAYERS[arch] if full else None)
         launches.update(got)
         free_memory()
     require(launches == collections.Counter(backend.LAUNCHES),
@@ -3509,7 +3538,8 @@ def phase_lm_train(dev, full: bool = True) -> collections.Counter:
     free_memory()
     for arch in ("smollm-135m", "mamba2-130m"):
         for seq in (32, 512):
-            lm_step_breakdown(dev, arch, seq, full)
+            lm_step_breakdown(dev, arch, seq, full,
+                              LM_LAYERS[arch] if full else None)
             free_memory()
     emit({"phase": "lm_train_done", "seconds": time.perf_counter() - t0,
           "launches": dict(launches)})
@@ -3561,10 +3591,11 @@ def zoo_kernel_checks(dev) -> dict:
 
 #: The zoo's served configurations (full width): depth (None: the arch's)
 #: and the launches of B7 and B6 one prefill of 2,048 tokens makes.
-#: hymba's 29 windowed layers attend in plain PyTorch past the window of
-#: 1,024 (B7 has no window; the reference's windowed attention is jnp).
+#: hymba's 13 windowed layers (of 16 served, of its 32: the time limit)
+#: attend in plain PyTorch past the window of 1,024 (B7 has no window; the
+#: reference's windowed attention is jnp).
 ZOO_SERVE = (("phi3.5-moe-42b-a6.6b", 4, {"flash_attention": 4}),
-             ("hymba-1.5b", None, {"flash_attention": 3, "ssd_scan": 32}),
+             ("hymba-1.5b", 16, {"flash_attention": 3, "ssd_scan": 16}),
              ("qwen3-1.7b", None, {"flash_attention": 28}),
              ("llava-next-mistral-7b", 8, {"flash_attention": 8}))
 
@@ -3650,7 +3681,7 @@ def phase_zoo_serve(dev, arch: str, layers: int | None, expected: dict,
     want = {k: expected.get(k, 0) for k in got}
     toks = stats["generated"]
     n_params = sum(n for _, n in flatten(map_defs(
-        lambda d: math.prod(d.shape), build_model(cfg, "cpu").param_defs())))
+        lambda d: math.prod(d.shape), build_model(cfg, device="cpu").param_defs())))
     row = {"phase": "zoo_serve", "arch": arch, "layers": cfg.num_layers,
            "encoder_layers": cfg.num_encoder_layers,
            "full_width": full, "d_model": cfg.d_model, "params": n_params,
@@ -3671,7 +3702,7 @@ def phase_zoo_serve(dev, arch: str, layers: int | None, expected: dict,
 
     # The contract, on weights drawn on the card.
     checked = no_drop(cfg)
-    model = build_model(checked, dev)
+    model = build_model(checked, device=dev)
     params = attention_fan_in(model.init(
         torch.Generator(device=dev).manual_seed(0)), cfg)
     ids = torch.from_numpy(np.random.default_rng(1).integers(
@@ -3690,7 +3721,7 @@ def phase_zoo_serve(dev, arch: str, layers: int | None, expected: dict,
     require(ok2, f"{arch}: decode logits differ from the forward's by {d2}")
 
     # Where the time goes: the served config's prefill and decode step.
-    served = build_model(cfg, dev)
+    served = build_model(cfg, device=dev)
     with torch.no_grad():
         _, cache = served.prefill(params, with_inputs(ids[:, :prompt], pe),
                                   max_len=npatch + prompt + 1)
@@ -3717,7 +3748,7 @@ def phase_zoo_serve(dev, arch: str, layers: int | None, expected: dict,
     # Card (B6/B7) against CPU (their plain versions) at cut depth, on
     # weights drawn on the card.
     small = cut_depth(cfg, min(cpu_layers, cfg.num_layers))
-    p_dev = attention_fan_in(build_model(small, dev).init(
+    p_dev = attention_fan_in(build_model(small, device=dev).init(
         torch.Generator(device=dev).manual_seed(3)), small)
     ids = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (cpu_batch, cpu_prompt)))
@@ -3786,16 +3817,18 @@ def zoo_engines(dev, arch: str = "phi3.5-moe-42b-a6.6b", layers: int = 1,
 #: at the corpus' unigram loss on an H100 (3.43 from epoch 6 on, nothing
 #: hidden in 12 epochs); it trains at 1e-3, as its CPU test does.  Both
 #: run ``LM_STEPS`` (4 epochs of the example's 12: the time limit), hymba
-#: at full depth.
-ZOO_LM = (("phi3.5-moe-42b-a6.6b", 2, True, 1e-2, LM_STEPS),
-          ("hymba-1.5b", None, True, 1e-3, LM_STEPS),
+#: at 16 of its 32 layers and phi3.5-moe at 1 of its 32 (32 and 2 until
+#: the model axis' phase took their time; 2 layers fit one card: PERF.md
+#: §4).
+ZOO_LM = (("phi3.5-moe-42b-a6.6b", 1, True, 1e-2, LM_STEPS),
+          ("hymba-1.5b", 16, True, 1e-3, LM_STEPS),
           ("kimi-k2-1t-a32b", None, False, 1e-2, 32))
 
 
 def phase_zoo_lm(dev, full: bool = True) -> collections.Counter:
     """KAKURENBO LM training (``examples/torch_lm_train.py --full``'s
-    defaults, ``"sort"``) on phi3.5-moe at 2 layers and hymba-1.5b (LR
-    1e-3) at full width and depth, and 2 epochs of kimi-k2 reduced, their launches
+    defaults, ``"sort"``) on phi3.5-moe at 1 layer and hymba-1.5b (LR
+    1e-3) at 16 layers, at full width, and 2 epochs of kimi-k2 reduced, their launches
     counted from 0 just before the runs: per epoch wall s, loss, F* and
     backward samples; B1's backward each step, B7 (and B6) once a layer a
     forward; the loss falls and some epoch hides sequences.  Then the host
@@ -3973,9 +4006,9 @@ ENCDEC_SERVE = (ENCDEC, None, {"flash_attention": 48})
 #: alike (``--encdec-lr-witness``; ROADMAP C): it trains at 1e-3, where
 #: its low-loss tail hides from epoch 5 (in 6 epochs it hides none).
 ENCDEC_STEPS, ENCDEC_LR = 200, 1e-3
-#: The encdec LM run's depth: 12 of each stack's 24 layers
+#: The encdec LM run's depth: 8 of each stack's 24 layers
 #: (the script's time limit; the gradient check stays at full depth).
-ENCDEC_LM_LAYERS = 12
+ENCDEC_LM_LAYERS = 8
 
 
 def encdec_kernel_checks(dev) -> dict:
@@ -4692,6 +4725,307 @@ def phase_mesh(dev, n: int = 50_000, epochs: int = 3, n_small: int = 8_192,
     require(row["gloo_world2"]["ranks_agree"], "mesh: gloo ranks differ")
     return launches
 
+
+
+# ---------------------------------------------------------------------------
+# The mesh's model axis (phase 21)
+
+#: The model axis' archs (full width), the sequence length, the gloo
+#: world's mesh and the depth its models are cut to.
+AXIS_ARCHS = ("qwen3-1.7b", "mamba2-130m")
+AXIS_SEQ = 256
+AXIS_WORLD = (2, 2)
+AXIS_LAYERS = 4
+#: Sequences of the KAKURENBO plan the gloo world trains four steps of.
+AXIS_N = 16
+
+
+def axis_cfg(arch: str, full: bool, layers: int | None = None):
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch(arch) if full else get_arch(arch).reduced()
+    return cut_depth(cfg, layers) if layers else cfg
+
+
+def axis_step(cfg, ctx, params: dict, batch: dict, dev, lr: float = 0.0,
+              adamw: bool = False):
+    """One ``launch/train.py::make_train_step`` on ``ctx``'s shards of the
+    global ``params`` (None: one device) from the global ``batch``, SGD at
+    ``lr`` (0: nothing moves, the grads are set) or the config's AdamW.
+    Returns (loss, (lv, pa, pc), the local tree, the model, the step)."""
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.launch.train import make_train_step, optimizer_for
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import SGD
+    model = build_model(cfg, ctx, device=dev)
+    local = model.shard(params)
+    leaves = [t.requires_grad_(True) for _, t in flatten(local)]
+    step = make_train_step(
+        model, optimizer_for(cfg, leaves) if adamw else SGD(leaves))
+    loss, metrics = step(local, batch, lr)
+    return loss, metrics, local, model, step
+
+
+def axis_unit_mesh(dev, arch: str, full: bool, mesh) -> dict:
+    """``arch`` at full width and depth: ``loss_and_metrics`` and one AdamW
+    step through ``make_train_step`` without a context, then on a (1, 1)
+    mesh with FSDP (``mesh``: NCCL at world 1), one after the other (the
+    first run's gradients and AdamW moments freed before the second, its
+    updated leaves kept on the card: qwen3-1.7b's f32 step takes ~28 GB):
+    the loss, the per-sample metrics and every updated leaf bit for bit.
+    The launches are the mesh run's."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.kernels import backend
+    from repro_torch.launch.train import build_ctx
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import unstack_layers
+    t_start = time.perf_counter()
+    cfg = axis_cfg(arch, full)
+    batch = lm_batch(dev, 2, AXIS_SEQ)
+    params = build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    seconds, kept = {}, None
+    for name, ctx in (("one_device", None),
+                      ("mesh_1x1", build_ctx(cfg, mesh, fsdp=True))):
+        backend.reset_launches()
+        t0 = time.perf_counter()
+        loss, (lv, pa, pc), local, _, _ = axis_step(cfg, ctx, params, batch,
+                                                    dev, 1e-3, adamw=True)
+        sync(dev)
+        seconds[name] = time.perf_counter() - t0
+        leaves = [t.detach() for _, t in flatten(local)]
+        out = [t.detach() for t in (loss, lv, pa, pc)]
+        del local, _
+        if kept is None:
+            moved = sum(not torch.equal(t, p) for t, (_, p) in zip(
+                leaves, flatten(unstack_layers(params, copy=False))))
+            kept = {"out": out, "leaves": leaves}
+        else:
+            launches, remat = dict(backend.LAUNCHES), ctx.remat
+            equal = {
+                "loss": torch.equal(kept["out"][0], out[0]),
+                "metrics": all(torch.equal(x, y) for x, y in
+                               zip(kept["out"][1:], out[1:])),
+                "leaves": sum(torch.equal(t, h)
+                              for t, h in zip(leaves, kept["leaves"]))}
+        del leaves
+        free_memory()
+    row = {"arch": cfg.name, "layers": cfg.num_layers, "batch": [2, AXIS_SEQ],
+           "n_leaves": len(kept["leaves"]), "leaves_moved": moved,
+           "loss": float(kept["out"][0]), "seconds": seconds,
+           "launches": launches, "remat": remat, "equal": equal}
+    del params, kept
+    free_memory()
+    row["seconds"]["all"] = time.perf_counter() - t_start
+    return row
+
+
+def axis_batch(ds, idx, dev) -> dict:
+    import numpy as np
+    import torch
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in ds.get(np.asarray(idx)).items()}
+
+
+def axis_world_arch(dev, rank: int, mesh, arch: str, full: bool) -> dict:
+    """In one rank of the gloo world: ``arch`` at full width and
+    ``AXIS_LAYERS`` layers on the (2, 2) mesh with FSDP.  Every rank first
+    runs the first batch on one device (the reference: ranks compare their
+    own shards, no gradient is gathered).  Then, counts from 0: four AdamW
+    steps over ``plan_global_batches`` of a KAKURENBO sampler's epoch-0
+    plan (one device, the same plan in every rank) at ``plan_lr``, each
+    step's per-sample losses observed; the first step's loss, per-sample
+    losses and gradients (taken before its update) against the reference;
+    the sampler's epoch-1 plan after the steps."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.core import KakurenboConfig, make_strategy
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import backend
+    from repro_torch.launch.train import (build_ctx, make_train_step,
+                                          optimizer_for, plan_global_batches,
+                                          plan_lr, plan_summary)
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    cfg = axis_cfg(arch, full, AXIS_LAYERS if full else None)
+    ds = SyntheticLM(num_samples=AXIS_N, seq_len=AXIS_SEQ, vocab_size=64,
+                     order=1, easy_fraction=0.7, seed=0)
+    strat = make_strategy("kakurenbo", AXIS_N, KakurenboConfig(
+        max_fraction=0.3, fraction_milestones=(0, 1, 2, 3)), seed=0,
+        device=dev)
+    plan = strat.plan(0)
+    dp = AXIS_WORLD[0]
+    batches = list(itertools.islice(
+        plan_global_batches(plan, dp, 4 // dp), 4))
+    params = build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    loss, (lv, _, _), ref, _, _ = axis_step(
+        cfg, None, params, axis_batch(ds, batches[0], dev), dev)
+    ref = {"loss": loss, "lv": lv,
+           "grads": [t.grad for _, t in flatten(ref)]}
+    sync(dev)
+    t_ref = time.perf_counter()
+    backend.reset_launches()
+    ctx = build_ctx(cfg, mesh, fsdp=True)
+    model = build_model(cfg, ctx, device=dev)
+    local = model.shard(params)
+    del params
+    leaves = [t.requires_grad_(True) for _, t in flatten(local)]
+    step = make_train_step(model, optimizer_for(cfg, leaves))
+    lr = plan_lr(1e-3, plan)
+    losses, out = [], {}
+    for i, idx in enumerate(batches):
+        loss, (lv, pa, pc) = step(local, axis_batch(ds, idx, dev), lr)
+        strat.observe(idx, lv, pa, pc, 0)
+        losses.append(float(loss))
+        if i == 0:
+            sync(dev)
+            t_first = time.perf_counter()
+            # This rank's block of every reference gradient: the error a
+            # leaf relative to the leaf's max |g|, the max over the ranks.
+            err = max(
+                float((t.grad - ctx.local_shard(g, sp)).abs().max())
+                / max(float(g.abs().max()), 1e-30)
+                for t, g, sp in zip(leaves, ref["grads"],
+                                    model.leaf_specs(local)))
+            errs = torch.tensor([err, abs(float(loss) - float(ref["loss"])),
+                                 float((lv - ref["lv"]).abs().max())],
+                                device=dev)
+            torch.distributed.all_reduce(errs,
+                                         op=torch.distributed.ReduceOp.MAX)
+            out.update({"grad_rel_err": float(errs[0]),
+                        "loss_err": float(errs[1]), "lv_err": float(errs[2]),
+                        "first_loss": losses[0], "leaves": len(leaves)})
+            del ref
+    sync(dev)
+    t_end = time.perf_counter()
+    out.update({
+        "arch": cfg.name, "layers": cfg.num_layers, "batch": [4, AXIS_SEQ],
+        "tp_size": ctx.tp_size, "dp_size": ctx.dp_size, "fsdp": ctx.fsdp,
+        "remat": ctx.remat, "local_params": sum(t.numel() for t in leaves),
+        "plan": plan_summary(plan), "next_plan": plan_summary(strat.plan(1)),
+        "lr": lr, "step_losses": losses, "launches": dict(backend.LAUNCHES),
+        "seconds": {"reference": t_ref - t0, "first_step": t_first - t_ref,
+                    "three_steps": t_end - t_first}})
+    del local, model, step, leaves
+    free_memory()
+    return out
+
+
+def model_axis_rank(rank: int, world: int, device_type: str, full: bool,
+                    flags: tuple[bool, bool]) -> dict:
+    """One rank of the gloo world (``launch.mesh.spawn``): every rank on
+    ``device_type`` (the one card), the (2, 2) ``("data", "model")`` mesh,
+    both archs in turn.  The spawning process' TF32 switches are taken."""
+    import torch
+    from repro_torch.launch.mesh import make_data_model_mesh, rank_device
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    torch.set_num_threads(2)
+    dev = rank_device(device_type, rank)
+    mesh = make_data_model_mesh(*AXIS_WORLD)
+    return {arch: axis_world_arch(dev, rank, mesh, arch, full)
+            for arch in AXIS_ARCHS}
+
+
+def stream_copy_gbps(dev, mb: int = 64, reps: int = 20) -> float:
+    """The card's copy rate (``benchmarks/kernel_micro.py``'s probe: a
+    device copy ``a + 0.0`` of ``mb`` MB of float32, read + write bytes
+    over the best of ``reps`` timed calls)."""
+    import torch
+    x = torch.zeros(mb * 1024 * 1024 // 4, device=dev)
+    best = float("inf")
+    for _ in range(2):
+        x + 0.0
+    for _ in range(reps):
+        best = min(best, time_ms(lambda: x + 0.0, 1))
+    return 2 * x.numel() * 4 / (best * 1e-3) / 1e9
+
+
+def phase_model_axis(dev, full: bool = True, gloo_device: str = "cuda"
+                     ) -> tuple[collections.Counter, dict]:
+    """The mesh's model axis (``launch/train.py``, ``dist/sharding.py``):
+    qwen3-1.7b and mamba2-130m at full width and depth on a (1, 1)
+    ``("data", "model")`` mesh under NCCL with FSDP, bit for bit against
+    the port without a context (``axis_unit_mesh``); then a gloo world of
+    4 ranks on this card as (2, 2) with FSDP, both archs at full width and
+    ``AXIS_LAYERS`` layers (``axis_world_arch``): four KAKURENBO steps, the
+    first one's loss and per-sample losses within 1e-5 of one device and
+    its gradients within 1e-4 of each leaf's max |g|; B7 and B6 at the local shapes
+    against their plain versions, and the card's stream-copy rate beside
+    the datasheet's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    row = {"phase": "model_axis", "full": full}
+    launches = collections.Counter()
+    backend_name = "nccl" if dev.type == "cuda" else "gloo"
+    try:
+        mesh = mesh_lib.make_data_model_mesh(1, 1, backend_name)
+        row["unit_mesh"] = [axis_unit_mesh(dev, a, full, mesh)
+                            for a in AXIS_ARCHS]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for r in row["unit_mesh"]:
+        launches.update(r["launches"])
+    row["unit_mesh_seconds"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ranks = mesh_lib.spawn(model_axis_rank, math.prod(AXIS_WORLD), "gloo",
+                           gloo_device, (gloo_device, full, tf32_flags()))
+    row["gloo_world"] = {"mesh": list(AXIS_WORLD), "ranks": len(ranks),
+                         "spawn_and_run_seconds": time.perf_counter() - t1,
+                         "archs": ranks[0]}
+    for r in ranks:
+        for a in AXIS_ARCHS:
+            launches.update(r[a]["launches"])
+    row["gloo_world"]["ranks_agree"] = all(
+        r[a]["step_losses"] == ranks[0][a]["step_losses"]
+        for r in ranks for a in AXIS_ARCHS)
+    row["gloo_world"]["local_params"] = {
+        a: [r[a]["local_params"] for r in ranks] for a in AXIS_ARCHS}
+    if dev.type == "cuda":
+        q = axis_cfg("qwen3-1.7b", full)
+        tp = AXIS_WORLD[1]
+        shape = (4 // AXIS_WORLD[0], AXIS_SEQ, q.num_heads // tp,
+                 q.num_kv_heads // tp, q.resolved_head_dim)
+        row["local_kernels"] = {
+            "flash_attention": check_flash_attention(
+                dev, shape, True, torch.float32, 1e-5, 20, library=True),
+            "ssd_scan": check_ssd_scan(dev, 4 // AXIS_WORLD[0], AXIS_SEQ,
+                                       "model", 20)}
+        row["stream_copy_gbps"] = stream_copy_gbps(dev)
+        row["datasheet_hbm_gbps"] = mesh_lib.HBM_BW / 1e9
+    row["launches"] = dict(launches)
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    for r in row["unit_mesh"]:
+        require(all(r["equal"][k] for k in ("loss", "metrics"))
+                and r["equal"]["leaves"] == r["n_leaves"],
+                f"model axis: (1, 1) differs from one device: {r['arch']} "
+                f"{r['equal']}")
+        require(r["leaves_moved"] == r["n_leaves"],
+                f"model axis: AdamW moved {r['leaves_moved']} of "
+                f"{r['n_leaves']} leaves ({r['arch']})")
+    for a in AXIS_ARCHS:
+        got = ranks[0][a]
+        require(got["loss_err"] <= 1e-5 and got["lv_err"] <= 1e-5,
+                f"model axis: {a} loss vs one device {got['loss_err']}, "
+                f"per-sample {got['lv_err']}")
+        require(got["grad_rel_err"] <= 1e-4,
+                f"model axis: {a} gradient {got['grad_rel_err']} of its max")
+        require(len(got["step_losses"]) == 4
+                and all(math.isfinite(x) for x in got["step_losses"]),
+                f"model axis: {a} plan {got['plan']}, steps "
+                f"{got['step_losses']}")
+    require(row["gloo_world"]["ranks_agree"], "model axis: ranks differ")
+    for name in ("flash_attention", "ssd_scan", "loss_confidence",
+                 "loss_confidence_bwd"):
+        require(launches.get(name, 0) > 0,
+                f"model axis: {name} never launched")
+    return launches, row.get("local_kernels", {})
+
 # ---------------------------------------------------------------------------
 
 
@@ -4729,10 +5063,11 @@ KERNELS = {
 
 def main(argv: list[str]) -> int:
     witnesses = {"--hymba-lr-witness": witness_hymba_lr,
-                 "--encdec-lr-witness": witness_encdec_lr}
+                 "--encdec-lr-witness": witness_encdec_lr,
+                 "--model-axis": phase_model_axis}
     if not (argv == [] or (len(argv) == 1 and argv[0] in witnesses)):
         print("usage: chip_smoke.py [--hymba-lr-witness | "
-              "--encdec-lr-witness]", file=sys.stderr)
+              "--encdec-lr-witness | --model-axis]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -4790,6 +5125,8 @@ def main(argv: list[str]) -> int:
     phase_card_vs_cpu(dev)
     launches.update(phase_compression(dev))
     launches.update(phase_mesh(dev))
+    axis_launches, axis_rows = phase_model_axis(dev)
+    launches.update(axis_launches)
     launches.update(phase_serve(dev, "mamba2-130m"))
     launches.update(phase_serve(dev, "smollm-135m"))
     launches.update(phase_lm_train(dev))
@@ -4822,6 +5159,12 @@ def main(argv: list[str]) -> int:
             rows[-1]["lm_path"] = {k: lm.get(k) for k in (
                 "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "library_backend")}
+        if name in axis_rows:
+            # The same kernel at the model axis' local shapes.
+            rows[-1]["model_axis"] = {k: axis_rows[name].get(k) for k in (
+                "shape", "max_abs_err", "f64_err", "plain_f64_err", "ms",
+                "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_backend")}
         if name in zoo_rows:
             # The same kernel at the model zoo's shapes.
             rows[-1]["zoo"] = [{k: z.get(k) for k in (

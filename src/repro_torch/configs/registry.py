@@ -5,7 +5,7 @@ from repro_torch.configs import (
     mamba2_130m, mistral_large_123b, phi35_moe_42b, qwen3_1_7b,
     seamless_m4t_large_v2, smollm_135m,
 )
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig, shape_applicable
 
 ARCHS: dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG
@@ -19,3 +19,11 @@ def get_arch(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def all_cells():
+    """Every (arch, shape) pair with its applicability verdict."""
+    for cfg in ARCHS.values():
+        for shape in SHAPES.values():
+            ok, reason = shape_applicable(cfg, shape)
+            yield cfg, shape, ok, reason

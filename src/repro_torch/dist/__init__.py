@@ -1,6 +1,6 @@
-"""Distributed training: the data-parallel axis over ``torch.distributed``
-(``sharding.py``: ``ParallelCtx``; the mesh itself is ``launch/mesh.py``) and
-error-feedback gradient compression (``compression.py``).  The model axis
-(tensor, expert and sequence parallelism, FSDP) waits for the pod-scale
-launcher (ROADMAP A.9)."""
+"""Distributed training over ``torch.distributed``: ``sharding.py``'s
+``ParallelCtx`` (the data axis' row helpers, the logical axes and the
+model axis' collectives; the meshes are ``launch/mesh.py``) and
+error-feedback gradient compression (``compression.py``).  Expert and
+sequence parallelism are ROADMAP A.9(c)."""
 from repro_torch.dist.sharding import ParallelCtx  # noqa: F401

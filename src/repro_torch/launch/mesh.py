@@ -1,9 +1,21 @@
-"""The data-parallel mesh over ``torch.distributed``.
+"""Meshes over ``torch.distributed``.
 
-Port of ``repro/launch/mesh.py``'s ``make_data_mesh`` and
-``data_parallel_ctx``: the ``("data",)`` mesh the trainer runs under when
-``TrainConfig.mesh_shape`` is set.  Here a mesh is the default process
-group, one rank a device:
+Port of ``repro/launch/mesh.py``: ``make_data_mesh`` and
+``data_parallel_ctx``, the ``("data",)`` mesh the trainer runs under when
+``TrainConfig.mesh_shape`` is set (the default process group, one rank a
+device), and the launcher's 2-D and 3-D meshes, ``DeviceMesh``es with
+named dims over the default group:
+
+- ``make_data_model_mesh(data, model, backend)``: a ``("data", "model")``
+  mesh (``launch/train.py::build_ctx`` resolves a ``ParallelCtx`` on it);
+- ``make_production_mesh(multi_pod=)``: the reference's (16, 16)
+  ``("data", "model")`` pod and (2, 16, 16) ``("pod", "data", "model")``
+  pair of pods.  It needs a group of 256 or 512 ranks; on one machine
+  torch's fake process group holds one (``backend="fake"`` with
+  ``torch.testing._internal.distributed.fake_pg.FakeStore``), in one
+  process, for the specs and shapes a launcher derives from it.
+
+The data mesh:
 
 - ``make_data_mesh(n)`` validates the group (its world size must be
   ``n``), or, with no group yet and ``n == 1``, joins a group of one by
@@ -22,12 +34,12 @@ host memory, so ``dist/sharding.py`` stages nothing; such a group cannot
 run inside a CUDA graph).  ``default_backend`` maps a device type to the
 first.
 
-The reference's TPU v5e roofline constants are not carried over: the
-H100's come, measured, with the pod-scale launcher (ROADMAP A.9), as does
-``make_production_mesh``.
+The roofline denominators are the H100's (``PEAK_FLOPS_BF16``,
+``HBM_BW``, ``NVLINK_BW``), not the reference's TPU v5e ones.
 """
 from __future__ import annotations
 
+import math
 import os
 import pickle
 import tempfile
@@ -76,13 +88,69 @@ def make_data_mesh(num_devices: int, backend: str | None = None):
             "process group is initialised: launch the ranks with "
             "repro_torch.launch.mesh.spawn (or torchrun) and build the "
             "trainer in each")
+    _join_one(backend)
+    return dist.group.WORLD
+
+
+def _join_one(backend: str | None) -> None:
     if backend is None:
-        raise ValueError("make_data_mesh(1) joins a group of one itself: "
+        raise ValueError("a mesh of one joins a group of one itself: "
                          f"name its backend, one of {BACKENDS}")
     _check_backend(backend)
     dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                             world_size=1)
-    return dist.group.WORLD
+
+
+def make_data_model_mesh(data: int, model: int, backend: str | None = None):
+    """The ``(data, model)`` mesh with dims ``("data", "model")`` over the
+    default group (its world size must be ``data * model``; with no group
+    yet, a (1, 1) mesh joins a group of one under ``backend``).  Rank r
+    sits at (r // model, r % model): the model axis is the inner one.  The
+    mesh's device type is "cuda" under NCCL, else "cpu" (gloo ranks may
+    still compute on a card: the type moves no tensor)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    world = data * model
+    if not dist.is_initialized():
+        if world != 1:
+            raise RuntimeError(
+                f"mesh ({data}, {model}) needs {world} ranks and no process "
+                "group is initialised: launch the ranks with "
+                "repro_torch.launch.mesh.spawn (or torchrun)")
+        _join_one(backend)
+    elif dist.get_world_size() != world:
+        raise RuntimeError(
+            f"mesh ({data}, {model}) needs {world} ranks, the process group "
+            f"has {dist.get_world_size()}")
+    device_type = "cuda" if str(dist.get_backend()) == "nccl" else "cpu"
+    return init_device_mesh(device_type, (data, model),
+                            mesh_dim_names=("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's pod mesh: (16, 16) ``("data", "model")``, or with
+    ``multi_pod`` (2, 16, 16) ``("pod", "data", "model")``, over the
+    default group of 256 or 512 ranks (on one machine: the fake process
+    group, see the module docstring)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have != need:
+        raise RuntimeError(
+            f"mesh {shape} needs a process group of {need} ranks, have "
+            f"{have}: join one first (one process: backend='fake' with "
+            "torch.testing._internal.distributed.fake_pg.FakeStore)")
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
+
+
+# The H100 SXM5 80 GB's datasheet figures (roofline denominators), the card
+# the port runs on (``NVIDIA H100 80GB HBM3, 700.00 W``): dense bf16 tensor
+# throughput, HBM3 bandwidth, and NVLink 4's aggregate bandwidth a card.
+# ``chip_smoke.py`` prints its measured stream-copy rate beside HBM_BW.
+PEAK_FLOPS_BF16 = 989e12      # per card
+HBM_BW = 3.35e12               # bytes/s per card
+NVLINK_BW = 900e9              # bytes/s per card, all links
 
 
 def data_parallel_ctx(num_devices: int,

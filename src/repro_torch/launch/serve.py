@@ -62,7 +62,7 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
         cfg = dataclasses.replace(
             cfg, num_layers=num_layers,
             num_encoder_layers=num_layers if cfg.num_encoder_layers else 0)
-    model = build_model(cfg, dev)
+    model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(

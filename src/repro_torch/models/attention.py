@@ -1,6 +1,6 @@
 """GQA attention: prefill (full sequence) and decode paths.
 
-Port of ``repro/models/attention.py`` for one device.  Layouts, as the
+Port of ``repro/models/attention.py``.  Layouts, as the
 reference's:
   x       (B, S, d_model)
   q       (B, S, Hq, Dh)
@@ -24,8 +24,9 @@ reference's is plain jnp.  ``update_cache`` writes in place (a ring cache's
 index wrapped by the caller, ``models/transformer.py``).  ``cross_attend``
 (the encoder-decoder's, ``models/encdec.py``: queries and keys of different
 lengths, no mask, no rope) is plain PyTorch on every device, as the
-reference's is plain jnp.  ``decode_attend_sp`` (sequence-parallel over a
-mesh's model axis) waits for the pod-scale launcher (ROADMAP A.9).
+reference's is plain jnp.  Under a model axis the local heads go through
+``attend`` (``transformer._attention_tp``); ``decode_attend_sp``
+(sequence-parallel decode over the model axis) is ROADMAP A.9(c).
 """
 from __future__ import annotations
 
@@ -40,14 +41,14 @@ NEG_INF = -1e30
 def attn_param_defs(d_model: int, n_q: int, n_kv: int, dh: int,
                     qk_norm: bool) -> dict:
     defs = {
-        "wq": ParamDef((d_model, n_q, dh)),
-        "wk": ParamDef((d_model, n_kv, dh)),
-        "wv": ParamDef((d_model, n_kv, dh)),
-        "wo": ParamDef((n_q, dh, d_model)),
+        "wq": ParamDef((d_model, n_q, dh), ("fsdp", "tp", None)),
+        "wk": ParamDef((d_model, n_kv, dh), ("fsdp", "tp", None)),
+        "wv": ParamDef((d_model, n_kv, dh), ("fsdp", "tp", None)),
+        "wo": ParamDef((n_q, dh, d_model), ("tp", None, "fsdp")),
     }
     if qk_norm:
-        defs["q_norm"] = ParamDef((dh,), init="ones")
-        defs["k_norm"] = ParamDef((dh,), init="ones")
+        defs["q_norm"] = ParamDef((dh,), (None,), init="ones")
+        defs["k_norm"] = ParamDef((dh,), (None,), init="ones")
     return defs
 
 

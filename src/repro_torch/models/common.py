@@ -2,9 +2,11 @@
 rotary embedding and the gated MLP.
 
 Port of ``repro/models/common.py``.  Parameters are described by
-``ParamDef`` trees (nested dicts) so that one structure gives the shapes
-and the initialised values; the JAX package's logical sharding axes are
-left out (the port runs on one device).  ``init_params`` draws from one
+``ParamDef`` trees (nested dicts) so that one structure gives the shapes,
+the initialised values and, through each def's logical axes (one entry a
+dim, ``None`` replicated), the sharding specs of a mesh
+(``dist/sharding.py::spec_tree_for``, ``models/model.py::Model.param_specs``;
+``logical_tree``, ``abstract_params`` on meta tensors).  ``init_params`` draws from one
 ``torch.Generator`` in the order of the tree: the same kinds of init as
 the reference, equal in distribution, not in bits (``jax.random`` and
 PyTorch draw different numbers), so parity tests carry the reference's
@@ -24,8 +26,14 @@ from repro_torch.kernels.backend import resolve_device
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
+    logical: tuple | None = None  # per dim: a logical axis name or None
     init: str = "normal"        # normal | zeros | ones | embed | a_log
     scale: float | None = None  # override init scale
+
+    def __post_init__(self):
+        if self.logical is None:
+            object.__setattr__(self, "logical", (None,) * len(self.shape))
+        assert len(self.logical) == len(self.shape), (self.shape, self.logical)
 
 
 def map_defs(fn: Callable[[ParamDef], Any], defs: Any) -> Any:
@@ -37,7 +45,19 @@ def map_defs(fn: Callable[[ParamDef], Any], defs: Any) -> Any:
 
 def stack_defs(defs: Any, num_layers: int) -> Any:
     """Prepend a layer dim to every ParamDef (the stacked layer tree)."""
-    return map_defs(lambda d: ParamDef((num_layers, *d.shape), d.init, d.scale),
+    return map_defs(lambda d: ParamDef((num_layers, *d.shape),
+                                       (None, *d.logical), d.init, d.scale),
+                    defs)
+
+
+def logical_tree(defs: Any) -> Any:
+    """The tree of each def's logical axes."""
+    return map_defs(lambda d: d.logical, defs)
+
+
+def abstract_params(defs: Any, dtype: torch.dtype = torch.float32) -> Any:
+    """The tree as meta tensors: shapes and dtype, no storage."""
+    return map_defs(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"),
                     defs)
 
 

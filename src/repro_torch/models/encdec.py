@@ -44,35 +44,36 @@ from repro_torch.models.transformer import per_sample_metrics  # noqa: F401
 
 
 def _mlp_defs(d: int, ff: int) -> dict:
-    return {"w_gate": ParamDef((d, ff)), "w_up": ParamDef((d, ff)),
-            "w_down": ParamDef((ff, d))}
+    return {"w_gate": ParamDef((d, ff), ("fsdp", "tp")),
+            "w_up": ParamDef((d, ff), ("fsdp", "tp")),
+            "w_down": ParamDef((ff, d), ("tp", "fsdp"))}
 
 
 def param_defs(cfg: ArchConfig) -> dict:
     d, v = cfg.d_model, cfg.vocab_size
     nq, nkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     enc_block = {
-        "ln1": ParamDef((d,), init="ones"),
+        "ln1": ParamDef((d,), (None,), init="ones"),
         "attn": attn.attn_param_defs(d, nq, nkv, dh, cfg.qk_norm),
-        "ln2": ParamDef((d,), init="ones"),
+        "ln2": ParamDef((d,), (None,), init="ones"),
         "mlp": _mlp_defs(d, cfg.d_ff),
     }
     dec_block = {
-        "ln1": ParamDef((d,), init="ones"),
+        "ln1": ParamDef((d,), (None,), init="ones"),
         "attn": attn.attn_param_defs(d, nq, nkv, dh, cfg.qk_norm),
-        "lnx": ParamDef((d,), init="ones"),
+        "lnx": ParamDef((d,), (None,), init="ones"),
         "xattn": attn.attn_param_defs(d, nq, nkv, dh, False),
-        "ln2": ParamDef((d,), init="ones"),
+        "ln2": ParamDef((d,), (None,), init="ones"),
         "mlp": _mlp_defs(d, cfg.d_ff),
     }
     return {
-        "enc_in": ParamDef((cfg.encoder_input_dim, d)),
+        "enc_in": ParamDef((cfg.encoder_input_dim, d), (None, "fsdp")),
         "enc_layers": stack_defs(enc_block, cfg.num_encoder_layers),
-        "enc_norm": ParamDef((d,), init="ones"),
-        "embed": ParamDef((v, d), init="embed", scale=0.02),
+        "enc_norm": ParamDef((d,), (None,), init="ones"),
+        "embed": ParamDef((v, d), ("tp", "fsdp"), init="embed", scale=0.02),
         "dec_layers": stack_defs(dec_block, cfg.num_layers),
-        "out_norm": ParamDef((d,), init="ones"),
-        "lm_head": ParamDef((d, v)),
+        "out_norm": ParamDef((d,), (None,), init="ones"),
+        "lm_head": ParamDef((d, v), ("fsdp", "tp")),
     }
 
 

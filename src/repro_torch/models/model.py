@@ -4,9 +4,24 @@ Port of ``repro/models/model.py``: parameter construction, the training
 loss (``loss_and_metrics``), prefill/decode and caches for the server,
 dispatched by family: ``models/encdec.py`` for the encoder-decoder
 (seamless-m4t; its batches carry ``frames``), ``models/transformer.py``
-for the decoder-only families (dense, MoE, SSM, hybrid, VLM).  A ``Model``
-lives on one device: ``device=None`` means CUDA and raises without a CUDA
-device.
+for the decoder-only families (dense, MoE, SSM, hybrid, VLM), plus the
+launcher's abstract views: ``param_specs`` (the reference's sharding
+specs, through each ``ParamDef``'s logical axes), ``abstract_params``
+(meta tensors), ``input_specs``/``input_logical``/``input_shardings``.
+``device=None`` means CUDA and raises without a CUDA device.
+
+With a ``ParallelCtx`` over a ``("data", "model")`` mesh (``ctx``), a
+``Model`` trains on each rank's shards: ``shard`` (or
+``transformer.params_from_jax(..., shard=model)``) gives a rank its block
+of every leaf by its spec, as per-layer lists; ``loss_and_metrics`` takes
+the global batch, runs this rank's data rows through
+``transformer.forward`` (or, for the encoder-decoder at
+``tp_size`` 1, the whole tree gathered), and returns the global loss (each
+data rank's share summed: a masked mean over the global batch) and the
+global per-sample metrics; ``gather`` gives the global tree back.  The
+model axis runs the dense, SSM and hybrid families; an MoE (expert
+parallelism), the encoder-decoder and the VLM at ``tp_size`` > 1, and
+``seq_parallel_kv``, raise (ROADMAP A.9(c)); serving under a mesh too.
 
 ``LM`` is the trainable form of the same model, an ``nn.Module`` for
 ``train/trainer.py``: one parameter per leaf of every layer (not one
@@ -19,13 +34,18 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.checkpoint.checkpoint import flatten
+from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.dist.sharding import (ParallelCtx, entry_axes, gather_dim,
+                                       map_specs, spec_tree_for)
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import encdec, transformer
-from repro_torch.models.common import init_params
+from repro_torch.models.common import abstract_params, init_params, logical_tree
+from repro_torch.models.transformer import LAYER_STACKS, VLM_PATCH_DIM
 
 #: The encoder's input width: the stub audio frontend's (w2v-BERT-style)
 #: frame embeddings.
@@ -33,6 +53,8 @@ ENC_FRAME_DIM = 1024
 #: The encoder-decoder's decoder length: S_dec = seq_len // DEC_FRACTION
 #: (and a serving cache's encoder length max_len // DEC_FRACTION).
 DEC_FRACTION = 4
+#: The stub vision frontend's patches a sample (24 x 24, anyres base).
+VLM_NUM_PATCHES = 576
 
 
 def family_module(cfg: ArchConfig):
@@ -40,47 +62,198 @@ def family_module(cfg: ArchConfig):
     return encdec if cfg.family == "encdec" else transformer
 
 
-def loss_and_metrics(cfg: ArchConfig, params: dict, batch: dict):
+def loss_and_metrics(cfg: ArchConfig, params: dict, batch: dict,
+                     ctx: ParallelCtx | None = None,
+                     specs: dict | None = None):
     """Returns (scalar loss, (per-sample loss, PA, PC)): the mean of the
     per-sequence losses, weighted by ``batch["weight"]`` when the batch
     carries one, plus ``router_aux_weight`` times the summed aux term for
     an MoE.  The VLM's patch positions (logits longer than the labels) are
-    dropped before the metrics."""
-    mod = family_module(cfg)
-    logits, mask, aux = mod.forward(cfg, params, batch)
+    dropped before the metrics.
+
+    On a mesh (``ctx`` and ``specs``, the shards' per-layer specs)
+    ``params`` are this rank's shards and ``batch`` the global batch: the
+    data rank's rows run through the model, the scalar is the global loss
+    (each rank's mean times its share of the batch, summed over the data
+    ranks; an MoE's aux term averaged over them), the per-sample metrics
+    are gathered in batch order.  The gradient of the scalar on a rank is
+    its share's; ``launch/train.py`` sums the replicated leaves' over the
+    data ranks, FSDP's gathers sum the sharded ones'."""
+    local = batch
+    if specs is not None:
+        check_model_axis(cfg, ctx)
+        local = {k: ctx.shard_rows(v) for k, v in batch.items()}
+    if cfg.family == "encdec":
+        if specs is not None:     # tp_size 1: the whole tree gathered
+            params = map_specs(ctx.gather_fsdp_tree, params, specs)
+        logits, mask, aux = encdec.forward(cfg, params, local)
+    else:
+        logits, mask, aux = transformer.forward(cfg, params, local, ctx,
+                                                specs)
+    scalar, (loss, pa, pc) = _mean_and_metrics(cfg, logits, mask, local)
+    if specs is None:
+        if cfg.moe is not None:
+            scalar = scalar + cfg.moe.router_aux_weight * aux
+        return scalar, (loss, pa, pc)
+    scalar = scalar * (loss.shape[0] / batch["labels"].shape[0])
+    if cfg.moe is not None:
+        scalar = scalar + cfg.moe.router_aux_weight * aux / ctx.dp_size
+    scalar = ctx.dp_sum(scalar)
+    if ctx.dp_size > 1:
+        got = ctx.gather_rows(torch.stack(
+            [loss.detach(), pa.to(torch.float32), pc.detach()], dim=1))
+        loss, pa, pc = got[:, 0], got[:, 1] != 0, got[:, 2]
+    return scalar, (loss, pa, pc)
+
+
+def _mean_and_metrics(cfg: ArchConfig, logits, mask, batch: dict):
+    """The (weighted) mean of the per-sequence losses and the per-sample
+    (loss, PA, PC), the VLM's patch positions dropped."""
     labels = batch["labels"]
     if cfg.family == "vlm" and logits.shape[1] != labels.shape[1]:
         logits = logits[:, -labels.shape[1]:]
         mask = mask[:, -labels.shape[1]:]
-    loss, pa, pc = mod.per_sample_metrics(cfg, logits, labels, mask)
+    loss, pa, pc = family_module(cfg).per_sample_metrics(cfg, logits, labels,
+                                                         mask)
     w = batch.get("weight")
     scalar = (loss * w).mean() if w is not None else loss.mean()
-    if cfg.moe is not None:
-        scalar = scalar + cfg.moe.router_aux_weight * aux
     return scalar, (loss, pa, pc)
 
 
+def check_model_axis(cfg: ArchConfig, ctx: ParallelCtx) -> None:
+    """Refuse what the mesh path does not run yet, rather than compute it
+    replicated in silence."""
+    where = "ROADMAP A.9(c)"
+    if ctx.seq_parallel_kv:
+        raise NotImplementedError(
+            f"seq_parallel_kv (sequence-parallel flash-decode): {where}")
+    if ctx.tp_size > 1 and cfg.family in ("moe", "encdec", "vlm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family under a model axis of "
+            f"{ctx.tp_size} ranks (expert parallelism, the encoder-decoder's "
+            f"and the VLM's parallel paths): {where}; run it at tp_size 1 "
+            "(dp_only=True, or a model axis of 1)")
+    if ctx.remat and ctx.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat_policy={ctx.remat_policy!r}: only 'nothing' (each layer "
+            "recomputed whole) is ported; 'dots' is ROADMAP A.9(d)")
+
+
+def per_layer_specs(specs: dict) -> dict:
+    """``specs`` with each layer stack's spec as one layer's (the leading
+    layer dim's entry dropped): the specs of the per-layer lists."""
+    return {k: (map_specs(lambda sp: sp[1:], v) if k in LAYER_STACKS else v)
+            for k, v in specs.items()}
+
+
 class Model:
-    def __init__(self, cfg: ArchConfig,
+    def __init__(self, cfg: ArchConfig, ctx: ParallelCtx | None = None,
                  device: str | torch.device | None = None):
         self.cfg = cfg
+        self.ctx = ctx or ParallelCtx()
         self.device = resolve_device(device)
         self._mod = family_module(cfg)
+        self._local_specs = None
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the model runs on a mesh's shards."""
+        return self.ctx.mesh is not None
+
+    # -- params -----------------------------------------------------------
 
     def param_defs(self):
-        return self._mod.param_defs(self.cfg)
+        if self.cfg.family == "encdec":
+            return self._mod.param_defs(self.cfg)
+        return self._mod.param_defs(self.cfg, self.ctx.moe_fsdp_mode)
+
+    def abstract_params(self, dtype=torch.bfloat16):
+        """The global parameter tree as meta tensors."""
+        return abstract_params(self.param_defs(), dtype)
+
+    def param_specs(self, dtype=torch.bfloat16):
+        """Each leaf's spec on the context's mesh (the reference's
+        ``Model.param_specs``): logical axes resolved, a dim that does not
+        divide replicated."""
+        defs = self.param_defs()
+        return spec_tree_for(logical_tree(defs), self.ctx,
+                             abstract_params(defs, dtype))
+
+    def local_specs(self) -> dict:
+        """The specs of ``shard``'s per-layer tree."""
+        if self._local_specs is None:
+            self._local_specs = per_layer_specs(self.param_specs())
+        return self._local_specs
+
+    def leaf_specs(self, params: dict) -> list[tuple]:
+        """The spec of each leaf of ``shard``'s tree ``params``, in
+        ``checkpoint.flatten``'s order of its leaves."""
+        class _Spec:
+            def __init__(self, spec):
+                self.spec = spec
+        held = map_specs(lambda t, sp: _Spec(sp), params, self.local_specs())
+        return [h.spec for _, h in flatten(held)]
 
     def init(self, generator: torch.Generator, dtype=torch.float32):
-        """Parameters drawn from ``generator``, on the model's device."""
+        """Parameters drawn from ``generator``, on the model's device (the
+        global tree: ``shard`` gives a rank its blocks)."""
         return init_params(self.param_defs(), generator, dtype, self.device)
 
+    def shard(self, params: dict) -> dict:
+        """This rank's block of every leaf of a global tree (tensors or
+        numpy arrays, layer stacks stacked or per-layer), as per-layer
+        lists of tensors on the model's device, each with its own
+        storage.  Off-mesh: the whole tree, per-layer."""
+        def one(x, spec):
+            loc = self.ctx.local_shard(x, spec)
+            if isinstance(loc, torch.Tensor):
+                return loc.to(self.device, copy=True)
+            return torch.from_numpy(np.array(loc, dtype=np.float32)).to(
+                self.device)
+        return map_specs(one, transformer.unstack_layers(params, copy=False),
+                         self.local_specs())
+
+    @torch.no_grad()
+    def gather(self, local: dict) -> dict:
+        """The global tree (per-layer lists) from every rank's ``shard``s
+        (or their gradients): each leaf all-gathered over the axes of its
+        spec."""
+        ctx = self.ctx
+
+        def one(x, spec):
+            for dim, entry in enumerate(spec):
+                axes = entry_axes(entry)
+                size = 1
+                for a in axes:
+                    size *= ctx.axis_size(a)
+                if size > 1:
+                    x = gather_dim(x, dim, ctx.group_for(axes), size)
+            return x
+        return map_specs(one, local, self.local_specs())
+
+    # -- training ---------------------------------------------------------
+
     def loss_and_metrics(self, params, batch: dict):
-        return loss_and_metrics(self.cfg, params, batch)
+        """Returns (scalar loss, (per-sample loss, PA, PC)); on a mesh
+        ``params`` are this rank's shards and ``batch`` the global batch."""
+        if not self.sharded:
+            return loss_and_metrics(self.cfg, params, batch)
+        return loss_and_metrics(self.cfg, params, batch, self.ctx,
+                                self.local_specs())
+
+    # -- serving ----------------------------------------------------------
+
+    def _one_device(self, what: str) -> None:
+        if self.sharded:
+            raise NotImplementedError(
+                f"{what} under a mesh: ROADMAP A.9(c)")
 
     def prefill(self, params, batch: dict, max_len: int | None = None):
+        self._one_device("prefill")
         return self._mod.prefill(self.cfg, params, batch, max_len)
 
     def decode_step(self, params, token, cache):
+        self._one_device("decode")
         return self._mod.decode_step(self.cfg, params, token, cache)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -95,9 +268,79 @@ class Model:
                                       self.device, ring=ring)
 
 
-def build_model(cfg: ArchConfig,
+    # -- abstract inputs for the launcher ----------------------------------
+
+    def input_specs(self, shape: ShapeSpec, dtype=torch.bfloat16) -> dict:
+        """Meta-tensor stand-ins for every model input (no allocation)."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def meta(shp, dt):
+            return torch.empty(shp, dtype=dt, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            if cfg.family == "encdec":
+                batch = {"frames": meta((b, s, ENC_FRAME_DIM), dtype),
+                         "tokens": meta((b, s // DEC_FRACTION), torch.int32)}
+            elif cfg.family == "vlm":
+                batch = {"patch_embeds": meta((b, VLM_NUM_PATCHES,
+                                               VLM_PATCH_DIM), dtype),
+                         "tokens": meta((b, s), torch.int32)}
+            else:
+                batch = {"tokens": meta((b, s), torch.int32)}
+            if shape.kind == "train":
+                lab = tuple(batch["tokens"].shape)
+                batch["labels"] = meta(lab, torch.int32)
+                batch["mask"] = meta(lab, torch.bool)
+            return batch
+        # decode: one new token against a cache of length s
+        ring = (cfg.attn_window is not None and s > cfg.attn_window
+                and cfg.sub_quadratic)
+        if cfg.family == "encdec":
+            cache = encdec.init_cache(cfg, b, s, s // DEC_FRACTION, dtype,
+                                      "meta")
+        else:
+            cache = transformer.init_cache(cfg, b, s, dtype, "meta",
+                                           ring=ring)
+        cache["len"] = meta((), torch.int32)
+        return {"token": meta((b, 1), torch.int32), "cache": cache}
+
+    def input_logical(self, shape: ShapeSpec) -> dict:
+        """Logical sharding axes matching ``input_specs``' structure."""
+        cfg = self.cfg
+        if shape.kind in ("train", "prefill"):
+            out: dict[str, Any] = {"tokens": ("batch", None)}
+            if cfg.family == "encdec":
+                out["frames"] = ("batch", None, None)
+            if cfg.family == "vlm":
+                out["patch_embeds"] = ("batch", None, None)
+            if shape.kind == "train":
+                out["labels"] = ("batch", None)
+                out["mask"] = ("batch", None)
+            return out
+        seq_ax = "seq_tp" if self.ctx.seq_parallel_kv else None
+        cache: dict[str, Any] = {"len": ()}
+        if cfg.family != "ssm" and cfg.num_heads:
+            cache["k"] = (None, "batch", seq_ax, None, None)
+            cache["v"] = (None, "batch", seq_ax, None, None)
+        if cfg.family == "encdec":
+            cache["xk"] = (None, "batch", None, None, None)
+            cache["xv"] = (None, "batch", None, None, None)
+        if cfg.family in ("ssm", "hybrid"):
+            cache["ssm_state"] = (None, "batch", None, None, None)
+            cache["conv_buf"] = (None, "batch", None, None)
+        return {"token": ("batch", None), "cache": cache}
+
+    def input_shardings(self, shape: ShapeSpec, dtype=torch.bfloat16):
+        """``input_logical`` resolved against the inputs' shapes."""
+        return map_specs(lambda lg, t: self.ctx.spec(*lg, dims=tuple(t.shape)),
+                         self.input_logical(shape),
+                         self.input_specs(shape, dtype))
+
+
+def build_model(cfg: ArchConfig, ctx: ParallelCtx | None = None,
                 device: str | torch.device | None = None) -> Model:
-    return Model(cfg, device)
+    return Model(cfg, ctx, device)
 
 
 class _Tree(nn.Module):
@@ -139,8 +382,8 @@ class LM(_Tree):
     def init(cls, cfg: ArchConfig, generator: torch.Generator,
              device: str | torch.device | None = None,
              dtype=torch.float32) -> "LM":
-        """``Model(cfg, device).init(generator)``'s draws as an ``LM``."""
-        return cls(cfg, Model(cfg, device).init(generator, dtype))
+        """``Model(cfg, device=device).init(generator)``'s draws as an ``LM``."""
+        return cls(cfg, Model(cfg, device=device).init(generator, dtype))
 
     def params(self) -> dict:
         return self.tree()

@@ -1,12 +1,16 @@
 """Mixture-of-Experts FFN: top-k routing into per-expert capacity buffers,
 batched expert products and a weighted combine.
 
-Port of ``repro/models/moe.py`` for one device: ``moe_param_defs`` in its
-``"gather"`` layout and ``moe_ffn``'s local path (``_route_local`` with
-``e0 = 0`` and ``e_loc = E``, no collectives).  The ``"partial"`` layout and
-the expert-parallel path under a mesh's model axis wait for the
-pod-scale launcher (ROADMAP A.9): the trainer's data mesh has no model
-axis, so the reference takes the local path there too.  Per token, as the reference:
+Port of ``repro/models/moe.py``: ``moe_param_defs`` in both of the
+reference's layouts (their logical axes give the spec trees) and
+``moe_ffn``'s local path (``_route_local`` with ``e0 = 0`` and ``e_loc =
+E``, no collectives).  Under a mesh without a model axis (or ``tp_size``
+1) each data rank routes its own tokens, as the reference's ``shard_map``
+does per data shard (the capacity from the local T), on the layer's
+gathered weights; ``models/model.py`` averages the aux term over the data
+ranks.  The expert-parallel path over ``"model"`` and the ``"partial"``
+forward are ROADMAP A.9(c): the model axis refuses an MoE.  Per token, as
+the reference:
 
 - the router's logits ``x @ router``, a float32 softmax, the ``top_k``
   experts and their probabilities renormalised to sum to one;
@@ -42,15 +46,25 @@ from repro_torch.configs.base import MoEConfig, round_up
 from repro_torch.models.common import ParamDef
 
 
-def moe_param_defs(d_model: int, moe: MoEConfig) -> dict:
-    """The reference's ``"gather"`` layout: experts stacked on a leading
-    (E, ...) axis."""
+def moe_param_defs(d_model: int, moe: MoEConfig,
+                   mode: str = "gather") -> dict:
+    """Experts stacked on a leading (E, ...) axis, sharded over ``"exp"``;
+    ``mode`` is the reference's FSDP layout: ``"gather"`` shards d_model
+    (ZeRO-3, gathered per layer), ``"partial"`` shards d_ff (its forward
+    under a model axis is ROADMAP A.9(c): the same shapes either way)."""
     e, ff = moe.num_experts, moe.d_ff_expert
+    if mode == "partial":
+        return {
+            "router": ParamDef((d_model, e), (None, None), scale=0.02),
+            "w_gate": ParamDef((e, d_model, ff), ("exp", None, "fsdp")),
+            "w_up": ParamDef((e, d_model, ff), ("exp", None, "fsdp")),
+            "w_down": ParamDef((e, ff, d_model), ("exp", "fsdp", None)),
+        }
     return {
-        "router": ParamDef((d_model, e), scale=0.02),
-        "w_gate": ParamDef((e, d_model, ff)),
-        "w_up": ParamDef((e, d_model, ff)),
-        "w_down": ParamDef((e, ff, d_model)),
+        "router": ParamDef((d_model, e), (None, None), scale=0.02),
+        "w_gate": ParamDef((e, d_model, ff), ("exp", "fsdp", None)),
+        "w_up": ParamDef((e, d_model, ff), ("exp", "fsdp", None)),
+        "w_down": ParamDef((e, ff, d_model), ("exp", None, "fsdp")),
     }
 
 

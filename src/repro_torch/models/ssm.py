@@ -35,14 +35,15 @@ def ssm_param_defs(d_model: int, ssm, d_inner: int) -> dict:
     conv_dim = d_inner + 2 * n
     return {
         # in_proj -> z (gate, d_inner) | x (d_inner) | B (N) | C (N) | dt (nh)
-        "w_in": ParamDef((d_model, 2 * d_inner + 2 * n + nh)),
-        "conv_w": ParamDef((ssm.conv_width, conv_dim), scale=0.5),
-        "conv_b": ParamDef((conv_dim,), init="zeros"),
-        "a_log": ParamDef((nh,), init="a_log"),
-        "d_skip": ParamDef((nh,), init="ones"),
-        "dt_bias": ParamDef((nh,), init="zeros"),
-        "norm_w": ParamDef((d_inner,), init="ones"),
-        "w_out": ParamDef((d_inner, d_model)),
+        "w_in": ParamDef((d_model, 2 * d_inner + 2 * n + nh), ("fsdp", "tp")),
+        "conv_w": ParamDef((ssm.conv_width, conv_dim), (None, "tp"),
+                           scale=0.5),
+        "conv_b": ParamDef((conv_dim,), ("tp",), init="zeros"),
+        "a_log": ParamDef((nh,), (None,), init="a_log"),
+        "d_skip": ParamDef((nh,), (None,), init="ones"),
+        "dt_bias": ParamDef((nh,), (None,), init="zeros"),
+        "norm_w": ParamDef((d_inner,), ("tp",), init="ones"),
+        "w_out": ParamDef((d_inner, d_model), ("tp", "fsdp")),
     }
 
 

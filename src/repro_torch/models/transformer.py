@@ -22,8 +22,18 @@ mm_proj``) to the text, their loss mask false.  The ``encdec`` family
 (seamless-m4t) is ``models/encdec.py``; ``models/model.py::Model``
 dispatches on the family, and this module's ``unstack_layers`` and
 ``params_from_jax`` carry its two layer stacks (``enc_layers``,
-``dec_layers``) as they carry ``layers``.  There is no ``ParallelCtx``:
-the port runs on one device.
+``dec_layers``) as they carry ``layers``.
+
+Under a ``("data", "model")`` mesh (``dist/sharding.py::ParallelCtx``),
+``forward`` runs the dense, SSM and hybrid families on each
+rank's shards with the collectives where the reference's GSPMD puts them:
+a vocab-parallel embedding, head-parallel attention (B7 on the local
+heads, ``wo`` row-parallel), a column- then row-parallel MLP, the SSM's
+sharded leaves gathered whole (B6 over every head), the logits' vocab
+columns gathered before B1; FSDP's data-sharded dims gathered per layer
+at use; each layer a checkpoint under ``remat``.  At ``tp_size`` 1 every
+decoder-only family's layers run as on one device (``models/model.py``
+refuses the MoE and the VLM at ``tp_size`` > 1).
 
 Serving: ``init_cache`` gives stacked (L, ...) caches, a ring buffer of
 ``attn_window`` slots with ``ring=True``.  As in the reference, a decode
@@ -44,6 +54,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
@@ -51,7 +62,8 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import ParamDef, gated_mlp, rms_norm, stack_defs
+from repro_torch.models.common import (ParamDef, gated_mlp, rms_norm, rope,
+                                      stack_defs)
 
 #: The CLIP-style frontend stub's output width (llava's projector input).
 VLM_PATCH_DIM = 1024
@@ -65,20 +77,21 @@ def _d_inner(cfg: ArchConfig) -> int:
 
 
 def _mlp_defs(d: int, ff: int) -> dict:
-    return {"w_gate": ParamDef((d, ff)), "w_up": ParamDef((d, ff)),
-            "w_down": ParamDef((ff, d))}
+    return {"w_gate": ParamDef((d, ff), ("fsdp", "tp")),
+            "w_up": ParamDef((d, ff), ("fsdp", "tp")),
+            "w_down": ParamDef((ff, d), ("tp", "fsdp"))}
 
 
-def _block_defs(cfg: ArchConfig) -> dict:
+def _block_defs(cfg: ArchConfig, moe_mode: str = "gather") -> dict:
     d = cfg.d_model
-    defs: dict[str, Any] = {"ln1": ParamDef((d,), init="ones")}
+    defs: dict[str, Any] = {"ln1": ParamDef((d,), (None,), init="ones")}
     if cfg.family in ("dense", "moe", "hybrid", "vlm"):
         defs["attn"] = attn.attn_param_defs(
             d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
             cfg.qk_norm)
-        defs["ln2"] = ParamDef((d,), init="ones")
+        defs["ln2"] = ParamDef((d,), (None,), init="ones")
     if cfg.family == "moe":
-        defs["moe"] = moe_mod.moe_param_defs(d, cfg.moe)
+        defs["moe"] = moe_mod.moe_param_defs(d, cfg.moe, moe_mode)
     elif cfg.family in ("dense", "vlm", "hybrid"):
         defs["mlp"] = _mlp_defs(d, cfg.d_ff)
     if cfg.family in ("ssm", "hybrid"):
@@ -86,25 +99,28 @@ def _block_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
-def param_defs(cfg: ArchConfig) -> dict:
+def param_defs(cfg: ArchConfig, moe_mode: str = "gather") -> dict:
+    """The parameter tree's defs; ``moe_mode`` picks the MoE experts'
+    FSDP layout (the reference's ``"gather"`` or ``"partial"``)."""
     d, v = cfg.d_model, cfg.vocab_size
     defs: dict[str, Any] = {
-        "embed": ParamDef((v, d), init="embed", scale=0.02),
-        "out_norm": ParamDef((d,), init="ones"),
-        "layers": stack_defs(_block_defs(cfg), cfg.num_layers),
+        "embed": ParamDef((v, d), ("tp", "fsdp"), init="embed", scale=0.02),
+        "out_norm": ParamDef((d,), (None,), init="ones"),
+        "layers": stack_defs(_block_defs(cfg, moe_mode), cfg.num_layers),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamDef((d, v))
+        defs["lm_head"] = ParamDef((d, v), ("fsdp", "tp"))
     if cfg.family == "vlm":
-        defs["mm_proj"] = ParamDef((VLM_PATCH_DIM, d))
+        defs["mm_proj"] = ParamDef((VLM_PATCH_DIM, d), (None, "fsdp"))
     return defs
 
 
 def index_at(tree: Any, i: int) -> Any:
-    """Layer ``i`` of a stacked (L, ...) tree (views, no copies)."""
-    if isinstance(tree, torch.Tensor):
-        return tree[i]
-    return {k: index_at(v, i) for k, v in tree.items()}
+    """Layer ``i`` of a stacked (L, ...) tree of tensors or arrays (views,
+    no copies)."""
+    if isinstance(tree, dict):
+        return {k: index_at(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 def layer_at(layers: Any, i: int) -> Any:
@@ -115,11 +131,11 @@ def layer_at(layers: Any, i: int) -> Any:
     return index_at(layers, i)
 
 
-def unstack_layers(params: dict) -> dict:
+def unstack_layers(params: dict, copy: bool = True) -> dict:
     """``params`` with each stacked layer tree (``LAYER_STACKS``) split into
     a list of L per-layer trees, each leaf a copy with its own storage (a
     view of the stacked tensor would keep the whole (L, ...) tensor as its
-    base)."""
+    base); ``copy=False``: views (of tensors or numpy arrays)."""
     out = dict(params)
     for key in LAYER_STACKS:
         layers = params.get(key)
@@ -129,6 +145,7 @@ def unstack_layers(params: dict) -> dict:
         while isinstance(leaf, dict):
             leaf = next(iter(leaf.values()))
         out[key] = [map_tree(lambda t: t.clone(), index_at(layers, i))
+                    if copy else index_at(layers, i)
                     for i in range(leaf.shape[0])]
     return out
 
@@ -140,13 +157,17 @@ def map_tree(fn, tree: Any) -> Any:
 
 
 def params_from_jax(np_params: Any, device: str | torch.device | None = None,
-                    unstack: bool = False) -> Any:
+                    unstack: bool = False, shard=None) -> Any:
     """The port's parameter tree from the JAX model's (a nested dict of
     numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``; any family,
     the encoder-decoder's too): the same structure, shapes and layout, as
     float32 tensors on ``device`` (None: CUDA); with ``unstack`` each layer
     stack as a list of per-layer trees (``unstack_layers``), the layout
-    ``model.LM`` takes."""
+    ``model.LM`` takes.  ``shard``, a ``models/model.py::Model`` on a
+    mesh: this rank's block of every leaf by its spec (``Model.shard``:
+    per-layer lists on the model's device)."""
+    if shard is not None:
+        return shard.shard(np_params)
     dev = resolve_device(device)
     tree = map_tree(lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
                     .to(dev), np_params)
@@ -158,16 +179,36 @@ def params_from_jax(np_params: Any, device: str | torch.device | None = None,
 # ---------------------------------------------------------------------------
 
 
-def embed_inputs(cfg: ArchConfig, params: dict,
-                 batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x (B,S,d), loss_mask (B,S)); for the VLM, with
-    ``patch_embeds`` in the batch, S counts the patch positions in front of
-    the text, their mask rows false."""
-    tokens = batch["tokens"]
+def _tp(ctx) -> bool:
+    """Whether ``ctx`` splits the layers over a model axis of 2+ ranks."""
+    return ctx is not None and ctx.tp_size > 1
+
+
+def _embed(cfg: ArchConfig, ctx, embed: torch.Tensor,
+           tokens: torch.Tensor) -> torch.Tensor:
     # F.embedding, not indexing: its backward sums each row's gradient in a
     # fixed order on both devices (index_put_'s accumulate does not on the
     # CPU), which the engines' and restart's bit-identity rest on.
-    x = F.embedding(tokens.long(), params["embed"])
+    tokens = tokens.long()
+    v_local = embed.shape[0]
+    if v_local == cfg.vocab_size:
+        return F.embedding(tokens, embed)
+    # Vocab-parallel: this rank's rows, the others' tokens masked to zero,
+    # the partial embeddings summed over "model".
+    t = tokens - ctx.tp_rank * v_local
+    inside = (t >= 0) & (t < v_local)
+    x = F.embedding(torch.where(inside, t, 0), embed)
+    return ctx.tp_reduce(x * inside[..., None].to(x.dtype))
+
+
+def embed_inputs(cfg: ArchConfig, params: dict, batch: dict,
+                 ctx=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x (B,S,d), loss_mask (B,S)); for the VLM, with
+    ``patch_embeds`` in the batch, S counts the patch positions in front of
+    the text, their mask rows false.  Under a model axis (``ctx``) the
+    embedding's vocab rows are sharded: a vocab-parallel lookup."""
+    tokens = batch["tokens"]
+    x = _embed(cfg, ctx, params["embed"], tokens)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
@@ -180,8 +221,12 @@ def embed_inputs(cfg: ArchConfig, params: dict,
 
 
 def _attention(cfg: ArchConfig, p: dict, h: torch.Tensor,
-               positions: torch.Tensor, is_global: bool):
-    """Self-attention of the normed ``h``: (the output projection, k, v)."""
+               positions: torch.Tensor, is_global: bool, ctx=None):
+    """Self-attention of the normed ``h``: (the output projection, k, v).
+    Under a model axis that splits the q heads, each rank attends with its
+    local heads (``_attention_tp``)."""
+    if _tp(ctx) and p["attn"]["wq"].shape[1] != cfg.num_heads:
+        return _attention_tp(cfg, p["attn"], h, positions, is_global, ctx)
     q, k, v = attn.project_qkv(p["attn"], h, positions, cfg.rope_theta,
                                cfg.qk_norm, cfg.norm_eps)
     a = attn.attend(q, k, v, causal=True, window=cfg.attn_window,
@@ -189,43 +234,115 @@ def _attention(cfg: ArchConfig, p: dict, h: torch.Tensor,
     return attn.out_proj(a, p["attn"]["wo"]), k, v
 
 
-def _ffn_residual(cfg: ArchConfig, p: dict, x: torch.Tensor):
+def _local_kv_heads(cfg: ArchConfig, hq_local: int, rank: int):
+    """The KV heads rank ``rank``'s q heads read, when the KV heads stay
+    replicated: global q head ``h`` reads KV head ``h // (Hq / Hkv)``.  A
+    (start, stop) range when every one is read by the same number of
+    local q heads (GQA within the rank), else one KV index a q head."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    idx = [(rank * hq_local + j) // g for j in range(hq_local)]
+    lo, hi = idx[0], idx[-1] + 1
+    per = hq_local // (hi - lo)
+    if idx == [u for u in range(lo, hi) for _ in range(per)]:
+        return lo, hi
+    return idx
+
+
+def _attention_tp(cfg: ArchConfig, p: dict, h: torch.Tensor,
+                  positions: torch.Tensor, is_global: bool, ctx):
+    """Head-parallel attention: ``wq`` (and ``wk``/``wv`` where the KV heads
+    divide) column-sharded over "model", the local heads through
+    ``attention.attend`` (kernel B7 on the card), ``wo`` row-parallel with
+    one all-reduce.  Replicated KV heads are computed whole on every rank
+    and the local q heads' ones selected, their gradient all-reduced."""
+    eps = cfg.norm_eps
+    hq_local = p["wq"].shape[1]
+    kv_split = p["wk"].shape[1] != cfg.num_kv_heads
+    hin = ctx.tp_copy(h)
+    q = attn.heads(hin, p["wq"])
+    k = attn.heads(hin if kv_split else h, p["wk"])
+    v = attn.heads(hin if kv_split else h, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, ctx.tp_copy(p["q_norm"]), eps)
+        k = rms_norm(k, ctx.tp_copy(p["k_norm"]) if kv_split
+                     else p["k_norm"], eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if not kv_split:
+        k, v = ctx.tp_copy(k), ctx.tp_copy(v)
+        sel = _local_kv_heads(cfg, hq_local, ctx.tp_rank)
+        if isinstance(sel, tuple):
+            k, v = k[:, :, sel[0]:sel[1]], v[:, :, sel[0]:sel[1]]
+        else:
+            ix = torch.tensor(sel, device=k.device)
+            k, v = k.index_select(2, ix), v.index_select(2, ix)
+    a = attn.attend(q, k, v, causal=True, window=cfg.attn_window,
+                    is_global=is_global)
+    return ctx.tp_reduce(attn.out_proj(a, p["wo"])), k, v
+
+
+def _ffn_residual(cfg: ArchConfig, p: dict, x: torch.Tensor, ctx=None):
     """The second half of a layer: (x + FFN(norm(x)), the MoE's aux term or
-    None)."""
+    None).  Under a model axis that splits d_ff the MLP is column- then
+    row-parallel, one all-reduce."""
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
         y, aux = moe_mod.moe_ffn(p["moe"], h2, cfg.moe)
         return x + y, aux
-    return x + gated_mlp(h2, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                         p["mlp"]["w_down"]), None
+    m = p["mlp"]
+    if _tp(ctx) and m["w_gate"].shape[1] != cfg.d_ff:
+        return x + ctx.tp_reduce(gated_mlp(ctx.tp_copy(h2), m["w_gate"],
+                                           m["w_up"], m["w_down"])), None
+    return x + gated_mlp(h2, m["w_gate"], m["w_up"], m["w_down"]), None
 
 
-def _ssm(cfg: ArchConfig, p: dict, h: torch.Tensor, state: bool):
-    return ssm_mod.ssm_forward(p["ssm"], h, cfg.ssm, _d_inner(cfg),
+#: The SSM leaves the reference shards over "model" and the dim: the fused
+#: (z | x | B | C | dt) projection, the conv over (x | B | C), the gated
+#: norm over d_inner and the output projection.
+_SSM_TP_DIMS = {"w_in": 1, "conv_w": 1, "conv_b": 0, "norm_w": 0, "w_out": 0}
+
+
+def _ssm(cfg: ArchConfig, p: dict, h: torch.Tensor, state: bool, ctx=None):
+    """The SSM block.  Under a model axis its sharded leaves are gathered
+    whole (a rank's even slice of ``w_in``'s fused output is not its heads'
+    columns): the block, kernel B6 included, runs over every head on every
+    model rank, its weights' gradients the local slices."""
+    ps = p["ssm"]
+    if _tp(ctx):
+        di, n = _d_inner(cfg), cfg.ssm.state_dim
+        whole = {"w_in": 2 * di + 2 * n + di // cfg.ssm.head_dim,
+                 "conv_w": di + 2 * n, "conv_b": di + 2 * n, "norm_w": di,
+                 "w_out": di}
+        ps = dict(ps)
+        for name, dim in _SSM_TP_DIMS.items():
+            if ps[name].shape[dim] != whole[name]:
+                ps[name] = ctx.tp_gather(ps[name], dim)
+    return ssm_mod.ssm_forward(ps, h, cfg.ssm, _d_inner(cfg),
                                cfg.norm_eps, return_state=state)
 
 
 def _block(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
-           is_global: bool, state: bool = False):
+           is_global: bool, state: bool = False, ctx=None):
     """One layer.  Returns (x, the MoE's aux term or None, emitted): with
     ``state``, ``emitted`` holds what prefill writes into the cache (k and
-    v, the SSM's final state and conv buffer)."""
+    v, the SSM's final state and conv buffer).  ``ctx``: the model axis
+    the layer's (local) weights are split over."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     emit: dict[str, torch.Tensor] = {}
     if cfg.family == "ssm":
-        y = _ssm(cfg, p, h, state)
+        y = _ssm(cfg, p, h, state, ctx)
         if state:
             y, emit["ssm_state"], emit["conv_buf"] = y
         return x + y, None, emit
-    a, emit["k"], emit["v"] = _attention(cfg, p, h, positions, is_global)
+    a, emit["k"], emit["v"] = _attention(cfg, p, h, positions, is_global, ctx)
     if cfg.family == "hybrid":
-        y = _ssm(cfg, p, h, state)
+        y = _ssm(cfg, p, h, state, ctx)
         if state:
             y, emit["ssm_state"], emit["conv_buf"] = y
         x = x + 0.5 * (a + y)            # hymba: mean-fused parallel heads
     else:
         x = x + a
-    x, aux = _ffn_residual(cfg, p, x)
+    x, aux = _ffn_residual(cfg, p, x, ctx)
     return x, aux, emit
 
 
@@ -239,24 +356,54 @@ def global_layer_flags(cfg: ArchConfig) -> list[bool]:
     return [i in (0, L // 2, L - 1) for i in range(L)]
 
 
-def logits_fn(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def logits_fn(cfg: ArchConfig, params: dict, x: torch.Tensor,
+              ctx=None) -> torch.Tensor:
+    """(..., V) logits.  Under a model axis that splits the vocab: each
+    rank's vocab columns, all-gathered over "model" (B1 needs whole
+    rows)."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if _tp(ctx) and head.shape[1] != cfg.vocab_size:
+        return ctx.tp_gather(ctx.tp_copy(x) @ head.to(x.dtype), -1)
     return x @ head.to(x.dtype)
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict):
+def forward(cfg: ArchConfig, params: dict, batch: dict, ctx=None,
+            specs: dict | None = None):
     """Full forward. Returns (logits, loss_mask, moe_aux): the MoE layers'
     aux terms summed in float32 from 0, in layer order (0 for the other
-    families)."""
-    x, mask = embed_inputs(cfg, params, batch)
+    families).
+
+    Under a mesh (``ctx``, ``dist/sharding.py::ParallelCtx``) ``params``
+    are this rank's shards and ``batch`` its rows; ``specs`` (the shards'
+    specs, ``layers`` one layer's) marks the dims sharded over the data
+    axes, all-gathered at use (ZeRO-3, ``ctx.fsdp_gather``; a layer's
+    inside its checkpoint, so the backward gathers it again).  With
+    ``ctx.remat`` each layer is a ``torch.utils.checkpoint`` (nothing
+    saved but its input).  With no context, or a (1, 1) mesh, every
+    collective is skipped: the same launches on the same inputs."""
+    def gathered(tree, sp):
+        return tree if specs is None else ctx.gather_fsdp_tree(tree, sp)
+
+    def layer(x, lp, flag):
+        return _block(cfg, gathered(lp, specs and specs["layers"]), x,
+                      positions, flag, ctx=ctx)[:2]
+
+    top = gathered({k: v for k, v in params.items() if k != "layers"}, specs)
+    x, mask = embed_inputs(cfg, top, batch, ctx)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = ctx is not None and ctx.remat
     for i, flag in enumerate(global_layer_flags(cfg)):
-        x, a, _ = _block(cfg, layer_at(params["layers"], i), x, positions, flag)
+        lp = layer_at(params["layers"], i)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(layer, x, lp, flag,
+                                                     use_reentrant=False)
+        else:
+            x, a = layer(x, lp, flag)
         if a is not None:
             aux = aux + a
-    x = rms_norm(x, params["out_norm"], cfg.norm_eps)
-    return logits_fn(cfg, params, x), mask, aux
+    x = rms_norm(x, top["out_norm"], cfg.norm_eps)
+    return logits_fn(cfg, top, x, ctx), mask, aux
 
 
 def token_metrics(logits: torch.Tensor, labels: torch.Tensor):

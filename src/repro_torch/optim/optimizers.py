@@ -58,10 +58,27 @@ class _Optimizer:
         dev = self.params[0].device if self.params else torch.device("cpu")
         self.lr = torch.zeros((), dtype=torch.float32, device=dev)
         self._state: dict = {}
+        # fill_missing_grads' zeros, by position in params.
+        self._zero_grads: dict[int, torch.Tensor] = {}
 
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
+
+    def fill_missing_grads(self) -> None:
+        """Zeros as the gradient of every parameter the loss does not reach
+        (the VLM's ``mm_proj`` on text): the reference differentiates the
+        whole tree, so AdamW's decay moves such a leaf.  Its zeros are
+        allocated at its first step (before any capture: the engine's
+        warm-up runs eagerly) and zeroed in place after."""
+        for i, p in enumerate(self.params):
+            if p.grad is None:
+                z = self._zero_grads.get(i)
+                if z is None:
+                    z = self._zero_grads[i] = torch.zeros_like(p)
+                else:
+                    z.zero_()
+                p.grad = z
 
     def _lr(self, lr: torch.Tensor | float) -> torch.Tensor:
         if not isinstance(lr, torch.Tensor):

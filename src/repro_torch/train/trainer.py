@@ -556,6 +556,7 @@ class Trainer:
             lv, pc = lv.detach(), pc.detach()
             self.opt.zero_grad()
             scalar.backward()
+            self.opt.fill_missing_grads()
         else:
             scalar, (lv, pa, pc) = self._mesh_grads(batch)
         params = self.opt.params

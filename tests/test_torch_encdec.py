@@ -187,7 +187,7 @@ def test_prefill_and_greedy_decode_match_jax(b, s_enc, s):
     max_len = s + steps
     jl, jc = jax.jit(lambda p, x: jm.prefill(p, x, max_len=max_len))(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
-    tm, tp = build_model(cfg, "cpu"), transformer.params_from_jax(jp, "cpu")
+    tm, tp = build_model(cfg, device="cpu"), transformer.params_from_jax(jp, "cpu")
     tl, tc = tm.prefill(tp, {k: torch.from_numpy(v) for k, v in batch.items()},
                         max_len=max_len)
     assert tl.shape == (b, 1, cfg.vocab_size)
@@ -228,7 +228,7 @@ def test_init_cache_matches_reference(full):
         cfg, jcfg = cfg.reduced(), jcfg.reduced()
     b, max_len = 2, (64 if full else 40)
     want = jbuild_model(jcfg).init_cache(b, max_len, dtype=jnp.float32)
-    got = build_model(cfg, "cpu").init_cache(b, max_len, dtype=torch.float32)
+    got = build_model(cfg, device="cpu").init_cache(b, max_len, dtype=torch.float32)
     assert got.keys() == want.keys()
     assert got["len"] == int(want["len"]) == 0
     for k in ("k", "v", "xk", "xv"):
@@ -264,9 +264,9 @@ def test_serve_layers_cut_both_stacks(monkeypatch):
     seen = []
     build = serve_mod.build_model
 
-    def spy(cfg, dev):
+    def spy(cfg, ctx=None, device=None):
         seen.append(cfg)
-        return build(cfg, dev)
+        return build(cfg, ctx, device)
 
     monkeypatch.setattr(serve_mod, "build_model", spy)
     serve_mod.serve(ARCH, device="cpu", batch=1, prompt_len=4, gen_tokens=1,

@@ -49,7 +49,9 @@ def test_every_module_imports_without_jax_or_repro():
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(len(names), bad)\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n")
+        "assert len(names) >= 20, names\n"
+        "assert {'repro_torch.launch.train', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.launch.roofline_model'} <= set(names), names\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

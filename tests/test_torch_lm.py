@@ -219,11 +219,11 @@ def test_loss_terms_of_unported_families_raise():
     module-level ``loss_and_metrics`` and ``LM``'s are the weighted mean of
     ``encdec``'s per-sequence losses."""
     cfg = get_arch(DENSE).reduced()
-    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     batch = {k: torch.from_numpy(np.ascontiguousarray(v))
              for k, v in _lm_batch(cfg).items()}
     ed = get_arch("seamless-m4t-large-v2").reduced()
-    ed_params = build_model(ed, "cpu").init(torch.Generator().manual_seed(0))
+    ed_params = build_model(ed, device="cpu").init(torch.Generator().manual_seed(0))
     ed_batch = dict(batch, frames=torch.from_numpy(np.random.default_rng(0)
                     .normal(size=(*batch["tokens"].shape[:1], 12, 32))
                     .astype(np.float32)))
@@ -351,7 +351,7 @@ def test_lm_module_holds_one_parameter_per_layer_leaf(arch):
     ptrs = [p.data_ptr() for p in lm.parameters()]
     assert len(set(ptrs)) == len(ptrs)          # no shared storage
     # Serving takes the module's parameters as it takes the stacked tree.
-    model = build_model(cfg, "cpu")
+    model = build_model(cfg, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 12)))
     with torch.no_grad():

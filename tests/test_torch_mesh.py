@@ -21,6 +21,8 @@ scenario of its world), and the tests read their records:
   within 10% of the fold, the default = an explicit ``"fold"``;
 - ISWR, InfoBatch, FORGET and Selective-Backprop bit-identical across
   worlds 1 and 2 (4 epochs), fused scoring across worlds 1, 2 and 4;
+- the baseline, random (its row-sharded state) and Grad-Match
+  bit-identical across worlds 1 and 2 (4 epochs), their losses falling;
 - the numeric guard on the reduced gradients: a clean guarded run equal
   to the unguarded one, at worlds 1 and 2;
 - the configuration checks' messages (``test_mesh_config_validation``);
@@ -49,6 +51,9 @@ import torch_mesh_scenarios as sc
 
 SELECTIONS = ("sort", "histogram", "histogram_pallas")
 STRATEGIES = ("iswr", "infobatch", "forget", "sb")
+#: The strategies that train every epoch on a plan of their own making
+#: (the reference trains ``baseline`` under its mesh).
+OTHERS = ("baseline", "random", "gradmatch")
 EPOCHS = 3
 
 
@@ -91,7 +96,8 @@ def worlds(tmp_path_factory):
     root = tmp_path_factory.mktemp("mesh_ckpt")
     init, perms, jplans, jhist = _jax_reference()
     sel = [(s, "run", dict(selection=s)) for s in SELECTIONS]
-    strat = [(s, "run", dict(strategy=s, epochs=4)) for s in STRATEGIES]
+    strat = [(s, "run", dict(strategy=s, epochs=4))
+             for s in STRATEGIES + OTHERS]
     w2 = (sel + strat + [
         ("legacy", "run", dict(fused=False)),
         ("compressed", "run", dict(compression=True)),
@@ -235,6 +241,17 @@ def test_strategies_bit_identical_across_worlds(worlds, strategy):
         assert sum(r["bwd"] for r in two["recs"]) < 4 * sc.N
     if strategy == "forget":
         assert len(two["recs"][-1]["order"]) == sc.N - int(0.3 * sc.N)
+
+
+@pytest.mark.parametrize("strategy", OTHERS)
+def test_other_strategies_bit_identical_across_worlds(worlds, strategy):
+    one, two = worlds[1][strategy], worlds[2][strategy]
+    _bit_identical(one, two, strategy)
+    assert all(r["host_syncs"] == 1 for r in two["recs"])
+    losses = [r["loss"] for r in two["recs"]]
+    assert losses[-1] < losses[0], losses
+    if strategy == "random":
+        assert len(two["recs"][0]["order"]) < sc.N
 
 
 def test_fused_scoring_across_worlds(worlds):

@@ -42,7 +42,7 @@ def _models(cfg, jcfg, seed=0):
     jparams = jm.init(jax.random.key(seed))
     tparams = transformer.params_from_jax(jax.tree.map(np.asarray, jparams),
                                           "cpu")
-    return jm, jparams, build_model(cfg, "cpu"), tparams
+    return jm, jparams, build_model(cfg, device="cpu"), tparams
 
 
 @pytest.mark.parametrize("b,s", [(2, 40), (3, 16)])
@@ -77,7 +77,7 @@ def test_port_prefill_matches_forward(rng):
     """``test_arch_smoke.py:81``'s contract, on the port."""
     B, S = 2, 32
     cfg = get_arch(ARCH).reduced()
-    model = build_model(cfg, "cpu")
+    model = build_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1)))
     logits_full, mask, aux = transformer.forward(cfg, params, {"tokens": toks})
@@ -92,7 +92,7 @@ def test_port_prefill_matches_forward(rng):
 def test_decode_from_empty_cache(rng):
     """``test_arch_smoke.py::test_reduced_decode_step`` on the port."""
     cfg = get_arch(ARCH).reduced()
-    model = build_model(cfg, "cpu")
+    model = build_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     cache = model.init_cache(2, 16, dtype=torch.float32)
     tok = torch.ones(2, 1, dtype=torch.int64)
@@ -133,14 +133,14 @@ def test_unported_architectures_raise():
     cfg = get_arch("seamless-m4t-large-v2")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jget_arch("seamless-m4t-large-v2"))
-    model = build_model(cfg.reduced(), "cpu")
+    model = build_model(cfg.reduced(), device="cpu")
     defs = model.param_defs()
     assert {"enc_in", "enc_layers", "dec_layers"} <= set(defs)
     assert "xattn" in defs["dec_layers"] and "layers" not in defs
     assert defs == encdec.param_defs(cfg.reduced())
     other = dataclasses.replace(get_arch(DENSE), family="encdec",
                                 num_encoder_layers=1, encoder_input_dim=8)
-    assert set(build_model(other, "cpu").param_defs()) == set(defs)
+    assert set(build_model(other, device="cpu").param_defs()) == set(defs)
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +184,7 @@ def test_dense_prefill_matches_forward(rng):
     """``test_arch_smoke.py:81``'s contract, on the port's dense family."""
     B, S = 2, 32
     cfg = get_arch(DENSE).reduced()
-    model = build_model(cfg, "cpu")
+    model = build_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1)))
     logits_full, mask, aux = transformer.forward(cfg, params, {"tokens": toks})
@@ -212,7 +212,7 @@ def test_dense_forward_matches_jax():
 
 def test_dense_decode_from_empty_cache():
     cfg = get_arch(DENSE).reduced()
-    model = build_model(cfg, "cpu")
+    model = build_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     cache = model.init_cache(2, 16, dtype=torch.float32)
     assert tuple(cache["k"].shape) == (cfg.num_layers, 2, 16, 2, 16)

@@ -209,7 +209,7 @@ def test_prefill_and_greedy_decode_match_jax(arch):
     max_len = s + steps + cfg.num_patch_tokens
     jl, jc = jax.jit(lambda p, x: jm.prefill(p, x, max_len=max_len))(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
-    tm, tp = build_model(cfg, "cpu"), transformer.params_from_jax(jp, "cpu")
+    tm, tp = build_model(cfg, device="cpu"), transformer.params_from_jax(jp, "cpu")
     tl, tc = tm.prefill(tp, {k: torch.from_numpy(v) for k, v in batch.items()},
                         max_len=max_len)
     assert tl.shape == (b, 1, cfg.vocab_size)
@@ -226,7 +226,7 @@ def test_hymba_ring_cache_matches_jax(flat):
     longer than the window (prompt 20 + 8 of 32), decoded past the window
     (and past the flat cache's end, where its index wraps)."""
     cfg, jm, jp = _reference(HYMBA, seed=4)
-    tm, tp = build_model(cfg, "cpu"), transformer.params_from_jax(jp, "cpu")
+    tm, tp = build_model(cfg, device="cpu"), transformer.params_from_jax(jp, "cpu")
     b, steps = 2, 40
     if flat:
         batch = _prompt(cfg, HYMBA, b, 20, seed=6)
@@ -321,5 +321,5 @@ def test_registry_is_the_references(arch):
         jcfg.reduced())
     jshapes = jax.tree.map(lambda a: tuple(a.shape),
                            jbuild_model(jcfg).abstract_params())
-    model = build_model(cfg, "cpu")
+    model = build_model(cfg, device="cpu")
     assert map_defs(lambda d: d.shape, model.param_defs()) == jshapes
