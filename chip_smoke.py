@@ -129,7 +129,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    pmax where the plain version has them);
 14. LM training, ``examples/torch_lm_train.py --full`` at its defaults
    (512 sequences of 32 tokens from ``SyntheticLM``, batch 32, AdamW),
-   4 epochs (of the example's 12), through the default engine (CUDA
+   3 epochs (of the example's 12), through the default engine (CUDA
    graphs), its kernels checked at its shapes in phase 3; with the counts
    set to 0, smollm-135m under baseline, KAKURENBO ("sort") and KAKURENBO
    ("histogram_pallas" + DropTop 0.02), and mamba2-130m under KAKURENBO
@@ -143,27 +143,27 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    fan-in; the reference's init recorded), every leaf a launch without a
    backward left at zero now non-zero; card vs CPU at 2 layers (losses 1e-4
    relative, first plans equal); the host loop = the scanned engine bit for
-   bit over 3 KAKURENBO epochs (smollm-135m at 15 of its 30 layers: the
+   bit over 3 KAKURENBO epochs (smollm-135m at 10 of its 30 layers: the
    time limit) and a restart from a crash between two
    blocks of epoch 2 into a trainer from other weights, bit-identical; one
    train step profiled at (32, 32) and (32, 512) for each arch (at the
    runs' depth);
 15. zoo serve: ``repro_torch.launch.serve`` at full width in f32 on
-   phi3.5-moe-42b-a6.6b (4 of 32 layers: 16 experts top-2), hymba-1.5b
+   phi3.5-moe-42b-a6.6b (2 of 32 layers: 16 experts top-2), hymba-1.5b
    (16 of 32 layers: attention and SSM heads mean-fused, a 1,024-token
    window except in 3 layers), qwen3-1.7b (28 layers, qk_norm) and
-   llava-next-mistral-7b (8 of 32 layers, 576 patch embeddings before
+   llava-next-mistral-7b (4 of 32 layers, 576 patch embeddings before
    the prompt), then kimi-k2 reduced: prefill of 4 x 2,048 tokens and 32
    greedy tokens, the B7 (and B6) launches of the one prefill (4; 3 and
-   16; 28; 8; 2), prefill and one decode step against the forward (the
+   16; 28; 4; 2), prefill and one decode step against the forward (the
    MoE at a capacity no expert overflows), one prefill and one decode
    step profiled, card vs CPU at 2 layers and 4 prompts of 128 tokens;
    B7 at these prefill shapes and kimi-k2's (4, 2048, 64, 8, 112), B6 at
    hymba's and B1 at their vocabularies are held in phase 3
    (``zoo_kernel_checks``);
 16. zoo LM training, ``examples/torch_lm_train.py --full``'s defaults with
-   the counts set to 0: phi3.5-moe at 1 layer and hymba-1.5b at 16 layers,
-   LR 1e-3 (4 epochs each; ``--hymba-lr-witness`` below on why not 1e-2),
+   the counts set to 0: phi3.5-moe at 1 layer (3 epochs) and hymba-1.5b
+   at 12 layers, LR 1e-3 (4 epochs; ``--hymba-lr-witness`` below on why not 1e-2),
    kimi-k2 reduced (2 epochs): per epoch wall s, loss,
    F* and backward samples, B1's backward a step, B7 (B6) once a layer a
    forward, the loss falls and some epoch hides sequences; the host loop
@@ -225,6 +225,27 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    mamba2's (2, 256) against their plain versions; the card's stream-copy
    rate beside the datasheet's 3.35 TB/s.  Its launches (the mesh runs'
    and the ranks', counted from 0) join the ``kernels`` line.
+   The other families and serving (A.9(c)): on the (1, 1) mesh, bit for
+   bit against no context, one AdamW step of phi3.5-moe (1 layer, both
+   FSDP layouts of its experts, the runs one after the other),
+   seamless-m4t (2 + 2 layers; B7 in the encoder and the decoder) and
+   llava (2 layers, its 576 patch positions in front), each at 2 x 256;
+   and ``Model.prefill`` of 2 x 256 tokens then 8 greedy
+   ``decode_step``s of qwen3-1.7b (28 layers), phi3.5-moe (2: one MoE
+   layer feeds another) and mamba2-130m (24: B6 in a mesh prefill), the
+   logits, the tokens and the gathered cache.  In the gloo world, one
+   SGD step at LR 0 (the gradients) of phi3.5-moe at 1 layer,
+   expert-parallel (8 of its 16 experts a model rank) in ``"gather"``
+   and ``"partial"``, and of seamless-m4t (2 + 2) and llava (2), each
+   against the port on one device, computed once before the spawn and
+   passed to the ranks through CUDA IPC (the MoE in ``"gather"`` against
+   the mean of one device's steps on each data shard's rows): loss and
+   per-sample losses within 1e-5, every rank's block of every gradient
+   within 1e-4 of the leaf's max |g|; and qwen3-1.7b at 4 layers served
+   (prefill of 2 x 256, 8 greedy steps) with the logits within 1e-5 of
+   their max of one device's and the same tokens, and again under
+   ``seq_parallel_kv`` (the cache's sequence over the model axis) within
+   1e-5 of the decode without it.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -262,6 +283,9 @@ import sys
 import time
 from pathlib import Path
 
+#: When this module was loaded (in a spawned rank: its re-import as the
+#: main module, before the rank's function runs).
+LOADED_AT = time.time()
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -3014,9 +3038,9 @@ def layer_kernels(cfg, seq: int) -> dict:
     return out
 
 
-#: Train steps of the LM phases' runs: 4 epochs of 16 (the example's
+#: Train steps of the LM phases' runs: 3 epochs of 16 (the example's
 #: default is 200, 12 epochs; cut for the script's time limit, PERF.md §4).
-LM_STEPS = 64
+LM_STEPS = 48
 
 
 def lm_train_run(dev, arch: str, strategy: str, selection: str = "sort",
@@ -3024,7 +3048,7 @@ def lm_train_run(dev, arch: str, strategy: str, selection: str = "sort",
                  layers: int | None = None, steps: int = LM_STEPS,
                  lr: float = 1e-2) -> tuple[dict, collections.Counter]:
     """``examples/torch_lm_train.py --full`` at its defaults (512 sequences
-    of 32 tokens, batch 32) for ``steps`` (``LM_STEPS``: 4 epochs) under
+    of 32 tokens, batch 32) for ``steps`` (``LM_STEPS``: 3 epochs) under
     the default engine, no checkpoints, at ``layers`` layers (None: the
     arch's depth) and base LR ``lr`` (``full=False``: the reduced config,
     a rehearsal on the CPU).
@@ -3287,8 +3311,8 @@ def lm_card_vs_cpu(dev, arch: str, n: int = 64, layers: int = 2,
 
 
 def lm_engines_restart(dev, arch: str = "smollm-135m", steps: int = 48,
-                       full: bool = True, layers: int | None = 15) -> dict:
-    """The example's trainer at full width, at ``layers`` layers (15 of
+                       full: bool = True, layers: int | None = 10) -> dict:
+    """The example's trainer at full width, at ``layers`` layers (10 of
     smollm-135m's 30: the script's time limit; None: the
     arch's depth), for 3 KAKURENBO epochs
     (``"histogram_pallas"`` + DropTop 0.02, which hides from epoch 1): the
@@ -3591,13 +3615,15 @@ def zoo_kernel_checks(dev) -> dict:
 
 #: The zoo's served configurations (full width): depth (None: the arch's)
 #: and the launches of B7 and B6 one prefill of 2,048 tokens makes.
-#: hymba's 13 windowed layers (of 16 served, of its 32: the time limit)
+#: phi3.5-moe at 2 and llava at 4 of their 32 layers (4 and 8 until the
+#: model axis' phase took their time), hymba's 13 windowed layers (of 16
+#: served, of its 32: the time limit)
 #: attend in plain PyTorch past the window of 1,024 (B7 has no window; the
 #: reference's windowed attention is jnp).
-ZOO_SERVE = (("phi3.5-moe-42b-a6.6b", 4, {"flash_attention": 4}),
+ZOO_SERVE = (("phi3.5-moe-42b-a6.6b", 2, {"flash_attention": 2}),
              ("hymba-1.5b", 16, {"flash_attention": 3, "ssd_scan": 16}),
              ("qwen3-1.7b", None, {"flash_attention": 28}),
-             ("llava-next-mistral-7b", 8, {"flash_attention": 8}))
+             ("llava-next-mistral-7b", 4, {"flash_attention": 4}))
 
 
 def cut_depth(cfg, layers: int):
@@ -3816,12 +3842,12 @@ def zoo_engines(dev, arch: str = "phi3.5-moe-42b-a6.6b", layers: int = 1,
 #: width, base LR, steps.  hymba-1.5b at the reference's LR of 1e-2 stalls
 #: at the corpus' unigram loss on an H100 (3.43 from epoch 6 on, nothing
 #: hidden in 12 epochs); it trains at 1e-3, as its CPU test does.  Both
-#: run ``LM_STEPS`` (4 epochs of the example's 12: the time limit), hymba
-#: at 16 of its 32 layers and phi3.5-moe at 1 of its 32 (32 and 2 until
-#: the model axis' phase took their time; 2 layers fit one card: PERF.md
-#: §4).
+#: phi3.5-moe runs ``LM_STEPS`` (3 epochs of the example's 12: the time
+#: limit) at 1 of its 32 layers (32 and 2 until the model axis' phase took
+#: their time; 2 layers fit one card: PERF.md §4), hymba 4 epochs (it
+#: hides from epoch 2 on) at 12 of its 32 layers.
 ZOO_LM = (("phi3.5-moe-42b-a6.6b", 1, True, 1e-2, LM_STEPS),
-          ("hymba-1.5b", 16, True, 1e-3, LM_STEPS),
+          ("hymba-1.5b", 12, True, 1e-3, 64),
           ("kimi-k2-1t-a32b", None, False, 1e-2, 32))
 
 
@@ -4738,6 +4764,16 @@ AXIS_WORLD = (2, 2)
 AXIS_LAYERS = 4
 #: Sequences of the KAKURENBO plan the gloo world trains four steps of.
 AXIS_N = 16
+#: A.9(c)'s families at full width: (arch, cut depth, MoE layouts), one
+#: AdamW step on the (1, 1) mesh and a checked step in the gloo world.
+AXIS_FAMILIES = (("phi3.5-moe-42b-a6.6b", 1, ("gather", "partial")),
+                 ("seamless-m4t-large-v2", 2, ("gather",)),
+                 ("llava-next-mistral-7b", 2, ("gather",)))
+#: Served on the (1, 1) mesh against no context: (arch, cut depth or None).
+AXIS_SERVE = (("qwen3-1.7b", None), ("phi3.5-moe-42b-a6.6b", 2),
+              ("mamba2-130m", None))
+#: Greedy decode steps after each served prefill.
+AXIS_GEN = 8
 
 
 def axis_cfg(arch: str, full: bool, layers: int | None = None):
@@ -4765,14 +4801,68 @@ def axis_step(cfg, ctx, params: dict, batch: dict, dev, lr: float = 0.0,
     return loss, metrics, local, model, step
 
 
-def axis_unit_mesh(dev, arch: str, full: bool, mesh) -> dict:
-    """``arch`` at full width and depth: ``loss_and_metrics`` and one AdamW
-    step through ``make_train_step`` without a context, then on a (1, 1)
-    mesh with FSDP (``mesh``: NCCL at world 1), one after the other (the
-    first run's gradients and AdamW moments freed before the second, its
-    updated leaves kept on the card: qwen3-1.7b's f32 step takes ~28 GB):
-    the loss, the per-sample metrics and every updated leaf bit for bit.
-    The launches are the mesh run's."""
+def axis_family_batch(dev, cfg, n: int) -> dict:
+    """``n`` sequences of the example's corpus at ``AXIS_SEQ`` positions
+    with the family's inputs: llava's patch embeddings (in front of the
+    text), seamless-m4t's frames (its decoder a quarter as long)."""
+    if cfg.family == "encdec":
+        return frames_batch(dev, cfg.encoder_input_dim, n, AXIS_SEQ)
+    return {**lm_batch(dev, n, AXIS_SEQ),
+            **(prompt_inputs(dev, cfg, n, 1, AXIS_SEQ) or {})}
+
+
+@contextlib.contextmanager
+def counted_collectives(counter: collections.Counter):
+    """Within the block, the bytes handed to each ``torch.distributed``
+    collective, by name: the largest tensor of a call (a gather's output,
+    a reduce-scatter's input, an all-reduce's or a broadcast's tensor).
+    Under gloo on the card each such byte crosses host memory."""
+    import torch
+    import torch.distributed as dist
+    names = [n for n in ("all_reduce", "all_gather_into_tensor",
+                         "all_gather_single", "reduce_scatter_tensor",
+                         "broadcast") if hasattr(dist, n)]
+    orig = {n: getattr(dist, n) for n in names}
+
+    def wrap(name, fn):
+        def counted(*args, **kw):
+            counter[name] += max((t.numel() * t.element_size() for t in args
+                                  if isinstance(t, torch.Tensor)), default=0)
+            return fn(*args, **kw)
+        return counted
+    for n in names:
+        setattr(dist, n, wrap(n, orig[n]))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(dist, n, orig[n])
+
+
+def attention_calls(calls: collections.Counter):
+    """A ``patched_op("flash_attention", ...)`` wrapper counting B7's
+    calls by mask: ``"causal"`` (decoders) or ``"full"`` (the
+    encoder)."""
+    def wrap(orig):
+        def counted(q, k, v, causal, *args, **kw):
+            calls["causal" if causal else "full"] += 1
+            return orig(q, k, v, causal, *args, **kw)
+        return counted
+    return wrap
+
+
+def axis_unit_mesh(dev, arch: str, full: bool, mesh,
+                   layers: int | None = None,
+                   layouts: tuple[str, ...] = ("gather",)) -> dict:
+    """``arch`` at full width (``layers``: its cut depth):
+    ``loss_and_metrics`` and one AdamW step through ``make_train_step``
+    without a context, then on a (1, 1) mesh with FSDP (``mesh``: NCCL at
+    world 1) for each MoE layout in ``layouts``, one after the other
+    (each run's gradients and AdamW moments freed before the next, the
+    first run's updated leaves kept on the card: qwen3-1.7b's f32 step
+    takes ~28 GB, phi3.5-moe's layer ~25 GB): the loss, the per-sample
+    metrics and every updated leaf bit for bit.  The launches and B7's
+    calls by mask are each mesh run's."""
     import torch
     from repro_torch.checkpoint.checkpoint import flatten
     from repro_torch.kernels import backend
@@ -4780,17 +4870,22 @@ def axis_unit_mesh(dev, arch: str, full: bool, mesh) -> dict:
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import unstack_layers
     t_start = time.perf_counter()
-    cfg = axis_cfg(arch, full)
-    batch = lm_batch(dev, 2, AXIS_SEQ)
+    cfg = axis_cfg(arch, full, layers)
+    batch = axis_family_batch(dev, cfg, 2)
     params = build_model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(0))
-    seconds, kept = {}, None
-    for name, ctx in (("one_device", None),
-                      ("mesh_1x1", build_ctx(cfg, mesh, fsdp=True))):
+    runs = [("one_device", None)] + [
+        ("mesh_1x1" if lay == "gather" else f"mesh_1x1_{lay}",
+         build_ctx(cfg, mesh, fsdp=True, moe_fsdp_mode=lay))
+        for lay in layouts]
+    seconds, kept, meshes = {}, None, {}
+    for name, ctx in runs:
         backend.reset_launches()
+        calls = collections.Counter()
         t0 = time.perf_counter()
-        loss, (lv, pa, pc), local, _, _ = axis_step(cfg, ctx, params, batch,
-                                                    dev, 1e-3, adamw=True)
+        with patched_op("flash_attention", attention_calls(calls)):
+            loss, (lv, pa, pc), local, _, _ = axis_step(
+                cfg, ctx, params, batch, dev, 1e-3, adamw=True)
         sync(dev)
         seconds[name] = time.perf_counter() - t0
         leaves = [t.detach() for _, t in flatten(local)]
@@ -4801,23 +4896,287 @@ def axis_unit_mesh(dev, arch: str, full: bool, mesh) -> dict:
                 leaves, flatten(unstack_layers(params, copy=False))))
             kept = {"out": out, "leaves": leaves}
         else:
-            launches, remat = dict(backend.LAUNCHES), ctx.remat
-            equal = {
-                "loss": torch.equal(kept["out"][0], out[0]),
-                "metrics": all(torch.equal(x, y) for x, y in
-                               zip(kept["out"][1:], out[1:])),
-                "leaves": sum(torch.equal(t, h)
-                              for t, h in zip(leaves, kept["leaves"]))}
-        del leaves
+            meshes[name] = {
+                "launches": dict(backend.LAUNCHES), "remat": ctx.remat,
+                "attention_calls": dict(calls),
+                "moe_fsdp_mode": ctx.moe_fsdp_mode,
+                "equal": {
+                    "loss": torch.equal(kept["out"][0], out[0]),
+                    "metrics": all(torch.equal(x, y) for x, y in
+                                   zip(kept["out"][1:], out[1:])),
+                    "leaves": sum(torch.equal(t, h)
+                                  for t, h in zip(leaves, kept["leaves"]))}}
+        del leaves, out
         free_memory()
-    row = {"arch": cfg.name, "layers": cfg.num_layers, "batch": [2, AXIS_SEQ],
-           "n_leaves": len(kept["leaves"]), "leaves_moved": moved,
-           "loss": float(kept["out"][0]), "seconds": seconds,
-           "launches": launches, "remat": remat, "equal": equal}
+    row = {"arch": cfg.name, "layers": cfg.num_layers,
+           "batch": [2, AXIS_SEQ], "n_leaves": len(kept["leaves"]),
+           "leaves_moved": moved, "loss": float(kept["out"][0]),
+           "seconds": seconds, "mesh": meshes}
     del params, kept
     free_memory()
     row["seconds"]["all"] = time.perf_counter() - t_start
     return row
+
+
+def axis_greedy(cfg, ctx, params: dict, batch: dict, dev, max_len: int,
+                gen: int = AXIS_GEN) -> dict:
+    """``Model.prefill`` of the global ``batch`` on ``ctx``'s shards of
+    ``params`` (None: one device), then ``gen`` greedy ``decode_step``s
+    (every rank feeds the global batch's argmax): the last position's
+    logits of the prefill and every step (gen + 1, B, V), the tokens (B,
+    gen) and the cache gathered whole."""
+    import torch
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, ctx, device=dev)
+    local = model.shard(params)
+    with torch.no_grad():
+        logits, cache = model.prefill(local, batch, max_len)
+        outs, toks = [logits[:, -1]], []
+        for _ in range(gen):
+            tok = logits[:, -1:].argmax(dim=-1)
+            toks.append(tok)
+            logits, cache = model.decode_step(local, tok, cache)
+            outs.append(logits[:, -1])
+        local_k = list(cache["k"].shape) if "k" in cache else None
+        cache = model.gather_cache(cache)
+    del local
+    return {"logits": torch.stack(outs), "tokens": torch.cat(toks, 1),
+            "cache": cache, "local_k": local_k}
+
+
+def axis_unit_serve(dev, arch: str, full: bool, mesh,
+                    layers: int | None = None) -> dict:
+    """``arch`` at full width served without a context and on the (1, 1)
+    mesh (``axis_greedy``: prefill of 2 x ``AXIS_SEQ`` tokens, then
+    ``AXIS_GEN`` greedy steps): the logits, the tokens and every entry of
+    the gathered cache bit for bit.  The launches are the mesh run's."""
+    import torch
+    from repro_torch.kernels import backend
+    from repro_torch.launch.train import build_ctx
+    from repro_torch.models.model import build_model
+    t_start = time.perf_counter()
+    cfg = axis_cfg(arch, full, layers)
+    batch = {"tokens": lm_batch(dev, 2, AXIS_SEQ)["tokens"]}
+    params = build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    kept, seconds = None, {}
+    for name, ctx in (("one_device", None),
+                      ("mesh_1x1", build_ctx(cfg, mesh, fsdp=True))):
+        backend.reset_launches()
+        t0 = time.perf_counter()
+        got = axis_greedy(cfg, ctx, params, batch, dev, AXIS_SEQ + AXIS_GEN)
+        sync(dev)
+        seconds[name] = time.perf_counter() - t0
+        if kept is None:
+            kept = got
+            continue
+        equal = {"logits": torch.equal(kept["logits"], got["logits"]),
+                 "tokens": torch.equal(kept["tokens"], got["tokens"]),
+                 "cache": kept["cache"].keys() == got["cache"].keys() and all(
+                     kept["cache"][k] == got["cache"][k] if k == "len"
+                     else torch.equal(kept["cache"][k], got["cache"][k])
+                     for k in kept["cache"])}
+        launches = dict(backend.LAUNCHES)
+    row = {"arch": cfg.name, "layers": cfg.num_layers,
+           "batch": [2, AXIS_SEQ], "gen": AXIS_GEN, "seconds": seconds,
+           "launches": launches, "equal": equal,
+           "tokens": kept["tokens"].tolist()}
+    del params, kept, got
+    free_memory()
+    row["seconds"]["all"] = time.perf_counter() - t_start
+    return row
+
+
+def packed(tensors: list) -> dict:
+    """``tensors`` as one flat tensor and their shapes (``unpacked``): one
+    CUDA IPC handle for the spawned ranks to open, not one a leaf."""
+    import torch
+    return {"flat": torch.cat([t.reshape(-1) for t in tensors]),
+            "shapes": [tuple(t.shape) for t in tensors]}
+
+
+def unpacked(pack: dict) -> list:
+    """``packed``'s tensors, views of its flat one."""
+    sizes = [math.prod(s) for s in pack["shapes"]]
+    return [t.view(s) for t, s in zip(pack["flat"].split(sizes),
+                                      pack["shapes"])]
+
+
+def axis_params(cfg, dev) -> dict:
+    """The seed-0 draws of ``cfg`` on ``dev`` with every attention at its
+    input's fan-in (``attention_fan_in``): the gloo world's comparisons
+    across orders of float32 sums (at the reference's init seamless-m4t's
+    gradients part by ~1e-3 of their max between two correct orders)."""
+    import torch
+    from repro_torch.models.model import build_model
+    return attention_fan_in(build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0)), cfg)
+
+
+def axis_expectations(dev, full: bool) -> dict:
+    """What the gloo world's new runs are held to, from the port on one
+    device, computed once here (four ranks each holding a full-width
+    reference would need ~4 x 12 GB for phi3.5-moe's layer): per
+    ``AXIS_ARCHS`` arch (its first plan batch, the reference's init) and
+    ``AXIS_FAMILIES`` arch and layout the loss, the per-sample losses
+    (numpy) and every leaf's gradient (on the card, in ``flatten``'s
+    order, ``packed``: passed to the ranks through CUDA IPC) of an SGD
+    step at LR 0,
+    the MoE in ``"gather"`` the mean of one device's steps on each data
+    shard's rows; and qwen3-1.7b's served logits and tokens at
+    ``AXIS_LAYERS`` layers.  The weights are ``axis_params``'."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.models.model import build_model
+    want = {}
+    for arch in AXIS_ARCHS:
+        cfg, ds, _, _, batches = axis_arch_plan(dev, arch, full)
+        params = build_model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(0))
+        loss, (lv, _, _), local, _, _ = axis_step(
+            cfg, None, params, axis_batch(ds, batches[0], dev), dev)
+        want[arch] = {"loss": float(loss), "lv": lv.detach().cpu().numpy(),
+                      "grads": packed([t.grad for _, t in flatten(local)])}
+        del params, local, _
+        free_memory()
+    dp, n = AXIS_WORLD[0], 4
+    for arch, layers, layouts in AXIS_FAMILIES:
+        cfg = axis_cfg(arch, full, layers)
+        batch = axis_family_batch(dev, cfg, n)
+        params = axis_params(cfg, dev)
+        for lay in layouts:
+            shards = [range(n)] if lay == "partial" or cfg.moe is None \
+                else [range(r * n // dp, (r + 1) * n // dp) for r in range(dp)]
+            loss, lv, grads = 0.0, [], None
+            for rows in shards:
+                sub = {k: v[rows.start:rows.stop] for k, v in batch.items()}
+                step_loss, (step_lv, _, _), local, _, _ = axis_step(
+                    cfg, None, params, sub, dev)
+                loss += float(step_loss) / len(shards)
+                lv.append(step_lv.detach())
+                g = [t.grad for _, t in flatten(local)]
+                grads = g if grads is None else [a.add_(b) for a, b in
+                                                 zip(grads, g)]
+                del local, _, g
+            if len(shards) > 1:
+                for a in grads:
+                    a.div_(len(shards))
+            want[(arch, lay)] = {"loss": loss,
+                                 "lv": torch.cat(lv).cpu().numpy(),
+                                 "grads": packed(grads)}
+            del grads
+            free_memory()
+        del params
+        free_memory()
+    cfg = axis_cfg("qwen3-1.7b", full, AXIS_LAYERS)
+    params = axis_params(cfg, dev)
+    got = axis_greedy(cfg, None, params,
+                      {"tokens": lm_batch(dev, 2, AXIS_SEQ)["tokens"]}, dev,
+                      AXIS_SEQ + AXIS_GEN)
+    want["serve"] = {"logits": got["logits"].cpu().numpy(),
+                     "tokens": got["tokens"].cpu().numpy()}
+    del params, got
+    free_memory()
+    return want
+
+
+def axis_world_family(dev, rank: int, mesh, arch: str, layers: int,
+                      layout: str, want: dict, full: bool) -> dict:
+    """In one rank of the gloo world: ``arch`` at full width and
+    ``layers`` on the (2, 2) mesh with FSDP (the MoE's experts in
+    ``layout``; ``axis_params``' weights), one SGD step at LR 0 of the
+    global batch of 4 x ``AXIS_SEQ``: the loss and per-sample losses against ``want``'s, and
+    every leaf's gradient on this rank against its block of ``want``'s,
+    relative to the leaf's max |g|, the max over the ranks."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.kernels import backend
+    from repro_torch.launch.train import build_ctx, make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import SGD
+    t0 = time.perf_counter()
+    cfg = axis_cfg(arch, full, layers)
+    batch = axis_family_batch(dev, cfg, 4)
+    params = axis_params(cfg, dev)
+    ctx = build_ctx(cfg, mesh, fsdp=True, moe_fsdp_mode=layout)
+    model = build_model(cfg, ctx, device=dev)
+    local = model.shard(params)
+    del params
+    free_memory()
+    leaves = [t.requires_grad_(True) for _, t in flatten(local)]
+    backend.reset_launches()
+    calls, moved = collections.Counter(), collections.Counter()
+    t1 = time.perf_counter()
+    with patched_op("flash_attention", attention_calls(calls)), \
+            counted_collectives(moved):
+        loss, (lv, _, _) = make_train_step(model, SGD(leaves))(local, batch,
+                                                               0.0)
+    sync(dev)
+    t2 = time.perf_counter()
+    err = max(float((t.grad - ctx.local_shard(g, sp)).abs().max())
+              / max(float(g.abs().max()), 1e-30)
+              for t, g, sp in zip(leaves, unpacked(want["grads"]),
+                                  model.leaf_specs(local)))
+    errs = torch.tensor([err, abs(float(loss) - want["loss"]),
+                         float((lv.cpu() - torch.from_numpy(want["lv"]))
+                               .abs().max())], device=dev)
+    torch.distributed.all_reduce(errs, op=torch.distributed.ReduceOp.MAX)
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "layout": layout,
+           "batch": [4, AXIS_SEQ], "tp_size": ctx.tp_size,
+           "dp_size": ctx.dp_size, "loss": float(loss),
+           "grad_rel_err": float(errs[0]), "loss_err": float(errs[1]),
+           "lv_err": float(errs[2]), "leaves": len(leaves),
+           "local_params": sum(t.numel() for t in leaves),
+           "launches": dict(backend.LAUNCHES),
+           "attention_calls": dict(calls), "collective_bytes": dict(moved),
+           "seconds": {"set_up": t1 - t0, "step": t2 - t1,
+                       "check": time.perf_counter() - t2}}
+    del local, model, leaves
+    free_memory()
+    return out
+
+
+def axis_world_serve(dev, rank: int, mesh, want: dict, full: bool) -> dict:
+    """In one rank of the gloo world: qwen3-1.7b at full width and
+    ``AXIS_LAYERS`` layers (``axis_params``) served on the (2, 2) mesh
+    (weights sharded over the model axis only), ``axis_greedy``, and again under
+    ``seq_parallel_kv``: each one's logits relative to their max against
+    ``want``'s (one device), its tokens against one device's, and the
+    sequence-parallel decode's logits against the plain one's."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import backend
+    from repro_torch.launch.train import build_ctx
+    from repro_torch.models.model import build_model
+    cfg = axis_cfg("qwen3-1.7b", full, AXIS_LAYERS)
+    batch = {"tokens": lm_batch(dev, 2, AXIS_SEQ)["tokens"]}
+    params = axis_params(cfg, dev)
+    ref = torch.from_numpy(want["logits"])
+    scale = float(ref.abs().max())
+    out, logits = {}, {}
+    for name, sp in (("plain", False), ("seq_parallel_kv", True)):
+        ctx = build_ctx(cfg, mesh, fsdp=False, seq_parallel_kv=sp)
+        backend.reset_launches()
+        moved = collections.Counter()
+        t0 = time.perf_counter()
+        with counted_collectives(moved):
+            got = axis_greedy(cfg, ctx, params, batch, dev,
+                              AXIS_SEQ + AXIS_GEN)
+        sync(dev)
+        logits[name] = got["logits"].cpu()
+        out[name] = {
+            "seconds": time.perf_counter() - t0,
+            "logits_rel_err": float((logits[name] - ref).abs().max()) / scale,
+            "tokens_equal": bool(np.array_equal(got["tokens"].cpu().numpy(),
+                                                want["tokens"])),
+            "local_k": got["local_k"], "collective_bytes": dict(moved),
+            "launches": dict(backend.LAUNCHES)}
+        del got
+    out["sp_vs_plain_rel_err"] = float(
+        (logits["seq_parallel_kv"] - logits["plain"]).abs().max()) / scale
+    del params
+    free_memory()
+    return out
 
 
 def axis_batch(ds, idx, dev) -> dict:
@@ -4827,27 +5186,14 @@ def axis_batch(ds, idx, dev) -> dict:
             for k, v in ds.get(np.asarray(idx)).items()}
 
 
-def axis_world_arch(dev, rank: int, mesh, arch: str, full: bool) -> dict:
-    """In one rank of the gloo world: ``arch`` at full width and
-    ``AXIS_LAYERS`` layers on the (2, 2) mesh with FSDP.  Every rank first
-    runs the first batch on one device (the reference: ranks compare their
-    own shards, no gradient is gathered).  Then, counts from 0: four AdamW
-    steps over ``plan_global_batches`` of a KAKURENBO sampler's epoch-0
-    plan (one device, the same plan in every rank) at ``plan_lr``, each
-    step's per-sample losses observed; the first step's loss, per-sample
-    losses and gradients (taken before its update) against the reference;
-    the sampler's epoch-1 plan after the steps."""
-    import numpy as np
-    import torch
-    from repro_torch.checkpoint.checkpoint import flatten
+def axis_arch_plan(dev, arch: str, full: bool):
+    """``arch``'s config at ``AXIS_LAYERS`` layers, its corpus, a KAKURENBO
+    sampler, the sampler's epoch-0 plan and the first four global batches
+    of it (``plan_global_batches``): the same in every rank and in the
+    spawning process."""
     from repro_torch.core import KakurenboConfig, make_strategy
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels import backend
-    from repro_torch.launch.train import (build_ctx, make_train_step,
-                                          optimizer_for, plan_global_batches,
-                                          plan_lr, plan_summary)
-    from repro_torch.models.model import build_model
-    t0 = time.perf_counter()
+    from repro_torch.launch.train import plan_global_batches
     cfg = axis_cfg(arch, full, AXIS_LAYERS if full else None)
     ds = SyntheticLM(num_samples=AXIS_N, seq_len=AXIS_SEQ, vocab_size=64,
                      order=1, easy_fraction=0.7, seed=0)
@@ -4858,13 +5204,30 @@ def axis_world_arch(dev, rank: int, mesh, arch: str, full: bool) -> dict:
     dp = AXIS_WORLD[0]
     batches = list(itertools.islice(
         plan_global_batches(plan, dp, 4 // dp), 4))
+    return cfg, ds, strat, plan, batches
+
+
+def axis_world_arch(dev, rank: int, mesh, arch: str, full: bool,
+                    ref: dict) -> dict:
+    """In one rank of the gloo world: ``arch`` at full width and
+    ``AXIS_LAYERS`` layers on the (2, 2) mesh with FSDP (``axis_arch_plan``).
+    Counts from 0: four AdamW steps over the plan's global batches at
+    ``plan_lr``, each step's per-sample losses observed; the first step's
+    loss, per-sample losses and gradients (taken before its update)
+    against ``ref``, one device's SGD step at LR 0 on the first batch
+    (``axis_expectations``; each rank compares its own shards, no
+    gradient is gathered); the sampler's epoch-1 plan after the steps."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.kernels import backend
+    from repro_torch.launch.train import (build_ctx, make_train_step,
+                                          optimizer_for, plan_lr,
+                                          plan_summary)
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    cfg, ds, strat, plan, batches = axis_arch_plan(dev, arch, full)
     params = build_model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(0))
-    loss, (lv, _, _), ref, _, _ = axis_step(
-        cfg, None, params, axis_batch(ds, batches[0], dev), dev)
-    ref = {"loss": loss, "lv": lv,
-           "grads": [t.grad for _, t in flatten(ref)]}
-    sync(dev)
     t_ref = time.perf_counter()
     backend.reset_launches()
     ctx = build_ctx(cfg, mesh, fsdp=True)
@@ -4875,8 +5238,11 @@ def axis_world_arch(dev, rank: int, mesh, arch: str, full: bool) -> dict:
     step = make_train_step(model, optimizer_for(cfg, leaves))
     lr = plan_lr(1e-3, plan)
     losses, out = [], {}
+    moved = collections.Counter()
     for i, idx in enumerate(batches):
-        loss, (lv, pa, pc) = step(local, axis_batch(ds, idx, dev), lr)
+        with (counted_collectives(moved) if i == 0
+              else contextlib.nullcontext()):
+            loss, (lv, pa, pc) = step(local, axis_batch(ds, idx, dev), lr)
         strat.observe(idx, lv, pa, pc, 0)
         losses.append(float(loss))
         if i == 0:
@@ -4887,16 +5253,18 @@ def axis_world_arch(dev, rank: int, mesh, arch: str, full: bool) -> dict:
             err = max(
                 float((t.grad - ctx.local_shard(g, sp)).abs().max())
                 / max(float(g.abs().max()), 1e-30)
-                for t, g, sp in zip(leaves, ref["grads"],
+                for t, g, sp in zip(leaves, unpacked(ref["grads"]),
                                     model.leaf_specs(local)))
-            errs = torch.tensor([err, abs(float(loss) - float(ref["loss"])),
-                                 float((lv - ref["lv"]).abs().max())],
+            errs = torch.tensor([err, abs(float(loss) - ref["loss"]),
+                                 float((lv.cpu() - torch.from_numpy(
+                                     ref["lv"])).abs().max())],
                                 device=dev)
             torch.distributed.all_reduce(errs,
                                          op=torch.distributed.ReduceOp.MAX)
             out.update({"grad_rel_err": float(errs[0]),
                         "loss_err": float(errs[1]), "lv_err": float(errs[2]),
-                        "first_loss": losses[0], "leaves": len(leaves)})
+                        "first_loss": losses[0], "leaves": len(leaves),
+                        "first_step_collective_bytes": dict(moved)})
             del ref
     sync(dev)
     t_end = time.perf_counter()
@@ -4906,7 +5274,7 @@ def axis_world_arch(dev, rank: int, mesh, arch: str, full: bool) -> dict:
         "remat": ctx.remat, "local_params": sum(t.numel() for t in leaves),
         "plan": plan_summary(plan), "next_plan": plan_summary(strat.plan(1)),
         "lr": lr, "step_losses": losses, "launches": dict(backend.LAUNCHES),
-        "seconds": {"reference": t_ref - t0, "first_step": t_first - t_ref,
+        "seconds": {"set_up": t_ref - t0, "first_step": t_first - t_ref,
                     "three_steps": t_end - t_first}})
     del local, model, step, leaves
     free_memory()
@@ -4914,18 +5282,31 @@ def axis_world_arch(dev, rank: int, mesh, arch: str, full: bool) -> dict:
 
 
 def model_axis_rank(rank: int, world: int, device_type: str, full: bool,
-                    flags: tuple[bool, bool]) -> dict:
+                    flags: tuple[bool, bool], want: dict) -> dict:
     """One rank of the gloo world (``launch.mesh.spawn``): every rank on
     ``device_type`` (the one card), the (2, 2) ``("data", "model")`` mesh,
-    both archs in turn.  The spawning process' TF32 switches are taken."""
+    both archs in turn, then ``AXIS_FAMILIES`` (each layout) and
+    qwen3-1.7b's serving against ``want`` (``axis_expectations``).  The
+    spawning process' TF32 switches are taken."""
     import torch
     from repro_torch.launch.mesh import make_data_model_mesh, rank_device
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    entered_at = time.time()
     torch.set_num_threads(2)
     dev = rank_device(device_type, rank)
     mesh = make_data_model_mesh(*AXIS_WORLD)
-    return {arch: axis_world_arch(dev, rank, mesh, arch, full)
-            for arch in AXIS_ARCHS}
+    out = {"loaded_at": LOADED_AT, "entered_at": entered_at,
+           "started_at": time.time()}
+    out.update({arch: axis_world_arch(dev, rank, mesh, arch, full,
+                                      want[arch])
+                for arch in AXIS_ARCHS})
+    out["families"] = [
+        axis_world_family(dev, rank, mesh, arch, layers, lay,
+                          want[(arch, lay)], full)
+        for arch, layers, layouts in AXIS_FAMILIES for lay in layouts]
+    out["serve"] = axis_world_serve(dev, rank, mesh, want["serve"], full)
+    out["ended_at"] = time.time()
+    return out
 
 
 def stream_copy_gbps(dev, mb: int = 64, reps: int = 20) -> float:
@@ -4947,13 +5328,17 @@ def phase_model_axis(dev, full: bool = True, gloo_device: str = "cuda"
     """The mesh's model axis (``launch/train.py``, ``dist/sharding.py``):
     qwen3-1.7b and mamba2-130m at full width and depth on a (1, 1)
     ``("data", "model")`` mesh under NCCL with FSDP, bit for bit against
-    the port without a context (``axis_unit_mesh``); then a gloo world of
-    4 ranks on this card as (2, 2) with FSDP, both archs at full width and
-    ``AXIS_LAYERS`` layers (``axis_world_arch``): four KAKURENBO steps, the
-    first one's loss and per-sample losses within 1e-5 of one device and
-    its gradients within 1e-4 of each leaf's max |g|; B7 and B6 at the local shapes
-    against their plain versions, and the card's stream-copy rate beside
-    the datasheet's."""
+    the port without a context (``axis_unit_mesh``), and so are
+    ``AXIS_FAMILIES``' AdamW steps and ``AXIS_SERVE``'s serving
+    (``axis_unit_serve``); then a gloo world of 4 ranks on this card as
+    (2, 2) with FSDP, both archs at full width and ``AXIS_LAYERS`` layers
+    (``axis_world_arch``): four KAKURENBO steps, the first one's loss and
+    per-sample losses within 1e-5 of one device and its gradients within
+    1e-4 of each leaf's max |g|; ``AXIS_FAMILIES`` and qwen3-1.7b's
+    serving against ``axis_expectations`` at the same bounds (the
+    sequence-parallel decode within 1e-5 of the plain one); B7 and B6 at
+    the local shapes against their plain versions, and the card's
+    stream-copy rate beside the datasheet's."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
@@ -4965,24 +5350,54 @@ def phase_model_axis(dev, full: bool = True, gloo_device: str = "cuda"
         mesh = mesh_lib.make_data_model_mesh(1, 1, backend_name)
         row["unit_mesh"] = [axis_unit_mesh(dev, a, full, mesh)
                             for a in AXIS_ARCHS]
+        row["unit_mesh"] += [axis_unit_mesh(dev, a, full, mesh, layers, lays)
+                             for a, layers, lays in AXIS_FAMILIES]
+        row["unit_serve"] = [axis_unit_serve(dev, a, full, mesh, layers)
+                             for a, layers in AXIS_SERVE]
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
     for r in row["unit_mesh"]:
+        for m in r["mesh"].values():
+            launches.update(m["launches"])
+    for r in row["unit_serve"]:
         launches.update(r["launches"])
     row["unit_mesh_seconds"] = time.perf_counter() - t0
     t1 = time.perf_counter()
+    want = axis_expectations(dev, full)
+    row["expectations_seconds"] = time.perf_counter() - t1
+    t1, spawned_at = time.perf_counter(), time.time()
     ranks = mesh_lib.spawn(model_axis_rank, math.prod(AXIS_WORLD), "gloo",
-                           gloo_device, (gloo_device, full, tf32_flags()))
+                           gloo_device,
+                           (gloo_device, full, tf32_flags(), want))
+    del want
+    free_memory()
+    joined_at = time.time()
     row["gloo_world"] = {"mesh": list(AXIS_WORLD), "ranks": len(ranks),
                          "spawn_and_run_seconds": time.perf_counter() - t1,
-                         "archs": ranks[0]}
+                         "load_seconds": max(r["loaded_at"] for r in ranks)
+                         - spawned_at,
+                         "entry_seconds": max(r["entered_at"] for r in ranks)
+                         - spawned_at,
+                         "start_seconds": max(r["started_at"] for r in ranks)
+                         - spawned_at,
+                         "exit_seconds": joined_at - max(r["ended_at"]
+                                                         for r in ranks),
+                         "archs": {a: ranks[0][a] for a in AXIS_ARCHS},
+                         "families": ranks[0]["families"],
+                         "serve": ranks[0]["serve"]}
     for r in ranks:
         for a in AXIS_ARCHS:
             launches.update(r[a]["launches"])
+        for f in r["families"]:
+            launches.update(f["launches"])
+        for name in ("plain", "seq_parallel_kv"):
+            launches.update(r["serve"][name]["launches"])
     row["gloo_world"]["ranks_agree"] = all(
         r[a]["step_losses"] == ranks[0][a]["step_losses"]
-        for r in ranks for a in AXIS_ARCHS)
+        for r in ranks for a in AXIS_ARCHS) and all(
+        [f["loss"] for f in r["families"]]
+        == [f["loss"] for f in ranks[0]["families"]] for r in ranks)
     row["gloo_world"]["local_params"] = {
         a: [r[a]["local_params"] for r in ranks] for a in AXIS_ARCHS}
     if dev.type == "cuda":
@@ -5001,13 +5416,37 @@ def phase_model_axis(dev, full: bool = True, gloo_device: str = "cuda"
     row["seconds"] = time.perf_counter() - t0
     emit(row)
     for r in row["unit_mesh"]:
-        require(all(r["equal"][k] for k in ("loss", "metrics"))
-                and r["equal"]["leaves"] == r["n_leaves"],
-                f"model axis: (1, 1) differs from one device: {r['arch']} "
-                f"{r['equal']}")
+        for name, m in r["mesh"].items():
+            require(all(m["equal"][k] for k in ("loss", "metrics"))
+                    and m["equal"]["leaves"] == r["n_leaves"],
+                    f"model axis: (1, 1) differs from one device: {r['arch']} "
+                    f"{name} {m['equal']}")
+            for k in ("loss_confidence", "loss_confidence_bwd"):
+                require(m["launches"].get(k, 0) > 0,
+                        f"model axis: {r['arch']} {name} launched {k} "
+                        f"{m['launches'].get(k, 0)} times")
         require(r["leaves_moved"] == r["n_leaves"],
                 f"model axis: AdamW moved {r['leaves_moved']} of "
                 f"{r['n_leaves']} leaves ({r['arch']})")
+        if r["arch"] == ENCDEC:
+            for name, m in r["mesh"].items():
+                require(m["attention_calls"].get("full", 0) > 0
+                        and m["attention_calls"].get("causal", 0) > 0,
+                        f"model axis: {ENCDEC} {name} B7 calls "
+                        f"{m['attention_calls']} (encoder full, decoder "
+                        "causal)")
+    for r in row["unit_serve"]:
+        require(all(r["equal"].values()),
+                f"model axis: (1, 1) serving differs from one device: "
+                f"{r['arch']} {r['equal']}")
+    kernel_of = {"qwen3-1.7b": "flash_attention",
+                 "phi3.5-moe-42b-a6.6b": "flash_attention",
+                 "mamba2-130m": "ssd_scan"}
+    for r in row["unit_serve"]:
+        k = kernel_of[r["arch"]]
+        require(r["launches"].get(k, 0) > 0,
+                f"model axis: {r['arch']}'s mesh prefill launched {k} "
+                f"{r['launches'].get(k, 0)} times")
     for a in AXIS_ARCHS:
         got = ranks[0][a]
         require(got["loss_err"] <= 1e-5 and got["lv_err"] <= 1e-5,
@@ -5019,6 +5458,33 @@ def phase_model_axis(dev, full: bool = True, gloo_device: str = "cuda"
                 and all(math.isfinite(x) for x in got["step_losses"]),
                 f"model axis: {a} plan {got['plan']}, steps "
                 f"{got['step_losses']}")
+    for f in ranks[0]["families"]:
+        tag = f"{f['arch']} ({f['layout']})"
+        require(f["loss_err"] <= 1e-5 and f["lv_err"] <= 1e-5,
+                f"model axis: {tag} loss vs one device {f['loss_err']}, "
+                f"per-sample {f['lv_err']}")
+        require(f["grad_rel_err"] <= 1e-4,
+                f"model axis: {tag} gradient {f['grad_rel_err']} of its max")
+        for k in ("loss_confidence", "loss_confidence_bwd"):
+            require(f["launches"].get(k, 0) > 0,
+                    f"model axis: {tag} launched {k} "
+                    f"{f['launches'].get(k, 0)} times")
+        if f["arch"] == ENCDEC:
+            require(f["attention_calls"].get("full", 0) > 0
+                    and f["attention_calls"].get("causal", 0) > 0,
+                    f"model axis: {tag} B7 calls {f['attention_calls']}")
+    sv = ranks[0]["serve"]
+    for name in ("plain", "seq_parallel_kv"):
+        require(sv[name]["logits_rel_err"] <= 1e-5 and sv[name]["tokens_equal"],
+                f"model axis: served qwen3 ({name}) vs one device "
+                f"{sv[name]['logits_rel_err']}, tokens equal "
+                f"{sv[name]['tokens_equal']}")
+        require(sv[name]["launches"].get("flash_attention", 0) > 0,
+                f"model axis: the mesh prefill ({name}) launched "
+                f"flash_attention {sv[name]['launches']}")
+    require(sv["sp_vs_plain_rel_err"] <= 1e-5,
+            f"model axis: sequence-parallel decode vs plain "
+            f"{sv['sp_vs_plain_rel_err']}")
     require(row["gloo_world"]["ranks_agree"], "model axis: ranks differ")
     for name in ("flash_attention", "ssd_scan", "loss_confidence",
                  "loss_confidence_bwd"):

@@ -36,7 +36,12 @@ group has one rank, so a (1, 1) mesh computes what no mesh computes):
   gradient scattered back backward): ZeRO-3's gather of a layer's shards
   at use, its gradient reduce-scattered;
 - ``dp_sum`` (all-reduce forward over the data axes, identity backward):
-  the global loss from each data rank's share.
+  the global loss from each data rank's share;
+- ``dp_sum_partials`` (all-reduce forward and backward over the data
+  axes): partial sums of one value every data rank uses whole (the MoE's
+  expert outputs from the resident d_ff shards, ``"partial"`` layout);
+- ``tp_max`` (a MAX all-reduce over ``"model"``, no gradient): the
+  sequence-parallel decode's running maximum.
 
 Under NCCL the scatter is ``reduce_scatter_tensor``; under gloo, whose
 reduce-scatter torch does not offer for CUDA tensors in every version,
@@ -99,7 +104,9 @@ def _scatter_sum_dim(g: torch.Tensor, dim: int, group, size: int,
     else:
         src = src.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(src, group=group)
-        out = src[rank * n:(rank + 1) * n]
+        # A copy: a view would keep the whole summed buffer alive as the
+        # gradient's storage.
+        out = src[rank * n:(rank + 1) * n].clone()
     return out.movedim(0, dim)
 
 
@@ -125,6 +132,21 @@ class _Reduce(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        return g, None
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
         return g, None
 
 
@@ -306,11 +328,6 @@ class ParallelCtx:
                 entries.append(axes)
         return tuple(entries)
 
-    def cs(self, x: torch.Tensor, *logical: str | None) -> torch.Tensor:
-        """The reference's sharding constraint.  The port's code computes
-        on local shards whose layout it already holds, so this is ``x``."""
-        return x
-
     def local_shape(self, spec: tuple, shape: tuple[int, ...]) -> tuple:
         """The shape of this rank's shard of a ``shape`` array."""
         out = list(shape)
@@ -344,6 +361,16 @@ class ParallelCtx:
             return x
         return _Reduce.apply(x, self.tp_group)
 
+    @torch.no_grad()
+    def tp_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum over ``"model"`` (a new tensor; no
+        gradient)."""
+        if self.tp_size == 1:
+            return x
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.tp_group)
+        return out
+
     def tp_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The model ranks' ``x`` concatenated along ``dim``; backward the
         local slice of the gradient (the compute after it is replicated
@@ -369,6 +396,14 @@ class ParallelCtx:
         if self.dp_size == 1:
             return x
         return _Reduce.apply(x, self.group)
+
+    def dp_sum_partials(self, x: torch.Tensor) -> torch.Tensor:
+        """All-reduce (sum) over the data axes, forward and backward: the
+        data ranks' partial sums of one value each of them then uses whole,
+        so each one's gradient is the sum of theirs."""
+        if self.dp_size == 1:
+            return x
+        return _SumPartials.apply(x, self.group)
 
     def gather_fsdp_tree(self, tree: Any, specs: Any) -> Any:
         """``tree`` (local shards) with every dim sharded over the data axes

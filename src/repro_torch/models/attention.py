@@ -25,8 +25,10 @@ index wrapped by the caller, ``models/transformer.py``).  ``cross_attend``
 (the encoder-decoder's, ``models/encdec.py``: queries and keys of different
 lengths, no mask, no rope) is plain PyTorch on every device, as the
 reference's is plain jnp.  Under a model axis the local heads go through
-``attend`` (``transformer._attention_tp``); ``decode_attend_sp``
-(sequence-parallel decode over the model axis) is ROADMAP A.9(c).
+``attend`` (``transformer._attention_tp``); ``decode_attend_sp`` is the
+reference's sequence-parallel flash-decode, the cache's sequence dim split
+over the model axis: each rank's (max, exp-sum, weighted V) over its span,
+one MAX and two SUM all-reduces, plain PyTorch as it is plain jnp there.
 """
 from __future__ import annotations
 
@@ -159,6 +161,33 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhgqk,bkhd->bqhgd", probs,
                         v_cache).reshape(b, 1, hq, dh)
+
+
+def decode_attend_sp(q: torch.Tensor, k_loc: torch.Tensor,
+                     v_loc: torch.Tensor, cache_len: int, start: int,
+                     ctx) -> torch.Tensor:
+    """One-token attention of q (B, 1, Hq, Dh), every head, against this
+    model rank's span of a cache whose sequence dim is split over
+    ``"model"`` (``k_loc``/``v_loc`` (B, S_loc, Hkv, Dh) holding positions
+    ``start + [0, S_loc)``), the first ``cache_len`` positions valid; no
+    window.  The local maximum, then its MAX over ``ctx``'s model ranks,
+    the exponentials, and the denominator and the weighted V each summed
+    over them (the reference's ``decode_attend_sp``)."""
+    k_loc = k_loc.to(q.dtype)
+    v_loc = v_loc.to(q.dtype)
+    b, _, hq, dh = q.shape
+    hkv, s_loc = k_loc.shape[2], k_loc.shape[1]
+    kpos = start + torch.arange(s_loc, device=q.device)
+    q5 = q.reshape(b, 1, hkv, hq // hkv, dh)
+    scores = _grouped_scores(q5, k_loc, dh ** -0.5)      # (B,Hkv,G,1,S_loc)
+    scores = scores.masked_fill(~(kpos < cache_len), NEG_INF)
+    m = ctx.tp_max(scores.amax(dim=-1, keepdim=True))
+    p = torch.exp(scores - m)
+    den = ctx.tp_reduce(p.sum(dim=-1))                  # (B,Hkv,G,1)
+    num = ctx.tp_reduce(torch.einsum("bhgqk,bkhd->bhgqd", p.to(q.dtype),
+                                     v_loc))
+    out = num / den[..., None].to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, hq, dh)
 
 
 def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -1,11 +1,11 @@
 """Encoder-decoder backbone (seamless-m4t-v2 text/audio translation).
 
-Port of ``repro/models/encdec.py`` for one device.  As in the reference the
-modality frontend is a stub: the encoder takes precomputed audio-frame
-embeddings ``frames`` (B, S_enc, encoder_input_dim); everything from the
-first projection on is real.  The encoder is non-causal self-attention and
-the gated MLP; a decoder layer is causal self-attention, cross-attention
-over the encoder's output, and the gated MLP.
+Port of ``repro/models/encdec.py``.  As in the reference the modality
+frontend is a stub: the encoder takes precomputed audio-frame embeddings
+``frames`` (B, S_enc, encoder_input_dim); everything from the first
+projection on is real.  The encoder is non-causal self-attention and the
+gated MLP; a decoder layer is causal self-attention, cross-attention over
+the encoder's output, and the gated MLP.
 
 The parameter tree is the reference's: ``enc_in``, ``enc_layers``
 (``ln1/attn/ln2/mlp``), ``enc_norm``, ``embed``, ``dec_layers``
@@ -22,31 +22,39 @@ lengths) and the decode step's attention are plain PyTorch, as they are
 plain jnp in the reference.  ``per_sample_metrics`` is the decoder-only
 families' (B1 through ``transformer.token_metrics``).
 
+Under a ``("data", "model")`` mesh (``ctx``, and ``specs``, the shards'
+per-layer specs) every pass runs on this rank's shards as
+``transformer.forward`` does: ``enc_in`` and every data-sharded dim
+FSDP-gathered at use (a layer's inside its checkpoint under
+``ctx.remat``), the encoder's and the decoder's self-attention
+head-parallel through B7 on the local heads
+(``transformer._attention_tp``), the cross-attention head-parallel and
+plain, the MLP column- then row-parallel, the embedding vocab-parallel
+and ``lm_head``'s vocab columns gathered.
+
 Serving: ``prefill`` encodes the frames once and keeps each decoder
 layer's cross-attention K and V in the cache (``xk``, ``xv``: (L, B,
 S_enc, Hkv, Dh)) beside the self-attention's ``k`` and ``v`` (L, B,
 max_len, Hkv, Dh); ``decode_step`` writes ``k`` and ``v`` in place and
-attends over every ``xk``/``xv`` slot.
+attends over every ``xk``/``xv`` slot.  On a mesh the caches hold this
+data rank's rows and every head (the sequence of ``k``/``v`` split over
+"model" under ``seq_parallel_kv``, as ``transformer.decode_attention``
+reads it).
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
-import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ParamDef, gated_mlp, rms_norm, stack_defs
+from repro_torch.models import transformer as tf
+from repro_torch.models.common import ParamDef, rms_norm, stack_defs
 from repro_torch.models.transformer import index_at, layer_at
 from repro_torch.models.transformer import per_sample_metrics  # noqa: F401
-
-
-def _mlp_defs(d: int, ff: int) -> dict:
-    return {"w_gate": ParamDef((d, ff), ("fsdp", "tp")),
-            "w_up": ParamDef((d, ff), ("fsdp", "tp")),
-            "w_down": ParamDef((ff, d), ("tp", "fsdp"))}
 
 
 def param_defs(cfg: ArchConfig) -> dict:
@@ -56,7 +64,7 @@ def param_defs(cfg: ArchConfig) -> dict:
         "ln1": ParamDef((d,), (None,), init="ones"),
         "attn": attn.attn_param_defs(d, nq, nkv, dh, cfg.qk_norm),
         "ln2": ParamDef((d,), (None,), init="ones"),
-        "mlp": _mlp_defs(d, cfg.d_ff),
+        "mlp": tf._mlp_defs(d, cfg.d_ff),
     }
     dec_block = {
         "ln1": ParamDef((d,), (None,), init="ones"),
@@ -64,7 +72,7 @@ def param_defs(cfg: ArchConfig) -> dict:
         "lnx": ParamDef((d,), (None,), init="ones"),
         "xattn": attn.attn_param_defs(d, nq, nkv, dh, False),
         "ln2": ParamDef((d,), (None,), init="ones"),
-        "mlp": _mlp_defs(d, cfg.d_ff),
+        "mlp": tf._mlp_defs(d, cfg.d_ff),
     }
     return {
         "enc_in": ParamDef((cfg.encoder_input_dim, d), (None, "fsdp")),
@@ -77,77 +85,128 @@ def param_defs(cfg: ArchConfig) -> dict:
     }
 
 
-def _xattn_qkv(p: dict, h_dec: torch.Tensor, enc_out: torch.Tensor):
-    return attn.heads(h_dec, p["wq"]), attn.heads(enc_out, p["wk"]), \
-        attn.heads(enc_out, p["wv"])
-
-
 def _cdtype(params: dict) -> torch.dtype:
     dt = params["embed"].dtype
     return torch.bfloat16 if dt.itemsize == 1 else dt
 
 
-def _mlp_residual(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + gated_mlp(h2, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                         p["mlp"]["w_down"])
+def _mlp_residual(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                  ctx=None) -> torch.Tensor:
+    return tf._ffn_residual(cfg, p, x, ctx)[0]
 
 
-def _embed(params: dict, tokens: torch.Tensor, dt: torch.dtype):
-    # F.embedding, not indexing: its backward sums each row's gradient in a
-    # fixed order on both devices (see transformer.embed_inputs).
-    return F.embedding(tokens.long(), params["embed"]).to(dt)
+def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+           dt: torch.dtype, ctx=None):
+    # F.embedding, not indexing (see transformer._embed): vocab-parallel
+    # under a model axis that splits the vocab.
+    return tf._embed(cfg, ctx, params["embed"], tokens).to(dt)
 
 
-def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
-    """The encoder over ``frames`` (B, S_enc, E): (B, S_enc, d_model)."""
-    dt = _cdtype(params)
-    x = frames.to(dt) @ params["enc_in"].to(dt)
+def _top(params: dict) -> dict:
+    return {k: v for k, v in params.items()
+            if k not in ("enc_layers", "dec_layers")}
+
+
+def _layers(ctx, params: dict, specs: dict | None, key: str, i: int):
+    """Layer ``i`` of stack ``key``, FSDP-gathered on a mesh."""
+    return tf.gather_fsdp(ctx, layer_at(params[key], i),
+                          specs and specs[key])
+
+
+def _run(ctx, fn, *args):
+    """``fn(*args)``, a checkpoint under ``ctx.remat`` (nothing saved but
+    its inputs)."""
+    if ctx is not None and ctx.remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def _enc_layer(cfg: ArchConfig, p: dict, x: torch.Tensor,
+               positions: torch.Tensor, ctx=None) -> torch.Tensor:
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    a = tf._attention(cfg, p, h, positions, True, ctx, causal=False)[0]
+    return _mlp_residual(cfg, p, x + a, ctx)
+
+
+def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, ctx=None,
+           specs: dict | None = None, top: dict | None = None) -> torch.Tensor:
+    """The encoder over ``frames`` (B, S_enc, E): (B, S_enc, d_model).
+    ``top``: the non-layer leaves, already gathered on a mesh."""
+    if top is None:
+        top = tf.gather_fsdp(ctx, _top(params), specs)
+    dt = _cdtype(top)
+    x = frames.to(dt) @ top["enc_in"].to(dt)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def layer(x, lp):
+        return _enc_layer(cfg, tf.gather_fsdp(
+            ctx, lp, specs and specs["enc_layers"]), x, positions, ctx)
+
     for i in range(cfg.num_encoder_layers):
-        p = layer_at(params["enc_layers"], i)
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = attn.project_qkv(p["attn"], h, positions, cfg.rope_theta,
-                                   cfg.qk_norm, cfg.norm_eps)
-        x = x + attn.out_proj(attn.attend(q, k, v, causal=False),
-                              p["attn"]["wo"])
-        x = _mlp_residual(cfg, p, x)
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+        x = _run(ctx, layer, x, layer_at(params["enc_layers"], i))
+    return rms_norm(x, top["enc_norm"], cfg.norm_eps)
+
+
+def _cross_attention(cfg: ArchConfig, p: dict, hx: torch.Tensor,
+                     enc_out: torch.Tensor, ctx=None):
+    """Cross-attention of the normed decoder states over the encoder's
+    output: (the output projection, k, v).  Under a model axis that splits
+    the heads: head-parallel, plain, ``wo`` row-parallel (k and v those of
+    the local KV heads where they are split too)."""
+    if tf._heads_split(cfg, p, ctx):
+        q, k, v, kv_split = tf.tp_heads(cfg, p, hx, enc_out, ctx)
+        kr, vr = tf.read_kv(cfg, k, v, q.shape[2], kv_split, ctx)
+        a = ctx.tp_reduce(attn.out_proj(attn.cross_attend(q, kr, vr),
+                                        p["wo"]))
+        return a, k, v
+    q, k, v = (attn.heads(hx, p["wq"]), attn.heads(enc_out, p["wk"]),
+               attn.heads(enc_out, p["wv"]))
+    return attn.out_proj(attn.cross_attend(q, k, v), p["wo"]), k, v
 
 
 def _decoder_block(cfg: ArchConfig, p: dict, x: torch.Tensor,
-                   enc_out: torch.Tensor, positions: torch.Tensor):
-    """One decoder layer.  Returns (x, what prefill keeps in the cache:
-    the self-attention's k and v, the cross-attention's xk and xv)."""
+                   enc_out: torch.Tensor, positions: torch.Tensor, ctx=None,
+                   state: bool = False):
+    """One decoder layer.  Returns (x, with ``state`` what prefill keeps
+    in the cache: the self-attention's k and v, the cross-attention's xk
+    and xv, every KV head)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = attn.project_qkv(p["attn"], h, positions, cfg.rope_theta,
-                               cfg.qk_norm, cfg.norm_eps)
-    x = x + attn.out_proj(attn.attend(q, k, v, causal=True), p["attn"]["wo"])
+    a, k, v = tf._attention(cfg, p, h, positions, True, ctx)
+    x = x + a
     hx = rms_norm(x, p["lnx"], cfg.norm_eps)
-    qx, kx, vx = _xattn_qkv(p["xattn"], hx, enc_out)
-    x = x + attn.out_proj(attn.cross_attend(qx, kx, vx), p["xattn"]["wo"])
-    return _mlp_residual(cfg, p, x), {"k": k, "v": v, "xk": kx, "xv": vx}
+    ax, kx, vx = _cross_attention(cfg, p["xattn"], hx, enc_out, ctx)
+    x = _mlp_residual(cfg, p, x + ax, ctx)
+    if not state:
+        return x, {}
+    k, v = tf._whole_kv(cfg, k, v, ctx)
+    kx, vx = tf._whole_kv(cfg, kx, vx, ctx)
+    return x, {"k": k, "v": v, "xk": kx, "xv": vx}
 
 
-def _logits(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["lm_head"].to(x.dtype)
-
-
-def forward(cfg: ArchConfig, params: dict, batch: dict):
+def forward(cfg: ArchConfig, params: dict, batch: dict, ctx=None,
+            specs: dict | None = None):
     """Train forward.  batch: ``frames`` (B, S_enc, E), ``tokens`` (B,
-    S_dec), optionally ``mask``.  Returns (logits, loss mask, aux = 0)."""
-    enc_out = encode(cfg, params, batch["frames"])
+    S_dec), optionally ``mask``.  Returns (logits, loss mask, aux = 0).
+    On a mesh ``params`` are this rank's shards and ``batch`` its rows."""
+    top = tf.gather_fsdp(ctx, _top(params), specs)
+    enc_out = encode(cfg, params, batch["frames"], ctx, specs, top)
     tokens = batch["tokens"]
-    x = _embed(params, tokens, enc_out.dtype)
+    x = _embed(cfg, top, tokens, enc_out.dtype, ctx)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def layer(x, enc_out, lp):
+        return _decoder_block(cfg, tf.gather_fsdp(
+            ctx, lp, specs and specs["dec_layers"]), x, enc_out, positions,
+            ctx)[0]
+
     for i in range(cfg.num_layers):
-        x, _ = _decoder_block(cfg, layer_at(params["dec_layers"], i), x,
-                              enc_out, positions)
-    x = rms_norm(x, params["out_norm"], cfg.norm_eps)
+        x = _run(ctx, layer, x, enc_out, layer_at(params["dec_layers"], i))
+    x = rms_norm(x, top["out_norm"], cfg.norm_eps)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
-    return (_logits(params, x), mask,
+    return (tf.logits_fn(cfg, top, x, ctx), mask,
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -158,66 +217,79 @@ def forward(cfg: ArchConfig, params: dict, batch: dict):
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, enc_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str | None = None) -> dict:
+               device: torch.device | str | None = None,
+               seq_shards: int = 1) -> dict:
     """Zero caches on ``device`` (None: CUDA): the self-attention's ``k``
-    and ``v`` (L, B, max_len, Hkv, Dh), the cross-attention's ``xk`` and
-    ``xv`` (L, B, enc_len, Hkv, Dh)."""
+    and ``v`` (L, B, max_len / seq_shards, Hkv, Dh: one model rank's span
+    under ``seq_parallel_kv``), the cross-attention's ``xk`` and ``xv``
+    (L, B, enc_len, Hkv, Dh)."""
     dev = resolve_device(device)
     L, hkv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    if max_len % seq_shards:
+        raise ValueError(
+            f"seq_parallel_kv: a cache of {max_len} positions does not split "
+            f"over {seq_shards} model ranks")
     cache: dict[str, Any] = {"len": 0}
-    for name, s in (("k", max_len), ("v", max_len), ("xk", enc_len),
-                    ("xv", enc_len)):
+    for name, s in (("k", max_len // seq_shards), ("v", max_len // seq_shards),
+                    ("xk", enc_len), ("xv", enc_len)):
         cache[name] = torch.zeros((L, batch, s, hkv, dh), dtype=dtype,
                                   device=dev)
     return cache
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict,
-            max_len: int | None = None) -> tuple[torch.Tensor, dict]:
+            max_len: int | None = None, ctx=None,
+            specs: dict | None = None) -> tuple[torch.Tensor, dict]:
     """Encode the frames, keep each layer's cross K/V, run the prompt.
     Returns the last position's logits (B, 1, V) and the cache (x's
-    dtype, ``len`` = S)."""
-    enc_out = encode(cfg, params, batch["frames"])
+    dtype, ``len`` = S).  On a mesh: this rank's shards and rows, this
+    rank's block of the cache."""
+    top = tf.gather_fsdp(ctx, _top(params), specs)
+    enc_out = encode(cfg, params, batch["frames"], ctx, specs, top)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = _embed(params, tokens, enc_out.dtype)
+    x = _embed(cfg, top, tokens, enc_out.dtype, ctx)
     cache = init_cache(cfg, b, max(max_len or s, s), enc_out.shape[1],
-                       dtype=x.dtype, device=x.device)
+                       dtype=x.dtype, device=x.device,
+                       seq_shards=tf.seq_shards(ctx))
     positions = torch.arange(s, device=x.device)[None, :]
     for i in range(cfg.num_layers):
-        x, emit = _decoder_block(cfg, layer_at(params["dec_layers"], i), x,
-                                 enc_out, positions)
-        cache["k"][i, :, :s] = emit["k"]
-        cache["v"][i, :, :s] = emit["v"]
+        x, emit = _decoder_block(cfg, _layers(ctx, params, specs,
+                                              "dec_layers", i),
+                                 x, enc_out, positions, ctx, state=True)
+        tf.write_prompt(cache, i, emit["k"], emit["v"], ctx)
         cache["xk"][i] = emit["xk"]
         cache["xv"][i] = emit["xv"]
     cache["len"] = s
-    x = rms_norm(x[:, -1:], params["out_norm"], cfg.norm_eps)
-    return _logits(params, x), cache
+    x = rms_norm(x[:, -1:], top["out_norm"], cfg.norm_eps)
+    return tf.logits_fn(cfg, top, x, ctx), cache
 
 
 def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor,
-                cache: dict) -> tuple[torch.Tensor, dict]:
+                cache: dict, ctx=None,
+                specs: dict | None = None) -> tuple[torch.Tensor, dict]:
     """One decode step.  token: (B, 1).  Returns (logits (B, 1, V), the
     cache with ``len`` + 1): its ``k`` and ``v`` are written in place (the
-    new cache holds the same tensors)."""
-    x = _embed(params, token, _cdtype(params))
+    new cache holds the same tensors).  On a mesh the cross-attention is
+    head-parallel: the local q heads against the KV heads they read."""
+    top = tf.gather_fsdp(ctx, _top(params), specs)
+    x = _embed(cfg, top, token, _cdtype(top), ctx)
     n = cache["len"]
-    positions = torch.full((x.shape[0], 1), n, device=x.device)
     layer_caches = {k: v for k, v in cache.items() if k != "len"}
     for i in range(cfg.num_layers):
-        p = layer_at(params["dec_layers"], i)
+        p = _layers(ctx, params, specs, "dec_layers", i)
         lc = index_at(layer_caches, i)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = attn.project_qkv(p["attn"], h, positions, cfg.rope_theta,
-                                   cfg.qk_norm, cfg.norm_eps)
-        kc, vc = attn.update_cache(lc["k"], lc["v"], k, v, n)
-        x = x + attn.out_proj(attn.decode_attend(q, kc, vc, n + 1),
-                              p["attn"]["wo"])
+        x = x + tf.decode_attention(cfg, p["attn"], h, lc, n, True, ctx)
         hx = rms_norm(x, p["lnx"], cfg.norm_eps)
         qx = attn.heads(hx, p["xattn"]["wq"])
-        ax = attn.decode_attend(qx, lc["xk"], lc["xv"], lc["xk"].shape[1])
-        x = x + attn.out_proj(ax, p["xattn"]["wo"])
-        x = _mlp_residual(cfg, p, x)
-    x = rms_norm(x, params["out_norm"], cfg.norm_eps)
-    return _logits(params, x), dict(cache, len=n + 1)
+        split = tf._heads_split(cfg, p["xattn"], ctx)
+        xk, xv = lc["xk"], lc["xv"]
+        if split:
+            xk, xv = tf.select_kv(cfg, xk, xv, qx.shape[2], ctx.tp_rank)
+        ax = attn.out_proj(attn.decode_attend(qx, xk, xv, xk.shape[1]),
+                           p["xattn"]["wo"])
+        x = _mlp_residual(cfg, p, x + (ctx.tp_reduce(ax) if split else ax),
+                          ctx)
+    x = rms_norm(x, top["out_norm"], cfg.norm_eps)
+    return tf.logits_fn(cfg, top, x, ctx), dict(cache, len=n + 1)

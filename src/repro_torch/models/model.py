@@ -11,17 +11,19 @@ specs, through each ``ParamDef``'s logical axes), ``abstract_params``
 ``device=None`` means CUDA and raises without a CUDA device.
 
 With a ``ParallelCtx`` over a ``("data", "model")`` mesh (``ctx``), a
-``Model`` trains on each rank's shards: ``shard`` (or
+``Model`` trains and serves on each rank's shards: ``shard`` (or
 ``transformer.params_from_jax(..., shard=model)``) gives a rank its block
 of every leaf by its spec, as per-layer lists; ``loss_and_metrics`` takes
-the global batch, runs this rank's data rows through
-``transformer.forward`` (or, for the encoder-decoder at
-``tp_size`` 1, the whole tree gathered), and returns the global loss (each
-data rank's share summed: a masked mean over the global batch) and the
-global per-sample metrics; ``gather`` gives the global tree back.  The
-model axis runs the dense, SSM and hybrid families; an MoE (expert
-parallelism), the encoder-decoder and the VLM at ``tp_size`` > 1, and
-``seq_parallel_kv``, raise (ROADMAP A.9(c)); serving under a mesh too.
+the global batch, runs this rank's data rows through the family's
+``forward``, and returns the global loss (each data rank's share summed:
+a masked mean over the global batch) and the global per-sample metrics;
+``prefill`` and ``decode_step`` take the global batch (or token) too,
+return the global logits and keep this rank's block of the cache (the
+reference's decode layout, ``input_logical``); ``gather`` and
+``gather_cache`` give the global tree and the one-device cache back.
+Every family runs on the model axis: expert parallelism for the MoE in
+both FSDP layouts, and the sequence-parallel decode under
+``seq_parallel_kv``; ``remat_policy="dots"`` raises (ROADMAP A.9(d)).
 
 ``LM`` is the trainable form of the same model, an ``nn.Module`` for
 ``train/trainer.py``: one parameter per leaf of every layer (not one
@@ -83,13 +85,8 @@ def loss_and_metrics(cfg: ArchConfig, params: dict, batch: dict,
     if specs is not None:
         check_model_axis(cfg, ctx)
         local = {k: ctx.shard_rows(v) for k, v in batch.items()}
-    if cfg.family == "encdec":
-        if specs is not None:     # tp_size 1: the whole tree gathered
-            params = map_specs(ctx.gather_fsdp_tree, params, specs)
-        logits, mask, aux = encdec.forward(cfg, params, local)
-    else:
-        logits, mask, aux = transformer.forward(cfg, params, local, ctx,
-                                                specs)
+    logits, mask, aux = family_module(cfg).forward(cfg, params, local, ctx,
+                                                   specs)
     scalar, (loss, pa, pc) = _mean_and_metrics(cfg, logits, mask, local)
     if specs is None:
         if cfg.moe is not None:
@@ -121,18 +118,8 @@ def _mean_and_metrics(cfg: ArchConfig, logits, mask, batch: dict):
 
 
 def check_model_axis(cfg: ArchConfig, ctx: ParallelCtx) -> None:
-    """Refuse what the mesh path does not run yet, rather than compute it
-    replicated in silence."""
-    where = "ROADMAP A.9(c)"
-    if ctx.seq_parallel_kv:
-        raise NotImplementedError(
-            f"seq_parallel_kv (sequence-parallel flash-decode): {where}")
-    if ctx.tp_size > 1 and cfg.family in ("moe", "encdec", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family under a model axis of "
-            f"{ctx.tp_size} ranks (expert parallelism, the encoder-decoder's "
-            f"and the VLM's parallel paths): {where}; run it at tp_size 1 "
-            "(dp_only=True, or a model axis of 1)")
+    """Refuse what the mesh path does not run yet, rather than compute
+    something else in silence."""
     if ctx.remat and ctx.remat_policy != "nothing":
         raise NotImplementedError(
             f"remat_policy={ctx.remat_policy!r}: only 'nothing' (each layer "
@@ -243,29 +230,68 @@ class Model:
 
     # -- serving ----------------------------------------------------------
 
-    def _one_device(self, what: str) -> None:
-        if self.sharded:
-            raise NotImplementedError(
-                f"{what} under a mesh: ROADMAP A.9(c)")
-
     def prefill(self, params, batch: dict, max_len: int | None = None):
-        self._one_device("prefill")
-        return self._mod.prefill(self.cfg, params, batch, max_len)
+        """(last-position logits (B, 1, V), cache).  On a mesh ``params``
+        are this rank's shards and ``batch`` the global batch: the logits
+        are the global batch's, the cache this rank's block."""
+        if not self.sharded:
+            return self._mod.prefill(self.cfg, params, batch, max_len)
+        ctx = self.ctx
+        local = {k: ctx.shard_rows(v) for k, v in batch.items()}
+        logits, cache = self._mod.prefill(self.cfg, params, local, max_len,
+                                          ctx, self.local_specs())
+        return ctx.gather_rows(logits), cache
 
     def decode_step(self, params, token, cache):
-        self._one_device("decode")
-        return self._mod.decode_step(self.cfg, params, token, cache)
+        """(logits (B, 1, V), the cache after the step).  On a mesh
+        ``token`` is the global batch's (B, 1), ``cache`` this rank's
+        block, and the logits are the global batch's."""
+        if not self.sharded:
+            return self._mod.decode_step(self.cfg, params, token, cache)
+        ctx = self.ctx
+        logits, cache = self._mod.decode_step(
+            self.cfg, params, ctx.shard_rows(token), cache, ctx,
+            self.local_specs())
+        return ctx.gather_rows(logits), cache
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    ring: bool = False):
-        """Zero caches; the encdec's encoder length is ``max_len //
-        DEC_FRACTION``, as the reference sizes it."""
+        """Zero caches for a global batch of ``batch``; the encdec's
+        encoder length is ``max_len // DEC_FRACTION``, as the reference
+        sizes it.  On a mesh: this rank's block (its rows; its span of
+        the sequence under ``seq_parallel_kv``)."""
+        ctx = self.ctx
+        if self.sharded:
+            start, stop = ctx.rows(batch)
+            batch = stop - start
+        shards = transformer.seq_shards(ctx)
         if self.cfg.family == "encdec":
             return encdec.init_cache(self.cfg, batch, max_len,
                                      max_len // DEC_FRACTION, dtype,
-                                     self.device)
+                                     self.device, seq_shards=shards)
         return transformer.init_cache(self.cfg, batch, max_len, dtype,
-                                      self.device, ring=ring)
+                                      self.device, ring=ring,
+                                      seq_shards=shards)
+
+    @torch.no_grad()
+    def gather_cache(self, cache: dict) -> dict:
+        """The one-device cache from every rank's block: each (L, B, ...)
+        entry's rows all-gathered over the data axes, ``k`` and ``v``'s
+        sequence over "model" under ``seq_parallel_kv``.  Off-mesh: the
+        cache itself."""
+        if not self.sharded:
+            return cache
+        ctx = self.ctx
+        out = dict(cache)
+        for name, x in cache.items():
+            if name == "len":
+                continue
+            if ctx.dp_size > 1:
+                x = gather_dim(x, 1, ctx.group, ctx.dp_size)
+            if name in ("k", "v") and transformer.seq_shards(ctx) > 1:
+                x = gather_dim(x, 2, ctx.tp_group, ctx.tp_size)
+            out[name] = x
+        return out
 
 
     # -- abstract inputs for the launcher ----------------------------------

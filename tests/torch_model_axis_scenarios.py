@@ -125,14 +125,14 @@ def llava_world(rank: int, world: int, init: dict, perms: list,
 
 
 def unit_world(rank: int, world: int, cases: list) -> dict:
-    """Each ``(name, cfg, params, batch)`` at a (1, 1) mesh with FSDP and
-    without a context: whether the loss, the per-sample metrics and every
-    gradient agree bit for bit."""
+    """Each ``(name, cfg, params, batch, build_ctx kwargs)`` at a (1, 1)
+    mesh and without a context: whether the loss, the per-sample metrics
+    and every gradient agree bit for bit."""
     torch.set_num_threads(1)
     mesh = make_data_model_mesh(1, 1)
     out = {}
-    for name, cfg, params, batch in cases:
-        a = grads_step(cfg, build_ctx(cfg, mesh, fsdp=True), params, batch)
+    for name, cfg, params, batch, kw in cases:
+        a = grads_step(cfg, build_ctx(cfg, mesh, **kw), params, batch)
         b = grads_step(cfg, None, params, batch)
         out[name] = {
             "loss": a["loss"], "one_loss": b["loss"],
