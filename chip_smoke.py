@@ -5,6 +5,7 @@
     python3 chip_smoke.py --hymba-lr-witness
     python3 chip_smoke.py --encdec-lr-witness
     python3 chip_smoke.py --model-axis
+    python3 chip_smoke.py --dry-run
 
 Phases, each printed as one JSON line; any failure exits non-zero:
 
@@ -246,6 +247,24 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    their max of one device's and the same tokens, and again under
    ``seq_parallel_kv`` (the cache's sequence over the model axis) within
    1e-5 of the decode without it.
+22. dry run (after phase 21, ``phase_dry_run``): qwen3-1.7b at full width
+   and 28 layers, one AdamW step of 2 x 256 tokens on a (1, 1) mesh under
+   NCCL with no remat, ``remat_policy`` ``"nothing"`` and ``"dots"``: the
+   loss and every gradient bit for bit, the step's peak of allocated bytes
+   ``nothing <= dots <= none``, each step's seconds; the same step on meta
+   tensors over a fake (1, 1) group (``launch/dryrun.py``, in a process
+   of its own): the bytes the shards, the optimizer state, the LR and the
+   batch asked the card's caching allocator for within 512 B a tensor of
+   the record's ``argument_size_in_bytes``, its predicted peak beside the
+   card's; kimi-k2 reduced, one Adafactor step at (1, 1) bit for bit the
+   step without a context; in phase 21's gloo world, for kimi-k2 reduced
+   and qwen3-1.7b at 4 layers, Adafactor's update on sharded leaves from
+   one device's gradients within 1e-5 of one device's largest parameter
+   change, and a whole step within ``ADAFACTOR_WHOLE_TOL`` (its gradients
+   within 1e-4 of their max), with reduced qwen3's float32 and float64
+   twins on the host's CPU (the float64 whole step within 1e-5); and
+   ``python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape
+   train_4k --extrapolate`` on this host: status ``ok``, its seconds.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -264,7 +283,9 @@ CPU run from weights changed by 1e-7.  ``--encdec-lr-witness`` runs phases
 through the kernels and through their plain versions (on the card), and
 through the kernels at 2 + 2 layers: per epoch loss and F*, how far the
 predictions depend on the input, beside the corpus' unigram loss.
-``--model-axis`` runs phases 1-2 and then phase 21 alone.
+``--model-axis`` runs phases 1-2 and then phase 21 alone; ``--dry-run``
+phases 1-2 and then phase 22 alone (its Adafactor steps in the gloo world
+run inside phase 21's world, so not under ``--dry-run``).
 Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
@@ -1003,15 +1024,11 @@ def check_ssd_scan(dev, b: int, s: int, kind: str, reps: int,
                 f"ssd_scan {name} differs from the plain version by "
                 f"{float((a - ref).abs().max())} ({tag})")
     nh, p, n = shape["nh"], shape["p"], shape["n"]
-    # The chunked form's products over this run's chunk lengths, counting
-    # only the causal s <= t half of C.B^T and scores.X, with C.B^T once
-    # per (batch, chunk) (b and c are one group shared by every head): B6's
-    # work, on the tensor cores in 3xTF32.  On the CUDA cores in fp32 the
-    # per-token recurrence's 5 N P (decay, outer-product update, C.state)
-    # may be fewer; the fp32 bound takes the fewer of the two.
-    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
-    chunked = b * sum(l * (l + 1) * n + nh * (l * (l + 1) * p + 4 * l * n * p)
-                      for l in lens)
+    # The chunked form's products (``ssd.scan_ops``): B6's work, on the
+    # tensor cores in 3xTF32.  On the CUDA cores in fp32 the per-token
+    # recurrence's 5 N P (decay, outer-product update, C.state) may be
+    # fewer; the fp32 bound takes the fewer of the two.
+    chunked = ssd.scan_ops(b, s, nh, p, n, chunk)
     recurrent = b * nh * s * 5 * n * p
     ops = chunked
     nbytes = 4 * (2 * y.numel() + b * s * nh + 2 * b * s * n + 2 * nh + st.numel())
@@ -1089,9 +1106,8 @@ def check_flash_attention(dev, shape, causal: bool, dtype, tol: float,
     ok, err = close(out.float(), ref.float(), tol)
     require(ok, f"flash_attention differs from the plain version by {err} "
                 f"> {tol} ({tag})")
-    # The causal half only where causal: s(s+1)/2 (query, key) pairs.
-    pairs = s * (s + 1) // 2 if causal else s * s
-    ops = 4 * b * hq * d * pairs
+    # The causal half only where causal (``fa.attention_ops``).
+    ops = fa.attention_ops(b, s, hq, d, causal)
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     b_ms, b_by = bound(nbytes, ops, TF32X3_OPS_PER_S)
     b32_ms, _ = bound(nbytes, ops)
@@ -4815,28 +4831,15 @@ def axis_family_batch(dev, cfg, n: int) -> dict:
 def counted_collectives(counter: collections.Counter):
     """Within the block, the bytes handed to each ``torch.distributed``
     collective, by name: the largest tensor of a call (a gather's output,
-    a reduce-scatter's input, an all-reduce's or a broadcast's tensor).
-    Under gloo on the card each such byte crosses host memory."""
-    import torch
-    import torch.distributed as dist
-    names = [n for n in ("all_reduce", "all_gather_into_tensor",
-                         "all_gather_single", "reduce_scatter_tensor",
-                         "broadcast") if hasattr(dist, n)]
-    orig = {n: getattr(dist, n) for n in names}
-
-    def wrap(name, fn):
-        def counted(*args, **kw):
-            counter[name] += max((t.numel() * t.element_size() for t in args
-                                  if isinstance(t, torch.Tensor)), default=0)
-            return fn(*args, **kw)
-        return counted
-    for n in names:
-        setattr(dist, n, wrap(n, orig[n]))
-    try:
-        yield
-    finally:
-        for n in names:
-            setattr(dist, n, orig[n])
+    a reduce-scatter's input, an all-reduce's or a broadcast's tensor),
+    from ``launch/hlo_analysis.py::record_collectives``, whose record also
+    gives the wire bytes (``collective_bytes``).  Under gloo on the card
+    each such byte crosses host memory."""
+    from repro_torch.launch.hlo_analysis import (largest_bytes,
+                                                 record_collectives)
+    with record_collectives() as record:
+        yield record
+    counter.update(largest_bytes(record))
 
 
 def attention_calls(calls: collections.Counter):
@@ -5002,15 +5005,26 @@ def unpacked(pack: dict) -> list:
                                       pack["shapes"])]
 
 
-def axis_params(cfg, dev) -> dict:
+def axis_params(cfg, dev, dtype: str = "float32") -> dict:
     """The seed-0 draws of ``cfg`` on ``dev`` with every attention at its
     input's fan-in (``attention_fan_in``): the gloo world's comparisons
     across orders of float32 sums (at the reference's init seamless-m4t's
-    gradients part by ~1e-3 of their max between two correct orders)."""
+    gradients part by ~1e-3 of their max between two correct orders);
+    in ``dtype``, the float32 draws cast."""
     import torch
+    from repro_torch.dist.sharding import map_specs
     from repro_torch.models.model import build_model
-    return attention_fan_in(build_model(cfg, device=dev).init(
+    params = attention_fan_in(build_model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(0)), cfg)
+    if dtype == "float32":
+        return params
+    return map_specs(lambda t: t.to(getattr(torch, dtype)), params)
+
+
+def host_or(dev, host: bool):
+    """The host's CPU if ``host``, else ``dev``."""
+    import torch
+    return torch.device("cpu") if host else dev
 
 
 def axis_expectations(dev, full: bool) -> dict:
@@ -5077,6 +5091,9 @@ def axis_expectations(dev, full: bool) -> dict:
                      "tokens": got["tokens"].cpu().numpy()}
     del params, got
     free_memory()
+    for arch, layers, width, host, dtype in ADAFACTOR_WORLD:
+        want[("adafactor", arch, width, host, dtype)] = adafactor_expectation(
+            host_or(dev, host), arch, layers, width and full, dtype)
     return want
 
 
@@ -5091,6 +5108,7 @@ def axis_world_family(dev, rank: int, mesh, arch: str, layers: int,
     import torch
     from repro_torch.checkpoint.checkpoint import flatten
     from repro_torch.kernels import backend
+    from repro_torch.launch.hlo_analysis import collective_bytes
     from repro_torch.launch.train import build_ctx, make_train_step
     from repro_torch.models.model import build_model
     from repro_torch.optim.optimizers import SGD
@@ -5108,7 +5126,7 @@ def axis_world_family(dev, rank: int, mesh, arch: str, layers: int,
     calls, moved = collections.Counter(), collections.Counter()
     t1 = time.perf_counter()
     with patched_op("flash_attention", attention_calls(calls)), \
-            counted_collectives(moved):
+            counted_collectives(moved) as record:
         loss, (lv, _, _) = make_train_step(model, SGD(leaves))(local, batch,
                                                                0.0)
     sync(dev)
@@ -5129,6 +5147,7 @@ def axis_world_family(dev, rank: int, mesh, arch: str, layers: int,
            "local_params": sum(t.numel() for t in leaves),
            "launches": dict(backend.LAUNCHES),
            "attention_calls": dict(calls), "collective_bytes": dict(moved),
+           "collective_wire_bytes": collective_bytes(record),
            "seconds": {"set_up": t1 - t0, "step": t2 - t1,
                        "check": time.perf_counter() - t2}}
     del local, model, leaves
@@ -5220,6 +5239,7 @@ def axis_world_arch(dev, rank: int, mesh, arch: str, full: bool,
     import torch
     from repro_torch.checkpoint.checkpoint import flatten
     from repro_torch.kernels import backend
+    from repro_torch.launch.hlo_analysis import collective_bytes
     from repro_torch.launch.train import (build_ctx, make_train_step,
                                           optimizer_for, plan_lr,
                                           plan_summary)
@@ -5241,7 +5261,7 @@ def axis_world_arch(dev, rank: int, mesh, arch: str, full: bool,
     moved = collections.Counter()
     for i, idx in enumerate(batches):
         with (counted_collectives(moved) if i == 0
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()) as record:
             loss, (lv, pa, pc) = step(local, axis_batch(ds, idx, dev), lr)
         strat.observe(idx, lv, pa, pc, 0)
         losses.append(float(loss))
@@ -5264,7 +5284,8 @@ def axis_world_arch(dev, rank: int, mesh, arch: str, full: bool,
             out.update({"grad_rel_err": float(errs[0]),
                         "loss_err": float(errs[1]), "lv_err": float(errs[2]),
                         "first_loss": losses[0], "leaves": len(leaves),
-                        "first_step_collective_bytes": dict(moved)})
+                        "first_step_collective_bytes": dict(moved),
+                        "first_step_wire_bytes": collective_bytes(record)})
             del ref
     sync(dev)
     t_end = time.perf_counter()
@@ -5285,9 +5306,10 @@ def model_axis_rank(rank: int, world: int, device_type: str, full: bool,
                     flags: tuple[bool, bool], want: dict) -> dict:
     """One rank of the gloo world (``launch.mesh.spawn``): every rank on
     ``device_type`` (the one card), the (2, 2) ``("data", "model")`` mesh,
-    both archs in turn, then ``AXIS_FAMILIES`` (each layout) and
-    qwen3-1.7b's serving against ``want`` (``axis_expectations``).  The
-    spawning process' TF32 switches are taken."""
+    both archs in turn, then ``AXIS_FAMILIES`` (each layout),
+    qwen3-1.7b's serving and ``ADAFACTOR_WORLD``'s Adafactor steps (phase
+    22's) against ``want`` (``axis_expectations``).  The spawning
+    process' TF32 switches are taken."""
     import torch
     from repro_torch.launch.mesh import make_data_model_mesh, rank_device
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
@@ -5305,6 +5327,11 @@ def model_axis_rank(rank: int, world: int, device_type: str, full: bool,
                           want[(arch, lay)], full)
         for arch, layers, layouts in AXIS_FAMILIES for lay in layouts]
     out["serve"] = axis_world_serve(dev, rank, mesh, want["serve"], full)
+    out["adafactor"] = [
+        axis_world_adafactor(host_or(dev, host), rank, mesh, arch, layers,
+                             width and full, dtype,
+                             want[("adafactor", arch, width, host, dtype)])
+        for arch, layers, width, host, dtype in ADAFACTOR_WORLD]
     out["ended_at"] = time.time()
     return out
 
@@ -5385,7 +5412,8 @@ def phase_model_axis(dev, full: bool = True, gloo_device: str = "cuda"
                                                          for r in ranks),
                          "archs": {a: ranks[0][a] for a in AXIS_ARCHS},
                          "families": ranks[0]["families"],
-                         "serve": ranks[0]["serve"]}
+                         "serve": ranks[0]["serve"],
+                         "adafactor": ranks[0]["adafactor"]}
     for r in ranks:
         for a in AXIS_ARCHS:
             launches.update(r[a]["launches"])
@@ -5485,12 +5513,484 @@ def phase_model_axis(dev, full: bool = True, gloo_device: str = "cuda"
     require(sv["sp_vs_plain_rel_err"] <= 1e-5,
             f"model axis: sequence-parallel decode vs plain "
             f"{sv['sp_vs_plain_rel_err']}")
+    for a in ranks[0]["adafactor"]:
+        require(a["rel_err"] <= 1e-5,
+                f"model axis: Adafactor on {a['arch']}'s sharded leaves "
+                f"({a['device']}, {a['dtype']}) {a['rel_err']} of one "
+                "device's largest change")
+        tag = f"{a['arch']} ({a['device']}, {a['dtype']})"
+        bound = 1e-5 if a["dtype"] == "float64" else ADAFACTOR_WHOLE_TOL
+        require(a["whole_rel_err"] <= bound
+                and a["whole_grad_rel_err"] <= 1e-4,
+                f"model axis: a whole Adafactor step of {tag} "
+                f"{a['whole_rel_err']} of one device's largest change (bound "
+                f"{bound}), gradients {a['whole_grad_rel_err']} of their max")
     require(row["gloo_world"]["ranks_agree"], "model axis: ranks differ")
     for name in ("flash_attention", "ssd_scan", "loss_confidence",
                  "loss_confidence_bwd"):
         require(launches.get(name, 0) > 0,
                 f"model axis: {name} never launched")
     return launches, row.get("local_kernels", {})
+
+# ---------------------------------------------------------------------------
+# The dry run, the recompute policies and Adafactor on the mesh (phase 22)
+
+#: The recompute policies' model (full width and depth) and its batch.
+REMAT_ARCH = "qwen3-1.7b"
+REMAT_BATCH = 2
+#: (name, ``build_ctx``'s remat, remat_policy): the three ways one AdamW
+#: step runs on the (1, 1) mesh.
+REMAT_RUNS = (("none", False, "nothing"), ("nothing", True, "nothing"),
+              ("dots", True, "dots"))
+#: Adafactor in the gloo world: (arch, cut depth or None, full width,
+#: on the host's CPU, dtype).  The last two are one config's twins on the
+#: host (the plain kernels, float32 and float64): a whole step on the mesh
+#: parts from one device's in float32 where its float64 twin does not.
+ADAFACTOR_WORLD = (("kimi-k2-1t-a32b", None, False, False, "float32"),
+                   ("qwen3-1.7b", AXIS_LAYERS, True, False, "float32"),
+                   ("qwen3-1.7b", AXIS_LAYERS, False, True, "float32"),
+                   ("qwen3-1.7b", AXIS_LAYERS, False, True, "float64"))
+#: Their LR: large enough that one ulp of a norm weight near 1.0 stays
+#: well under 1e-5 of the largest change (at 1e-3 it does not).
+ADAFACTOR_LR = 1e-2
+#: A whole float32 Adafactor step on the gloo world against one device's,
+#: relative to one device's largest change: about 3x the largest reading
+#: of a sound run (1.74e-5, qwen3-1.7b at 4 layers on the card; the host
+#: twin reads 1.60e-5 in float32 and 3.4e-7 in float64).  Adafactor's
+#: normalised update turns the gradients' float32 sum orders into changes
+#: of order the LR in rows of small gradients; the float64 twin is held to
+#: 1e-5.
+ADAFACTOR_WHOLE_TOL = 5e-5
+#: The allocator's rounding of one tensor (``argument_size_in_bytes``).
+ALLOC_ROUND = 512
+#: The dry run of the remat runs' step, in a process of its own that
+#: never touches the card: argv[1] is the JSON of (arch, full, batch, seq).
+DRY_RUN_CELL = """
+import json, sys, torch
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch.dryrun import run_cell
+arch, full, batch, seq = json.loads(sys.argv[1])
+cfg = get_arch(arch) if full else get_arch(arch).reduced()
+rec = run_cell(cfg, ShapeSpec("card", seq, batch, "train"), mesh_shape=(1, 1),
+               dtype=torch.float32)
+print(json.dumps(rec))
+"""
+
+
+def adafactor_cfg(arch: str, full: bool, layers: int | None):
+    """``arch`` (reduced unless ``full``; ``layers`` its cut depth) trained
+    with Adafactor."""
+    return dataclasses.replace(axis_cfg(arch, full, layers),
+                               optimizer="adafactor")
+
+
+def adafactor_step(cfg, ctx, params: dict, batch: dict, dev):
+    """One ``make_train_step`` with ``optimizer_for``'s Adafactor (its
+    stacked leaves, ``shard_over`` on a mesh) on ``ctx``'s shards of
+    ``params`` (None: one device), the MoE's experts in ``"partial"`` (the
+    whole batch routed, as one device routes it).  Returns (loss, the
+    local tree after the step, the model, the optimizer)."""
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.launch.train import make_train_step, optimizer_for
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, ctx, device=dev)
+    local = model.shard(params)
+    for _, t in flatten(local):
+        t.requires_grad_(True)
+    opt = optimizer_for(cfg, local)
+    loss, _ = make_train_step(model, opt)(local, batch, ADAFACTOR_LR)
+    return loss.detach(), local, model, opt
+
+
+def adafactor_expectation(dev, arch: str, layers, full_width: bool,
+                          dtype: str) -> dict:
+    """One device's Adafactor step of ``arch`` in ``dtype`` on ``AXIS_SEQ``
+    x 4 (``axis_params``' weights): its loss, its gradients and the
+    parameters after it (``packed``, for the gloo world) and the largest
+    change of one parameter."""
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.models.transformer import unstack_layers
+    cfg = adafactor_cfg(arch, full_width, layers)
+    params = axis_params(cfg, dev, dtype)
+    loss, local, _, _ = adafactor_step(cfg, None, params,
+                                       lm_batch(dev, 4, AXIS_SEQ), dev)
+    leaves = [t for _, t in flatten(local)]
+    change = max(float((a.detach() - b).abs().max()) for a, (_, b) in zip(
+        leaves, flatten(unstack_layers(params, copy=False))))
+    out = {"loss": float(loss), "max_change": change,
+           "params": packed([t.detach() for t in leaves]),
+           "grads": packed([t.grad for t in leaves])}
+    del params, local, leaves
+    free_memory()
+    return out
+
+
+def axis_world_adafactor(dev, rank: int, mesh, arch: str, layers,
+                         full_width: bool, dtype: str, want: dict) -> dict:
+    """In one rank of the gloo world: ``arch``'s shards on the (2, 2) mesh
+    with FSDP, every leaf against its block of one device's updated
+    parameters, relative to one device's largest change, the max over the
+    ranks, after
+
+    - Adafactor's update alone (its moments and RMS reduced over each
+      leaf's mesh axes, ``shard_over``) from this rank's block of one
+      device's gradients (``rel_err``): the optimizer;
+    - a whole step on the mesh from the same weights (``whole_rel_err``),
+      its gradients against one device's (``whole_grad_rel_err``,
+      relative to each leaf's max |g|).
+
+    The weights and the batch are in ``dtype`` (the optimizer's own
+    arithmetic is float32 in both)."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.launch.train import build_ctx, optimizer_for
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    cfg = adafactor_cfg(arch, full_width, layers)
+    ctx = build_ctx(cfg, mesh, fsdp=True, moe_fsdp_mode="partial")
+    model = build_model(cfg, ctx, device=dev)
+    params = axis_params(cfg, dev, dtype)
+    local = model.shard(params)
+    free_memory()
+    specs = model.leaf_specs(local)
+    leaves = [t for _, t in flatten(local)]
+    for t, g, sp in zip(leaves, unpacked(want["grads"]), specs):
+        t.grad = ctx.local_shard(g, sp).clone()
+    opt = optimizer_for(cfg, local)
+    opt.shard_over(ctx, specs)
+    opt.step(ADAFACTOR_LR)
+    sync(dev)
+    t1 = time.perf_counter()
+
+    def worst(local) -> list:
+        return sorted(
+            ((float((t.detach() - ctx.local_shard(w, sp)).abs().max())
+              / want["max_change"], path)
+             for (path, t), w, sp in zip(flatten(local),
+                                         unpacked(want["params"]), specs)),
+            reverse=True)[:3]
+    alone = worst(local)
+    del local, leaves, opt
+    free_memory()
+    t2 = time.perf_counter()
+    loss, local, _, _ = adafactor_step(cfg, ctx, params,
+                                       lm_batch(dev, 4, AXIS_SEQ), dev)
+    sync(dev)
+    t3 = time.perf_counter()
+    whole = worst(local)
+    grad_err = max(float((t.grad - ctx.local_shard(g, sp)).abs().max())
+                   / max(float(g.abs().max()), 1e-30)
+                   for (_, t), g, sp in zip(flatten(local),
+                                            unpacked(want["grads"]), specs))
+    errs = torch.tensor([alone[0][0], whole[0][0], grad_err,
+                         abs(float(loss) - want["loss"])], device=dev)
+    torch.distributed.all_reduce(errs, op=torch.distributed.ReduceOp.MAX)
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "full": full_width,
+           "device": dev.type, "dtype": dtype,
+           "rel_err": float(errs[0]), "whole_rel_err": float(errs[1]),
+           "whole_grad_rel_err": float(errs[2]),
+           "whole_loss_err": float(errs[3]),
+           "max_change": want["max_change"], "worst_leaves": alone,
+           "whole_worst_leaves": whole,
+           "seconds": {"optimizer": t1 - t0, "whole_step": t3 - t2}}
+    del local, params, model
+    free_memory()
+    return out
+
+
+def remat_run(dev, mesh, cfg, params: dict, batch: dict, remat: bool,
+              policy: str, ref: dict | None) -> dict:
+    """Two AdamW steps of ``cfg`` on the (1, 1) ``mesh`` under a recompute
+    policy (the first warms the path up): both losses and the last
+    step's gradients against ``ref``'s (None: kept as the reference, on
+    the card, leaf by leaf), the bytes the shards, the optimizer state
+    and the LR asked the caching allocator for (``requested_bytes``) and
+    took from it (``memory_allocated``), each step's seconds, and the second step's peaks of
+    allocated bytes over the bytes held before it: at the forward's end
+    (the saved tensors, what the policy sets), before the optimizer and
+    over the step (the first step's allocate the gradients, as the dry
+    run's ``temp_size_in_bytes`` counts them)."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.kernels import backend
+    from repro_torch.launch.train import (build_ctx, make_train_step,
+                                          optimizer_for)
+    from repro_torch.models.model import build_model
+    cuda = dev.type == "cuda"
+
+    def allocated() -> int:
+        return torch.cuda.memory_allocated(dev) if cuda else 0
+
+    def peak() -> int:
+        return torch.cuda.max_memory_allocated(dev) if cuda else 0
+    ctx = build_ctx(cfg, mesh, remat=remat, remat_policy=policy)
+    model = build_model(cfg, ctx, device=dev)
+    a0, r0 = allocated(), requested_bytes(dev)
+    local = model.shard(params)
+    leaves = [t.requires_grad_(True) for _, t in flatten(local)]
+    opt = optimizer_for(cfg, local)
+    a1, r1 = allocated(), requested_bytes(dev)
+    peaks = {}
+    forward, step_opt = model.loss_and_metrics, opt.step
+
+    def watched_forward(*a, **k):
+        out = forward(*a, **k)
+        peaks["forward"] = peak()
+        return out
+
+    def watched_step(*a, **k):
+        peaks["backward"] = peak()
+        return step_opt(*a, **k)
+    model.loss_and_metrics, opt.step = watched_forward, watched_step
+    step = make_train_step(model, opt)
+    backend.reset_launches()
+    losses, seconds, temps = [], [], []
+    for _ in range(2):
+        sync(dev)
+        held = allocated()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss, _ = step(local, batch, 1e-3)
+        sync(dev)
+        seconds.append(time.perf_counter() - t0)
+        losses.append(loss.detach())
+        peaks["step"] = peak()
+        temps.append({k: v - held for k, v in peaks.items()})
+    # Break the watchers' cycles (opt -> watched_step -> opt.step), or the
+    # run's state outlives it into the next run's.
+    del model.loss_and_metrics, opt.step
+    del forward, step_opt, watched_forward, watched_step
+    grads = [t.grad for t in leaves]
+    tensors = leaves + opt.state_tensors() + [opt.lr]
+    out = {"losses": [float(x) for x in losses], "fsdp": ctx.fsdp,
+           "remat": ctx.remat, "remat_policy": ctx.remat_policy,
+           "requested_bytes": r1 - r0,
+           "tensor_bytes": sum(t.untyped_storage().nbytes()
+                               for t in tensors),
+           "tensors": len(tensors), "allocated_bytes": a1 - a0,
+           "held_before_step": held, "seconds": seconds,
+           "temp_bytes": temps,
+           "launches": dict(backend.LAUNCHES)}
+    if ref is None:
+        out["ref"] = {"losses": losses, "grads": grads}
+        out["equal"] = {"losses": True, "grads": True}
+    else:
+        out["equal"] = {
+            "losses": all(torch.equal(a, b)
+                          for a, b in zip(losses, ref["losses"])),
+            "grads": len(grads) == len(ref["grads"]) and all(
+                torch.equal(a, b) for a, b in zip(grads, ref["grads"]))}
+    del local, leaves, opt, step, model, grads, tensors
+    free_memory()
+    return out
+
+
+def requested_bytes(dev) -> int:
+    """The bytes the live tensors on ``dev`` asked the caching allocator
+    for (its ``requested_bytes`` counter: before its rounding to 512 B
+    and its blocks; 0 off the card)."""
+    import torch
+    if dev.type != "cuda":
+        return 0
+    stats = torch.cuda.memory_stats(dev)
+    if "requested_bytes.all.current" not in stats:
+        raise RuntimeError("this torch's allocator counts no requested bytes")
+    return stats["requested_bytes.all.current"]
+
+
+def adafactor_unit_mesh(dev, mesh) -> dict:
+    """kimi-k2 reduced: one Adafactor step without a context and on the
+    (1, 1) ``mesh`` with FSDP: the loss, every parameter and every state
+    tensor bit for bit."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.kernels import backend
+    from repro_torch.launch.train import build_ctx
+    from repro_torch.models.transformer import unstack_layers
+    cfg = adafactor_cfg("kimi-k2-1t-a32b", False, None)
+    params = axis_params(cfg, dev)
+    batch = lm_batch(dev, 4, AXIS_SEQ)
+    got = []
+    backend.reset_launches()
+    for ctx in (None, build_ctx(cfg, mesh, fsdp=True)):
+        loss, local, _, opt = adafactor_step(cfg, ctx, params, batch, dev)
+        got.append((loss, [t.detach() for _, t in flatten(local)],
+                    opt.state_tensors()))
+    (la, pa, sa), (lb, pb, sb) = got
+    out = {"arch": cfg.name, "loss": float(la),
+           "equal": {"loss": bool(torch.equal(la, lb)),
+                     "params": sum(torch.equal(a, b) for a, b in zip(pa, pb)),
+                     "state": sum(torch.equal(a, b) for a, b in zip(sa, sb))},
+           "n_params": len(pa), "n_state": len(sa),
+           "moved": sum(not torch.equal(a, b) for a, (_, b) in zip(
+               pa, flatten(unstack_layers(params, copy=False)))),
+           "launches": dict(backend.LAUNCHES)}
+    del params, got
+    free_memory()
+    return out
+
+
+def phase_dry_run(dev, full: bool = True) -> collections.Counter:
+    """The dry run (``launch/dryrun.py``) against the card, the recompute
+    policies and Adafactor on a (1, 1) mesh under NCCL:
+
+    - qwen3-1.7b at full width and depth, two AdamW steps of 2 x
+      ``AXIS_SEQ`` tokens run three ways (no remat, ``"nothing"``,
+      ``"dots"``; ``remat_run``): the losses and the gradients bit for
+      bit, the second step's peak of allocated bytes at the forward's end
+      (the saved tensors) ``nothing <= dots <= none``; at this size the
+      step's own peak is the optimizer's (the gradients and AdamW's
+      temporaries), the same in all three, and is recorded beside it;
+    - the same step on meta tensors over a fake (1, 1) group, in a process
+      of its own: the bytes the card's shards, optimizer state, LR and
+      batch asked the caching allocator for while they were made (its
+      ``requested_bytes`` counter, so anything else made then counts
+      too) within ``ALLOC_ROUND`` a tensor of the record's
+      ``argument_size_in_bytes``; beside it the tensors' own bytes and
+      the bytes ``memory_allocated`` grew by (the allocator's blocks: it
+      leaves a large block unsplit below 1 MB of remainder), and the
+      record's predicted peak beside the card's;
+    - kimi-k2 reduced, one Adafactor step at (1, 1) bit for bit the step
+      without a context (phase 21's gloo world holds the sharded update,
+      and qwen3-1.7b's at ``AXIS_LAYERS`` layers, against one device);
+    - ``python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape
+      train_4k --extrapolate`` on this host: status ``ok``.
+
+    The two host processes run while the card works."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    row = {"phase": "dry_run", "full": full}
+    launches = collections.Counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    procs = {
+        "witness": subprocess.Popen(
+            [sys.executable, "-c", DRY_RUN_CELL,
+             json.dumps([REMAT_ARCH, full, REMAT_BATCH, AXIS_SEQ])],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True),
+        "production": subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "qwen3-1.7b", "--shape", "train_4k", "--extrapolate", "--out",
+             out_dir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)}
+    started = time.perf_counter()
+    try:
+        cfg = get_arch(REMAT_ARCH) if full else get_arch(REMAT_ARCH).reduced()
+        backend_name = "nccl" if dev.type == "cuda" else "gloo"
+        mesh = mesh_lib.make_data_model_mesh(1, 1, backend_name)
+        try:
+            cuda = dev.type == "cuda"
+            r0 = requested_bytes(dev)
+            a0 = torch.cuda.memory_allocated(dev) if cuda else 0
+            batch = lm_batch(dev, REMAT_BATCH, AXIS_SEQ)
+            batch_requested = requested_bytes(dev) - r0
+            batch_allocated = (torch.cuda.memory_allocated(dev) - a0
+                               if cuda else 0)
+            batch_bytes = sum(t.untyped_storage().nbytes()
+                              for t in batch.values())
+            # The weights wait on the host: each run's shards are copied
+            # from them, and the card keeps room for the first run's
+            # gradients beside the later runs'.
+            params = tree_to(build_model_params(cfg, dev), "cpu")
+            free_memory()
+            runs, ref = {}, None
+            for name, remat, policy in REMAT_RUNS:
+                runs[name] = remat_run(dev, mesh, cfg, params, batch, remat,
+                                       policy, ref)
+                if ref is None:
+                    ref = runs[name].pop("ref")
+            del params, ref
+            free_memory()
+            unit = adafactor_unit_mesh(dev, mesh)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        outs = {k: p.communicate(timeout=600) for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    row["host_seconds"] = time.perf_counter() - started
+    row["remat"] = runs
+    for r in runs.values():
+        launches.update(r["launches"])
+    launches.update(unit["launches"])
+    row["adafactor_unit_mesh"] = unit
+    witness, cell = outs["witness"], outs["production"]
+    rec = json.loads(witness[0].strip().splitlines()[-1]) \
+        if procs["witness"].returncode == 0 else {"status": "failed",
+                                                  "stderr": witness[1][-2000:]}
+    nothing = runs["nothing"]
+    tensors = nothing["tensors"] + len(batch)
+    requested = nothing["requested_bytes"] + batch_requested
+    mem = rec.get("memory") or {}
+    row["witness"] = {
+        "status": rec.get("status"), "error": rec.get("error"),
+        "fsdp": rec.get("fsdp"), "memory": mem,
+        "requested_argument_bytes": requested,
+        "tensor_argument_bytes": nothing["tensor_bytes"] + batch_bytes,
+        "allocated_argument_bytes": nothing["allocated_bytes"]
+        + batch_allocated,
+        "tensors": tensors,
+        "predicted_temp_bytes": mem.get("temp_size_in_bytes"),
+        "measured_temp_bytes": nothing["temp_bytes"][0]["step"],
+        "hlo_flops": rec.get("hlo_flops"), "run_s": rec.get("run_s"),
+        "total_s": rec.get("total_s")}
+    files = sorted(Path(out_dir).glob("*.json"))
+    cell_rec = json.loads(files[0].read_text()) if files else {}
+    row["production_cell"] = {
+        "returncode": procs["production"].returncode,
+        "status": cell_rec.get("status"), "error": cell_rec.get("error"),
+        "total_s": cell_rec.get("total_s"),
+        "roofline": cell_rec.get("roofline"),
+        "memory": cell_rec.get("memory"),
+        "stderr": cell[1][-1000:] if procs["production"].returncode else ""}
+    row["launches"] = dict(launches)
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    for name, r in runs.items():
+        require(all(r["equal"].values()),
+                f"dry run: remat {name} differs from no remat: {r['equal']}")
+    require(rec.get("status") == "ok",
+            f"dry run: the witness cell {rec.get('status')}: "
+            f"{rec.get('error') or rec.get('stderr')}")
+    require(row["production_cell"]["status"] == "ok",
+            f"dry run: the production cell {row['production_cell']}")
+    eq = unit["equal"]
+    require(eq["loss"] and eq["params"] == unit["n_params"]
+            and eq["state"] == unit["n_state"] and unit["moved"] > 0,
+            f"dry run: Adafactor at (1, 1) differs from no context: "
+            f"{unit['equal']}, moved {unit['moved']}")
+    if dev.type == "cuda":
+        fwd = {n: r["temp_bytes"][-1]["forward"] for n, r in runs.items()}
+        require(fwd["nothing"] <= fwd["dots"] <= fwd["none"],
+                f"dry run: forward peaks not nothing <= dots <= none: {fwd}")
+        pred = mem["argument_size_in_bytes"]
+        require(abs(requested - pred) <= ALLOC_ROUND * tensors,
+                f"dry run: argument bytes on the card {requested}, predicted "
+                f"{pred} ({tensors} tensors)")
+    for name in ("flash_attention", "loss_confidence", "loss_confidence_bwd"):
+        require(launches.get(name, 0) > 0,
+                f"dry run: {name} never launched")
+    return launches
+
+
+def build_model_params(cfg, dev) -> dict:
+    """Seed-0 draws of ``cfg`` on ``dev`` (the reference's init)."""
+    import torch
+    from repro_torch.models.model import build_model
+    return build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+
 
 # ---------------------------------------------------------------------------
 
@@ -5530,10 +6030,12 @@ KERNELS = {
 def main(argv: list[str]) -> int:
     witnesses = {"--hymba-lr-witness": witness_hymba_lr,
                  "--encdec-lr-witness": witness_encdec_lr,
-                 "--model-axis": phase_model_axis}
+                 "--model-axis": phase_model_axis,
+                 "--dry-run": phase_dry_run}
     if not (argv == [] or (len(argv) == 1 and argv[0] in witnesses)):
         print("usage: chip_smoke.py [--hymba-lr-witness | "
-              "--encdec-lr-witness | --model-axis]", file=sys.stderr)
+              "--encdec-lr-witness | --model-axis | --dry-run]",
+              file=sys.stderr)
         return 2
     try:
         import torch
@@ -5593,6 +6095,7 @@ def main(argv: list[str]) -> int:
     launches.update(phase_mesh(dev))
     axis_launches, axis_rows = phase_model_axis(dev)
     launches.update(axis_launches)
+    launches.update(phase_dry_run(dev))
     launches.update(phase_serve(dev, "mamba2-130m"))
     launches.update(phase_serve(dev, "smollm-135m"))
     launches.update(phase_lm_train(dev))

@@ -43,7 +43,8 @@ group has one rank, so a (1, 1) mesh computes what no mesh computes):
 - ``tp_max`` (a MAX all-reduce over ``"model"``, no gradient): the
   sequence-parallel decode's running maximum.
 
-Under NCCL the scatter is ``reduce_scatter_tensor``; under gloo, whose
+Under NCCL (and the dry run's fake group) the scatter is
+``reduce_scatter_tensor``; under gloo, whose
 reduce-scatter torch does not offer for CUDA tensors in every version,
 an all-reduce and a slice.
 
@@ -73,6 +74,10 @@ import torch.distributed as dist
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
         "max": dist.ReduceOp.MAX}
 _MODEL_AXIS = "model"
+#: Backends whose reduce-scatter the FSDP backward takes: NCCL, and torch's
+#: fake process group, which stands in for an NCCL deployment in the dry
+#: run (``launch/dryrun.py``).
+_SCATTER_BACKENDS = ("nccl", "fake")
 _DATA_AXES = ("pod", "data")
 
 
@@ -97,10 +102,14 @@ def _scatter_sum_dim(g: torch.Tensor, dim: int, group, size: int,
     """This rank's chunk along ``dim`` of the sum of every rank's ``g``."""
     src = g.movedim(dim, 0)
     n = src.shape[0] // size
-    if str(dist.get_backend(group)) == "nccl":
+    if str(dist.get_backend(group)) in _SCATTER_BACKENDS:
         out = torch.empty((n, *src.shape[1:]), dtype=src.dtype,
                           device=src.device)
-        dist.reduce_scatter_tensor(out, src.contiguous(), group=group)
+        # ``reduce_scatter_single`` is the newer name of
+        # ``reduce_scatter_tensor``.
+        fn = (getattr(dist, "reduce_scatter_single", None)
+              or dist.reduce_scatter_tensor)
+        fn(out, src.contiguous(), group=group)
     else:
         src = src.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(src, group=group)

@@ -21,10 +21,18 @@ kernel's bins must be bit-identical to the PyTorch formula.
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``launch`` turns a non-zero code into an exception.  ``LAUNCHES`` counts the
 kernel launches per wrapper, so a run can show which kernels it went through.
+
+Inside ``crediting()`` (the dry run, ``launch/dryrun.py``) a wrapper
+given meta tensors launches nothing and runs no plain version: it returns
+outputs of the right shapes and credits its work by formula to
+``META_WORK`` (``credit_meta``), the operations and bytes behind
+``chip_smoke.py``'s bound of that kernel.  Outside it a meta tensor is
+refused as any other tensor that is not on the CPU or a card.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -50,6 +58,40 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+#: Work credited by wrappers that met meta tensors: ``(name, "ops")``,
+#: ``(name, "bytes")`` and ``(name, "calls")``.
+META_WORK: collections.Counter = collections.Counter()
+
+
+_CREDITING = [False]
+
+
+@contextlib.contextmanager
+def crediting():
+    """Within the block, wrappers given meta tensors credit their work
+    (``on_meta``)."""
+    before = _CREDITING[0]
+    _CREDITING[0] = True
+    try:
+        yield
+    finally:
+        _CREDITING[0] = before
+
+
+def on_meta(tensors) -> bool:
+    """Whether the wrappers credit meta tensors (``crediting``) and every
+    tensor of ``tensors`` (an iterable) is one."""
+    return _CREDITING[0] and all(t.device.type == "meta" for t in tensors)
+
+
+def credit_meta(name: str, ops: float, nbytes: float) -> None:
+    """Credit one call of wrapper ``name`` on meta tensors with ``ops``
+    operations and ``nbytes`` bytes of device memory traffic."""
+    META_WORK[name, "ops"] += ops
+    META_WORK[name, "bytes"] += nbytes
+    META_WORK[name, "calls"] += 1
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

@@ -42,6 +42,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhgqk,bkhd->bqhgd", probs, v).reshape(b, s, hq, d)
 
 
+def attention_ops(b: int, s: int, hq: int, d: int, causal: bool) -> int:
+    """B7's operations: the two products (scores and P.V), 2 each a
+    multiply-add, over the (query, key) pairs it visits (the causal half
+    where causal)."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4 * b * hq * d * pairs
+
+
 def _check(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{NAME}: q, k and v must be (B, S, H, D); got "
@@ -63,7 +71,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Kernel B7: ``softmax(q k^T * d^-0.5) v`` per head.
 
-    CPU tensors take ``flash_attention_plain``; CUDA tensors launch the
+    CPU tensors take ``flash_attention_plain``; meta tensors in the dry run
+    an empty output, the work credited (``backend.on_meta``); CUDA tensors
+    launch the
     kernel (float32 or bfloat16, all three of one type; D in
     ``HEAD_DIMS``; any S) or raise, and raise on an input that requires
     grad in grad mode (the launch has no backward: ``ops.flash_attention``
@@ -76,6 +86,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if all(t.device.type == "cpu" for t in tensors.values()):
         return flash_attention_plain(q, k, v, causal)
     backend.refuse_grad(NAME, tensors)
+    if backend.on_meta(tensors.values()):
+        b, s, hq, d = q.shape
+        backend.credit_meta(NAME, attention_ops(b, s, hq, d, causal),
+                            q.element_size() * (2 * q.numel() + k.numel()
+                                                + v.numel()))
+        return torch.empty(b, s, hq, d, dtype=q.dtype, device="meta")
     dev = backend.check_cuda(NAME, tensors, contiguous=False)
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{NAME}: q, k and v must all be float32 or all "

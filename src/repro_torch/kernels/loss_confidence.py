@@ -79,19 +79,26 @@ def _entry(name: str, entries: dict, logits: torch.Tensor,
 def loss_confidence(logits: torch.Tensor, labels: torch.Tensor):
     """Kernel B1: ``(ce f32, correct bool, pmax f32)`` for (T, V) logits.
 
-    A CPU tensor takes ``loss_confidence_plain``; a CUDA tensor launches the
-    kernel (f32 or bf16 logits, i32 labels, any T and V) or raises (also on
-    logits that require grad in grad mode: ``ops.fused_loss_metrics``
-    carries the gradient).  One
+    A CPU tensor takes ``loss_confidence_plain``; meta tensors in the dry
+    run empty outputs, the work credited (``backend.on_meta``); a CUDA tensor
+    launches the kernel (f32 or bf16 logits, i32 labels, any T and V) or
+    raises (also on logits that require grad in grad mode:
+    ``ops.fused_loss_metrics`` carries the gradient).  One
     launch, three separate outputs (a caller may change any in place).
     """
     _check(NAME, logits, labels)
     if logits.is_cpu and labels.is_cpu:
         return loss_confidence_plain(logits, labels)
     backend.refuse_grad(NAME, {"logits": logits})
+    t, v = logits.shape
+    if backend.on_meta((logits, labels)):
+        backend.credit_meta(NAME, 5 * t * v,
+                            logits.element_size() * t * v + 13 * t)
+        return (torch.empty(t, dtype=torch.float32, device="meta"),
+                torch.empty(t, dtype=torch.bool, device="meta"),
+                torch.empty(t, dtype=torch.float32, device="meta"))
     dev = backend.check_cuda(NAME, {"logits": logits, "labels": labels})
     entry = _entry(NAME, _FORWARD, logits, labels)
-    t, v = logits.shape
     ce = torch.empty(t, dtype=torch.float32, device=dev)
     correct = torch.empty(t, dtype=torch.bool, device=dev)
     pmax = torch.empty(t, dtype=torch.float32, device=dev)
@@ -105,8 +112,9 @@ def loss_confidence_backward(logits: torch.Tensor, labels: torch.Tensor,
     """B1's backward: ``dlogits`` (T, V) in the logits' dtype from the
     forward's ``ce`` and the cotangent ``g`` (T,) of ``ce``.
 
-    A CPU tensor takes ``loss_confidence_backward_plain``; a CUDA tensor
-    launches the kernel or raises.  ``g`` is read through its stride, so
+    A CPU tensor takes ``loss_confidence_backward_plain``; meta tensors in
+    the dry run an empty output, the work credited; a CUDA tensor launches
+    the kernel or raises.  ``g`` is read through its stride, so
     the mean's expanded gradient (stride 0) needs no copy.
     """
     _check(BWD_NAME, logits, labels)
@@ -116,6 +124,11 @@ def loss_confidence_backward(logits: torch.Tensor, labels: torch.Tensor,
                          f"{tuple(g.shape)}")
     if logits.is_cpu and labels.is_cpu and ce.is_cpu and g.is_cpu:
         return loss_confidence_backward_plain(logits, labels, ce, g)
+    if backend.on_meta((logits, labels, ce, g)):
+        t, v = logits.shape
+        backend.credit_meta(BWD_NAME, 5 * t * v,
+                            2 * logits.element_size() * t * v + 16 * t)
+        return torch.empty_like(logits)
     dev = backend.check_cuda(BWD_NAME, {"logits": logits, "labels": labels,
                                         "ce": ce})
     if g.device != dev:

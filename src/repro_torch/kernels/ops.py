@@ -18,12 +18,16 @@ inputs and returns its ``torch.autograd.grad``: the reference's gradient,
 beside the kernel's forward numerics (which the no-grad selection pass and
 the refresh see as well).  A kernel wrapper itself makes no autograd node
 and refuses inputs that need a gradient while grad mode is on
-(``backend.refuse_grad``).
+(``backend.refuse_grad``).  On meta tensors in the dry run
+(``backend.crediting``) the Functions' backward recomputes nothing:
+``meta_grads`` returns empty gradients and credits the plain backward's
+operations by formula.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import backend
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import loss_confidence as _lc
 from repro_torch.kernels import ssd_scan as _ssd
@@ -67,6 +71,24 @@ def plain_grads(plain, saved, needs_grad, grads) -> tuple:
     return tuple(next(got, None) if n else None for n in needs_grad)
 
 
+#: A backward through the plain version recomputes the forward's products
+#: and makes two more for each (the gradients of both operands).
+BACKWARD_OPS_FACTOR = 3
+
+
+def meta_grads(name: str, saved, needs_grad, ops: float) -> tuple:
+    """The backward of a kernel's autograd Function on meta tensors: empty
+    gradients of the saved inputs' shapes, ``ops`` (the forward's)
+    credited ``BACKWARD_OPS_FACTOR`` times under ``name + "_bwd"``, its
+    bytes those of the inputs read and the gradients written."""
+    nbytes = sum(t.numel() * t.element_size() for t in saved)
+    backend.credit_meta(name + "_bwd", BACKWARD_OPS_FACTOR * ops,
+                        nbytes + sum(t.numel() * t.element_size()
+                                     for t, n in zip(saved, needs_grad) if n))
+    return tuple(torch.empty_like(t) if n else None
+                 for t, n in zip(saved, needs_grad))
+
+
 class _SSDScan(torch.autograd.Function):
     """Forward: kernel B6 (its plain version on the CPU).  Backward: the
     gradient of ``ssd_scan_plain`` recomputed from the saved inputs (the
@@ -82,10 +104,18 @@ class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_y, g_state):
+        saved = ctx.saved_tensors
+        if backend.on_meta(saved):
+            x, b = saved[0], saved[3]
+            ops = _ssd.scan_ops(*x.shape[:2], x.shape[2], x.shape[3],
+                                b.shape[-1], ctx.chunk)
+            return (*meta_grads(_ssd.NAME, saved, ctx.needs_input_grad[:6],
+                                ops), None)
+
         def plain(*t):
             return _ssd.ssd_scan_plain(*t, ctx.chunk)
 
-        return (*plain_grads(plain, ctx.saved_tensors,
+        return (*plain_grads(plain, saved,
                              ctx.needs_input_grad[:6], (g_y, g_state)), None)
 
 
@@ -102,10 +132,17 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        saved = ctx.saved_tensors
+        if backend.on_meta(saved):
+            b, s, hq, d = saved[0].shape
+            ops = _fa.attention_ops(b, s, hq, d, ctx.causal)
+            return (*meta_grads(_fa.NAME, saved, ctx.needs_input_grad[:3],
+                                ops), None)
+
         def plain(q, k, v):
             return _fa.flash_attention_plain(q, k, v, ctx.causal)
 
-        return (*plain_grads(plain, ctx.saved_tensors,
+        return (*plain_grads(plain, saved,
                              ctx.needs_input_grad[:3], (g,)), None)
 
 

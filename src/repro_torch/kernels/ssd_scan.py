@@ -81,10 +81,21 @@ def ssd_scan_plain(x, dt, a_log, b, c, d_skip, chunk: int):
     return y[:, :s_orig].to(x.dtype), h
 
 
+def scan_ops(b: int, s: int, nh: int, p: int, n: int, chunk: int) -> int:
+    """B6's operations: the chunked form's products over the chunk lengths
+    of ``s``, counting only the causal s <= t half of C.B^T and scores.X,
+    C.B^T once per (batch, chunk) (b and c are one group shared by every
+    head)."""
+    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    return b * sum(ln * (ln + 1) * n
+                   + nh * (ln * (ln + 1) * p + 4 * ln * n * p) for ln in lens)
+
+
 def ssd_scan(x, dt, a_log, b, c, d_skip, chunk: int):
     """Kernel B6: ``(y, final_state)`` of the chunked scan.
 
-    A CPU tensor takes ``ssd_scan_plain``; CUDA tensors launch the
+    A CPU tensor takes ``ssd_scan_plain``; meta tensors in the dry run empty
+    outputs, the work credited (``backend.on_meta``); CUDA tensors launch the
     kernel's four steps (float32; N <= 128 and chunk <= 128, multiples of
     4; P <= 64; any S) or raise (also on an input that requires grad in
     grad mode: ``ops.ssd_scan`` carries the gradient), with their scratch (dt, cum, C.B^T per
@@ -108,6 +119,12 @@ def ssd_scan(x, dt, a_log, b, c, d_skip, chunk: int):
     if all(t.device.type == "cpu" for t in tensors.values()):
         return ssd_scan_plain(x, dt, a_log, b, c, d_skip, chunk)
     backend.refuse_grad(NAME, tensors)
+    if backend.on_meta(tensors.values()):
+        backend.credit_meta(NAME, scan_ops(B, S, NH, P, N, chunk),
+                            4 * (2 * x.numel() + dt.numel() + 2 * b.numel()
+                                 + 2 * NH + B * NH * N * P))
+        return (torch.empty(B, S, NH, P, dtype=x.dtype, device="meta"),
+                torch.empty(B, NH, N, P, dtype=torch.float32, device="meta"))
     dev = backend.check_cuda(NAME, tensors, contiguous=False)
     for k, t in tensors.items():
         if t.dtype != torch.float32:

@@ -16,11 +16,13 @@ helpers that feed it a KAKURENBO epoch.
   sharded over the data axes summed over them (one all-reduce of their
   concatenation; FSDP's gathers sum the sharded ones in the backward), and
   the optimizer's step in place.  Off-mesh the same step runs on one
-  device.  Adafactor's factored moments and its RMS clip need whole
-  leaves: on sharded leaves it raises (ROADMAP A.9(d)).
+  device.  Adafactor reduces its moments and RMS over the mesh axes of
+  each leaf's spec (``Adafactor.shard_over``, given ``Model.leaf_specs``).
 - ``opt_state_specs``, ``abstract_train_state`` (meta tensors) and
   ``optimizer_for`` are the reference's state layout for sgd, adamw,
-  rmsprop and adafactor.
+  rmsprop and adafactor: ``optimizer_for`` hands Adafactor the layer
+  stacks of a tree (``stack_groups``), so the live state has the shapes
+  ``abstract_train_state`` gives.
 - ``plan_worker_indices``, ``plan_lr``, ``plan_summary`` and
   ``plan_global_batches`` read an ``EpochPlan``: every worker slices the
   same plan (strategies are seeded), the union of the slices, batch by
@@ -39,6 +41,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.strategy import EpochPlan
 from repro_torch.data.pipeline import worker_slice
 from repro_torch.dist.sharding import ParallelCtx, entry_axes, map_specs
+from repro_torch.models.transformer import LAYER_STACKS
 from repro_torch.optim.optimizers import make_optimizer
 
 FSDP_THRESHOLD_BYTES = 1 << 30  # shard params over data axes above 1 GB/chip
@@ -74,17 +77,11 @@ def make_train_step(model, opt):
         dp = set(ctx.dp_axes)
         return any(entry_axes(e) and set(entry_axes(e)) <= dp for e in spec)
 
-    def sharded(spec) -> bool:
-        return any(ctx.axis_size(a) > 1 for e in spec for a in entry_axes(e))
-
     def train_step(params, batch: dict, lr):
         leaves = _leaves(params)
         specs = model.leaf_specs(params) if model.sharded else None
-        if (specs is not None and opt.name == "adafactor"
-                and any(sharded(sp) for sp in specs)):
-            raise NotImplementedError(
-                "adafactor on sharded leaves (its factored moments and RMS "
-                "clip span the whole leaf): ROADMAP A.9(d)")
+        if specs is not None:
+            opt.shard_over(ctx, specs)
         scalar, (lv, pa, pc) = model.loss_and_metrics(params, batch)
         opt.zero_grad()
         scalar.backward()
@@ -218,10 +215,30 @@ def abstract_train_state(model, opt_name: str, dtype=torch.bfloat16,
     return params_abs, opt_abs, param_specs, opt_specs
 
 
+def stack_groups(params: dict) -> list[list[int]]:
+    """The positions, among ``params``' leaves in ``flatten``'s order, of
+    each stacked leaf of the reference's tree: the L per-layer tensors of
+    one leaf of a layer stack (``transformer.LAYER_STACKS``, as per-layer
+    lists)."""
+    groups: dict[tuple[str, str], list[int]] = {}
+    for pos, (path, _) in enumerate(flatten(params)):
+        parts = path.split("/")
+        if len(parts) > 2 and parts[1] in LAYER_STACKS and parts[2].isdigit():
+            key = (parts[1], "/".join(parts[3:]))
+            groups.setdefault(key, []).append(pos)
+    return list(groups.values())
+
+
 def optimizer_for(cfg: ArchConfig, params):
     """The config's optimizer over ``params`` (AdamW with float32 moments,
-    Adafactor for the 1T config)."""
+    Adafactor for the 1T config).  ``params`` is a tree (per-layer lists,
+    ``Model.shard``'s) or a list of tensors; a tree's layer stacks are
+    Adafactor's stacked leaves (``stack_groups``), a list's tensors leaves
+    of their own."""
     leaves = _leaves(params) if isinstance(params, dict) else list(params)
     if cfg.optimizer == "adamw":
         return make_optimizer("adamw", leaves, state_dtype=torch.float32)
+    if cfg.optimizer == "adafactor" and isinstance(params, dict):
+        return make_optimizer("adafactor", leaves,
+                              stacks=stack_groups(params))
     return make_optimizer(cfg.optimizer, leaves)

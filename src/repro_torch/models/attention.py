@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import backend as kbackend
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ParamDef, rms_norm, rope
 
@@ -88,14 +89,16 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``window``: sliding-window size, applied unless ``is_global`` or S <=
     ``window`` (where it masks nothing).  Without a window in effect, CUDA
-    tensors go through kernel B7 (``ops.flash_attention``).  Otherwise, and
-    on the CPU, the reference's form: queries in chunks of ``q_chunk`` when
-    S is a multiple of it (so the CPU never holds an S x S score tensor at
-    S = 2,048), each chunk's masked scores through a float32 softmax.
+    tensors go through kernel B7 (``ops.flash_attention``), and so do meta
+    ones in the dry run (``kernels/backend.py::crediting``: B7's work
+    credited by formula).  Otherwise, and on the CPU, the reference's form:
+    queries in chunks of ``q_chunk`` when S is a multiple of it (so the CPU
+    never holds an S x S score tensor at S = 2,048), each chunk's masked
+    scores through a float32 softmax.
     """
     b, s, hq, dh = q.shape
     use_window = window is not None and not bool(is_global) and s > window
-    if q.device.type == "cuda" and not use_window:
+    if (q.device.type == "cuda" or kbackend.on_meta((q,))) and not use_window:
         return kops.flash_attention(q, k, v, causal)
     hkv = k.shape[2]
     scale = dh ** -0.5

@@ -11,14 +11,21 @@ dim, ``None`` replicated), the sharding specs of a mesh
 the reference, equal in distribution, not in bits (``jax.random`` and
 PyTorch draw different numbers), so parity tests carry the reference's
 parameters in with ``transformer.params_from_jax``.
+
+``remat(ctx, fn, *args)`` runs one layer under the context's recompute
+policy: the reference's ``jax.checkpoint`` with ``nothing_saveable``
+(``"nothing"``: only the layer's inputs kept) or ``checkpoint_dots``
+(``"dots"``: the matmul outputs kept, the rest recomputed).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.kernels.backend import resolve_device
 
@@ -120,3 +127,43 @@ def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     dt = x.dtype
     g = F.silu(x @ w_gate.to(dt))
     return (g * (x @ w_up.to(dt))) @ w_down.to(dt)
+
+
+#: The matmul ops whose outputs ``remat_policy="dots"`` keeps: the
+#: reference's ``checkpoint_dots`` saves every ``dot_general``.
+DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                     torch.ops.aten.bmm.default,
+                     torch.ops.aten.baddbmm.default})
+#: Collective namespaces: always recomputed, so the FSDP gathers of a layer
+#: run again in its backward, as the reference's do.
+_COLLECTIVE_NAMESPACES = frozenset({"c10d", "_c10d_functional"})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in DOT_OPS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    if getattr(op, "namespace", None) in _COLLECTIVE_NAMESPACES:
+        return ckpt.CheckpointPolicy.MUST_RECOMPUTE
+    # Everything else, the kernels' ``torch.empty`` outputs (filled in
+    # place through ctypes, which no policy sees) included, runs again.
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(ctx, fn: Callable, *args):
+    """``fn(*args)``; under ``ctx.remat`` a ``torch.utils.checkpoint`` of
+    it by ``ctx.remat_policy``: ``"nothing"`` keeps only the inputs,
+    ``"dots"`` also the outputs of ``DOT_OPS`` (a selective checkpoint).
+    The kernels B1, B6 and B7 run through ctypes, opaque to the policy:
+    under ``"dots"`` they are recomputed (the reference's jnp attention is
+    dots, which ``checkpoint_dots`` keeps)."""
+    if ctx is None or not ctx.remat:
+        return fn(*args)
+    if ctx.remat_policy == "nothing":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if ctx.remat_policy == "dots":
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat_policy={ctx.remat_policy!r}: 'nothing' or "
+                     "'dots'")

@@ -26,8 +26,8 @@ Under a ``("data", "model")`` mesh (``ctx``, and ``specs``, the shards'
 per-layer specs) every pass runs on this rank's shards as
 ``transformer.forward`` does: ``enc_in`` and every data-sharded dim
 FSDP-gathered at use (a layer's inside its checkpoint under
-``ctx.remat``), the encoder's and the decoder's self-attention
-head-parallel through B7 on the local heads
+``ctx.remat``, by ``ctx.remat_policy``: ``common.remat``), the encoder's
+and the decoder's self-attention head-parallel through B7 on the local heads
 (``transformer._attention_tp``), the cross-attention head-parallel and
 plain, the MLP column- then row-parallel, the embedding vocab-parallel
 and ``lm_head``'s vocab columns gathered.
@@ -46,13 +46,12 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import ParamDef, rms_norm, stack_defs
+from repro_torch.models.common import ParamDef, remat, rms_norm, stack_defs
 from repro_torch.models.transformer import index_at, layer_at
 from repro_torch.models.transformer import per_sample_metrics  # noqa: F401
 
@@ -113,15 +112,6 @@ def _layers(ctx, params: dict, specs: dict | None, key: str, i: int):
                           specs and specs[key])
 
 
-def _run(ctx, fn, *args):
-    """``fn(*args)``, a checkpoint under ``ctx.remat`` (nothing saved but
-    its inputs)."""
-    if ctx is not None and ctx.remat:
-        return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
-    return fn(*args)
-
-
 def _enc_layer(cfg: ArchConfig, p: dict, x: torch.Tensor,
                positions: torch.Tensor, ctx=None) -> torch.Tensor:
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -144,7 +134,7 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, ctx=None,
             ctx, lp, specs and specs["enc_layers"]), x, positions, ctx)
 
     for i in range(cfg.num_encoder_layers):
-        x = _run(ctx, layer, x, layer_at(params["enc_layers"], i))
+        x = remat(ctx, layer, x, layer_at(params["enc_layers"], i))
     return rms_norm(x, top["enc_norm"], cfg.norm_eps)
 
 
@@ -201,7 +191,7 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, ctx=None,
             ctx)[0]
 
     for i in range(cfg.num_layers):
-        x = _run(ctx, layer, x, enc_out, layer_at(params["dec_layers"], i))
+        x = remat(ctx, layer, x, enc_out, layer_at(params["dec_layers"], i))
     x = rms_norm(x, top["out_norm"], cfg.norm_eps)
     mask = batch.get("mask")
     if mask is None:

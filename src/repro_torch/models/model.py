@@ -23,7 +23,8 @@ reference's decode layout, ``input_logical``); ``gather`` and
 ``gather_cache`` give the global tree and the one-device cache back.
 Every family runs on the model axis: expert parallelism for the MoE in
 both FSDP layouts, and the sequence-parallel decode under
-``seq_parallel_kv``; ``remat_policy="dots"`` raises (ROADMAP A.9(d)).
+``seq_parallel_kv``, under either recompute policy (``remat_policy``
+``"nothing"`` or ``"dots"``, ``common.remat``).
 
 ``LM`` is the trainable form of the same model, an ``nn.Module`` for
 ``train/trainer.py``: one parameter per leaf of every layer (not one
@@ -83,7 +84,6 @@ def loss_and_metrics(cfg: ArchConfig, params: dict, batch: dict,
     data ranks, FSDP's gathers sum the sharded ones'."""
     local = batch
     if specs is not None:
-        check_model_axis(cfg, ctx)
         local = {k: ctx.shard_rows(v) for k, v in batch.items()}
     logits, mask, aux = family_module(cfg).forward(cfg, params, local, ctx,
                                                    specs)
@@ -115,15 +115,6 @@ def _mean_and_metrics(cfg: ArchConfig, logits, mask, batch: dict):
     w = batch.get("weight")
     scalar = (loss * w).mean() if w is not None else loss.mean()
     return scalar, (loss, pa, pc)
-
-
-def check_model_axis(cfg: ArchConfig, ctx: ParallelCtx) -> None:
-    """Refuse what the mesh path does not run yet, rather than compute
-    something else in silence."""
-    if ctx.remat and ctx.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy={ctx.remat_policy!r}: only 'nothing' (each layer "
-            "recomputed whole) is ported; 'dots' is ROADMAP A.9(d)")
 
 
 def per_layer_specs(specs: dict) -> dict:

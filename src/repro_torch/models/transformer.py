@@ -61,7 +61,6 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
@@ -69,8 +68,8 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (ParamDef, gated_mlp, rms_norm, rope,
-                                      stack_defs)
+from repro_torch.models.common import (ParamDef, gated_mlp, remat, rms_norm,
+                                      rope, stack_defs)
 
 #: The CLIP-style frontend stub's output width (llava's projector input).
 VLM_PATCH_DIM = 1024
@@ -451,8 +450,9 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, ctx=None,
     specs, ``layers`` one layer's) marks the dims sharded over the data
     axes, all-gathered at use (ZeRO-3, ``ctx.fsdp_gather``; a layer's
     inside its checkpoint, so the backward gathers it again).  With
-    ``ctx.remat`` each layer is a ``torch.utils.checkpoint`` (nothing
-    saved but its input).  With no context, or a (1, 1) mesh, every
+    ``ctx.remat`` each layer is a checkpoint by ``ctx.remat_policy``
+    (``common.remat``: ``"nothing"`` saves only its input, ``"dots"``
+    its matmul outputs too).  With no context, or a (1, 1) mesh, every
     collective is skipped: the same launches on the same inputs."""
     def layer(x, lp, flag):
         return _block(cfg, gather_fsdp(ctx, lp, specs and specs["layers"]),
@@ -463,14 +463,9 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, ctx=None,
     x, mask = embed_inputs(cfg, top, batch, ctx)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = ctx is not None and ctx.remat
     for i, flag in enumerate(global_layer_flags(cfg)):
         lp = layer_at(params["layers"], i)
-        if remat:
-            x, a = torch.utils.checkpoint.checkpoint(layer, x, lp, flag,
-                                                     use_reentrant=False)
-        else:
-            x, a = layer(x, lp, flag)
+        x, a = remat(ctx, layer, x, lp, flag)
         if a is not None:
             aux = aux + a
     x = rms_norm(x, top["out_norm"], cfg.norm_eps)

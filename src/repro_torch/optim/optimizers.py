@@ -31,7 +31,9 @@ The updates (the reference's order of operations; ``lr`` the LR tensor):
                A 4-D tensor is a conv weight, OIHW here and HWIO in the
                reference: it is factored through its HWIO view, over
                (I, O), so the same model gets the same estimator and the
-               state the reference's shapes.
+               state the reference's shapes.  The layers of one of the
+               reference's stacked (L, ...) leaves are updated as that
+               leaf (``stacks``), on a mesh each mean over its axes.
 
 ``state_tensors()`` lists every tensor the update writes besides the
 parameters: the numeric guard holds them, with the parameters, at their
@@ -40,11 +42,14 @@ them around its warm-up blocks.
 """
 from __future__ import annotations
 
+import math
 from typing import Iterable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpoint import copy_into, flatten
+from repro_torch.dist.sharding import entry_axes
 
 
 class _Optimizer:
@@ -97,6 +102,10 @@ class _Optimizer:
 
     def _update(self, params, grads, idx, lr) -> None:
         raise NotImplementedError
+
+    def shard_over(self, ctx, specs: list[tuple]) -> None:
+        """Take the mesh ``ctx`` and each parameter's spec: an elementwise
+        update needs neither."""
 
     def state_tensors(self) -> list[torch.Tensor]:
         """Every state tensor, in ``state_dict``'s flattened order."""
@@ -282,56 +291,195 @@ class Adafactor(_Optimizer):
     """Factored second moment (row and column means over the last two dims
     of the reference's layout) for tensors of two or more dims, a full one
     for vectors; no momentum; the update clipped to RMS
-    ``clip_threshold``."""
+    ``clip_threshold``.
+
+    ``stacks`` lists groups of positions in ``params``, each the L
+    per-layer tensors of one of the reference's stacked ``(L, ...)``
+    leaves (``launch/train.py::optimizer_for`` finds them in a model's
+    tree).  Such a group is updated as that one leaf: its moments are the
+    stacked leaf's (row and column means of each layer; for a stack of
+    vectors ``r`` (L,) and ``c`` (d,), shared by the layers), its RMS clip
+    spans the whole stack, and its state has the stacked shapes.  No
+    (L, ...) copy of the gradients is made: one pass over the layers
+    updates the moments and sums the squared update, one applies it (a
+    stack of vectors takes one more, between them, for the sum).  Every
+    other tensor is a leaf of its own, as in the trainer.
+
+    On a mesh (``shard_over``) each mean and the RMS span the mesh axes of
+    the dimensions they reduce, from each tensor's spec: a sum over the
+    local block, summed over those axes, divided by the global count.
+    Where no axis of a reduction has more than one rank the local op runs
+    alone, the one a model with no mesh runs, so a (1, 1) mesh updates bit
+    for bit as no mesh."""
 
     name = "adafactor"
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  eps: float = 1e-30, clip_threshold: float = 1.0,
-                 weight_decay: float = 0.0):
+                 weight_decay: float = 0.0, stacks=()):
         super().__init__(params)
         self.eps, self.clip_threshold = float(eps), float(clip_threshold)
         self.weight_decay = float(weight_decay)
-
-        def one(p):
-            f32 = dict(dtype=torch.float32, device=p.device)
-            shape = _reference_layout(p).shape
-            if p.dim() >= 2:
-                return {"r": torch.zeros(shape[:-1], **f32),
-                        "c": torch.zeros(shape[:-2] + shape[-1:], **f32)}
-            return {"v": torch.zeros(shape, **f32)}
-
-        self._state = {"s": [one(p) for p in self.params],
+        self._ctx = None
+        self._specs: list[tuple] | None = None
+        member = {i: tuple(g) for g in stacks for i in g}
+        # The logical leaves, by their first position: (positions, stacked).
+        self.leaves: list[tuple[tuple[int, ...], bool]] = []
+        for i in range(len(self.params)):
+            group = member.get(i)
+            if group is None:
+                self.leaves.append(((i,), False))
+            elif group[0] == i:
+                shapes = {tuple(self.params[j].shape) for j in group}
+                if len(shapes) != 1:
+                    raise ValueError(f"a stack's layers differ in shape: "
+                                     f"{sorted(shapes)}")
+                self.leaves.append((group, True))
+        self._state = {"s": [self._init_state(g, st) for g, st in self.leaves],
                        "t": _step_count(self.params)}
+
+    def _init_state(self, group, stacked: bool) -> dict:
+        p = self.params[group[0]]
+        f32 = dict(dtype=torch.float32, device=p.device)
+        shape = ((len(group), *p.shape) if stacked
+                 else _reference_layout(p).shape)
+        if len(shape) >= 2:
+            return {"r": torch.zeros(shape[:-1], **f32),
+                    "c": torch.zeros(shape[:-2] + shape[-1:], **f32)}
+        return {"v": torch.zeros(shape, **f32)}
+
+    def shard_over(self, ctx, specs: list[tuple]) -> None:
+        """Reduce over ``ctx``'s mesh: ``specs[i]`` is the spec of
+        ``params[i]``, this rank's block (one layer's for a stack)."""
+        if len(specs) != len(self.params):
+            raise ValueError(f"{len(specs)} specs for {len(self.params)} "
+                             "parameters")
+        self._ctx, self._specs = ctx, [tuple(sp) for sp in specs]
+
+    # -- reductions over the mesh ------------------------------------------
+
+    def _axes(self, i: int, dims) -> tuple[str, ...]:
+        """The mesh axes of more than one rank that ``params[i]``'s
+        ``dims`` are sharded over, in mesh order."""
+        if self._specs is None:
+            return ()
+        ndim = self.params[i].dim()
+        spec = self._specs[i] + (None,) * ndim
+        ctx = self._ctx
+        used = {a for d in dims for a in entry_axes(spec[d % ndim])}
+        return tuple(a for a in ctx.axis_names
+                     if a in used and ctx.axis_size(a) > 1)
+
+    def _span(self, axes) -> int:
+        return math.prod(self._ctx.axis_size(a) for a in axes)
+
+    def _sum_over(self, x: torch.Tensor, axes) -> torch.Tensor:
+        if axes:
+            x = x.contiguous()
+            dist.all_reduce(x, group=self._ctx.group_for(axes))
+        return x
+
+    def _mean(self, x: torch.Tensor, dim: int | None, axes) -> torch.Tensor:
+        """``x.mean(dim)`` over the global tensor whose block along ``dim``
+        (every dim: None) is sharded over ``axes``."""
+        if not axes:
+            return x.mean() if dim is None else x.mean(dim=dim)
+        n = (x.numel() if dim is None else x.shape[dim]) * self._span(axes)
+        return self._sum_over(x.sum() if dim is None else x.sum(dim=dim),
+                              axes) / n
+
+    # -- the update ----------------------------------------------------------
 
     def _update(self, params, grads, idx, lr) -> None:
         t = self._state["t"]
         t.add_(1)
         beta = 1.0 - torch.pow(t.to(torch.float32), -0.8)
         keep = 1.0 - beta
+        active = set(idx)
+        for (group, stacked), s in zip(self.leaves, self._state["s"]):
+            live = [i in active for i in group]
+            if not any(live):
+                continue
+            if not all(live):
+                raise ValueError("a stack's layers must all have gradients "
+                                 "or none")
+            if not stacked:
+                s = {k: v[None] for k, v in s.items()}
+            self._group(group, s, stacked, beta, keep, lr)
+
+    def _upd(self, i, layer, s, gf=None) -> torch.Tensor:
+        """Layer ``layer``'s unclipped update of a logical leaf (its
+        moments already updated; ``gf`` its float32 gradient, if at
+        hand)."""
         eps = self.eps
-        for i, p, g in zip(idx, params, grads):
-            s = self._state["s"][i]
-            gf = g.float()
-            g2 = gf * gf + eps
-            if p.dim() >= 2:
-                r, c = s["r"], s["c"]
-                g2 = _reference_layout(g2)
-                r.copy_(beta * r + keep * g2.mean(dim=-1))
-                c.copy_(beta * c + keep * g2.mean(dim=-2))
-                rmean = torch.clamp(r.mean(dim=-1, keepdim=True)[..., None],
-                                    min=eps)
-                denom = torch.sqrt(r[..., :, None] * c[..., None, :] / rmean)
-                upd = gf / _port_layout(torch.clamp(denom, min=eps))
-            else:
-                v = s["v"]
+        p = self.params[i]
+        gf = p.grad.float() if gf is None else gf
+        if "v" in s:
+            return gf / (torch.sqrt(s["v"][layer]) + eps)
+        r = s["r"]
+        if p.dim() == 1:                      # a stack of vectors
+            rmean = torch.clamp(r.mean(), min=eps)
+            denom = torch.sqrt(r[layer] * s["c"] / rmean)
+        else:
+            rl = r[layer]
+            rmean = torch.clamp(self._mean(rl, -1, self._axes(i, (-2,)))
+                                [..., None, None], min=eps)
+            denom = torch.sqrt(rl[..., :, None] * s["c"][layer][..., None, :]
+                               / rmean)
+        return gf / _port_layout(torch.clamp(denom, min=eps))
+
+    def _apply(self, p, upd, rms, lr) -> None:
+        upd = upd / torch.clamp(rms / self.clip_threshold, min=1.0)
+        if self.weight_decay:
+            upd = upd + self.weight_decay * p.float()
+        p.copy_((p.float() - lr * upd).to(p.dtype))
+
+    def _group(self, group, s, stacked, beta, keep, lr) -> None:
+        """One logical leaf: the L layers of a stack, or one tensor (a
+        group of one, its state viewed with a leading dim of 1).  One pass
+        updates the moments (a stack of vectors: its shared ``c`` after
+        it) and sums the squared update, one applies it; a tensor of its
+        own keeps its update between them, and its RMS is a ``mean``."""
+        eps = self.eps
+        first = self.params[group[0]]
+        every = self._axes(group[0], range(first.dim()))
+        vectors = first.dim() == 1 and "r" in s
+        csum, sums, upd = None, [], None
+        for layer, i in enumerate(group):
+            gf = self.params[i].grad.float()
+            # The reference layout moves only a conv weight's dims, which
+            # are never sharded.
+            g2 = _reference_layout(gf * gf + eps)
+            if "v" in s:
+                v = s["v"][layer]
                 v.copy_(beta * v + keep * g2)
-                upd = gf / (torch.sqrt(v) + eps)
-            rms = torch.sqrt((upd * upd).mean() + eps)
-            upd = upd / torch.clamp(rms / self.clip_threshold, min=1.0)
-            if self.weight_decay:
-                upd = upd + self.weight_decay * p.float()
-            p.copy_((p.float() - lr * upd).to(p.dtype))
+            else:
+                r = s["r"][layer]
+                r.copy_(beta * r + keep * self._mean(g2, -1,
+                                                     self._axes(i, (-1,))))
+                if vectors:
+                    csum = g2 if csum is None else csum + g2
+                    continue
+                c = s["c"][layer]
+                c.copy_(beta * c + keep * self._mean(g2, -2,
+                                                     self._axes(i, (-2,))))
+            upd = self._upd(i, layer, s, gf)
+            if stacked:
+                sums.append((upd * upd).sum())
+        if not stacked:
+            rms = torch.sqrt(self._mean(upd * upd, None, every) + eps)
+            self._apply(first, upd, rms, lr)
+            return
+        if vectors:
+            s["c"].copy_(beta * s["c"] + keep * (csum / len(group)))
+            for layer, i in enumerate(group):
+                upd = self._upd(i, layer, s)
+                sums.append((upd * upd).sum())
+        n = len(group) * first.numel() * self._span(every)
+        rms = torch.sqrt(self._sum_over(torch.stack(sums).sum(), every) / n
+                         + eps)
+        for layer, i in enumerate(group):
+            self._apply(self.params[i], self._upd(i, layer, s), rms, lr)
 
 
 OPTIMIZERS = {"sgd": SGD, "adamw": AdamW, "rmsprop": RMSProp,

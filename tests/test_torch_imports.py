@@ -51,7 +51,9 @@ def test_every_module_imports_without_jax_or_repro():
         "assert not bad, bad\n"
         "assert len(names) >= 20, names\n"
         "assert {'repro_torch.launch.train', 'repro_torch.launch.mesh',\n"
-        "        'repro_torch.launch.roofline_model'} <= set(names), names\n")
+        "        'repro_torch.launch.roofline_model',\n"
+        "        'repro_torch.launch.dryrun',\n"
+        "        'repro_torch.launch.hlo_analysis'} <= set(names), names\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -60,7 +62,8 @@ def test_every_module_imports_without_jax_or_repro():
 
 
 def test_sources_name_no_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("torch_*.py")))
     assert len(files) >= 20
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

@@ -38,8 +38,8 @@ shards:
   every rank reports the same loss.
 
 A world of one runs every model at (1, 1) (the MoE in both layouts): bit
-for bit the port without a context.  Only ``remat_policy`` ``"dots"``
-raises (ROADMAP A.9(d)).  Serving on the mesh is
+for bit the port without a context, and so does ``remat_policy``
+``"dots"`` on a (1, 1) stand-in.  Serving on the mesh is
 ``tests/test_torch_mesh_serve.py``.
 """
 from __future__ import annotations
@@ -402,16 +402,33 @@ def test_unit_mesh_is_one_device_bit_for_bit(worlds, arch):
 
 
 def test_sequence_parallel_kv_and_dots_raise():
-    """Of the two refusals this test held, only ``remat_policy`` "dots"
-    is left (ROADMAP A.9(d)): ``seq_parallel_kv`` decodes
-    (``tests/test_torch_mesh_serve.py``)."""
+    """Neither refusal this test held is left: ``seq_parallel_kv`` decodes
+    (``tests/test_torch_mesh_serve.py``) and ``remat_policy`` "dots"
+    trains.  ``dense-d`` on a (1, 1) stand-in mesh under "dots": the loss,
+    the per-sample metrics and every gradient bit for bit the port's
+    without a context (``tests/test_torch_remat.py`` holds the policies
+    to each other)."""
     stub = types.SimpleNamespace(shape={"data": 1, "model": 1},
                                  axis_names=("data", "model"))
     cfg = ArchConfig(**DENSE)
-    model = build_model(cfg, ParallelCtx(mesh=stub, remat=True,
-                                         remat_policy="dots"), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"A\.9\(d\)"):
-        model.loss_and_metrics({}, {})
+    init = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v)
+             for k, v in sc.random_batch(cfg, B, S).items()}
+    got = []
+    for ctx in (ParallelCtx(mesh=stub, remat=True, remat_policy="dots"),
+                None):
+        model = build_model(cfg, ctx, device="cpu")
+        local = model.shard(init)
+        leaves = [t.requires_grad_(True) for _, t in flatten(local)]
+        loss, metrics = model.loss_and_metrics(local, batch)
+        loss.backward()
+        got.append((loss.detach(), metrics, [t.grad for t in leaves]))
+    (la, ma, ga), (lb, mb, gb) = got
+    assert torch.equal(la, lb)
+    assert all(torch.equal(a, b) for a, b in zip(ma, mb))
+    assert len(ga) == len(gb) and all(torch.equal(a, b)
+                                      for a, b in zip(ga, gb))
 
 
 def test_local_kv_heads_of_replicated_kv():

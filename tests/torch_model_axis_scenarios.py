@@ -141,3 +141,55 @@ def unit_world(rank: int, world: int, cases: list) -> dict:
                 np.array_equal(a["grads"][k], b["grads"][k])
                 for k in a["grads"])}
     return out
+
+
+def recorded_step(cfg, ctx, params: dict, batch: dict) -> list:
+    """One LR-0 step of ``make_train_step`` with ``optimizer_for``'s
+    optimizer on ``ctx``'s shards: the collectives it issued, each as
+    (kind, operand shape, dtype, group size)."""
+    from repro_torch.launch.hlo_analysis import record_collectives
+    from repro_torch.launch.train import optimizer_for
+    model = build_model(cfg, ctx, device="cpu")
+    local = transformer.params_from_jax(params, shard=model)
+    for t in flatten(local):
+        t[1].requires_grad_(True)
+    step = make_train_step(model, optimizer_for(cfg, local))
+    with record_collectives() as record:
+        step(local, _batch(batch), 0.0)
+    return [(c.kind, c.operand_shape, c.dtype, c.group_size) for c in record]
+
+
+def adafactor_steps(cfg, ctx, params: dict, batch: dict, steps: int = 3,
+                    lr: float = 1e-2) -> dict:
+    """``steps`` steps of ``make_train_step`` with ``optimizer_for``'s
+    Adafactor on ``ctx``'s shards (None: one device) from ``params``:
+    every leaf after them, whole, as numpy, by ``flatten``'s path."""
+    from repro_torch.launch.train import optimizer_for
+    model = build_model(cfg, ctx, device="cpu")
+    local = transformer.params_from_jax(params, shard=model)
+    for t in flatten(local):
+        t[1].requires_grad_(True)
+    step = make_train_step(model, optimizer_for(cfg, local))
+    losses = [float(step(local, _batch(batch), lr)[0]) for _ in range(steps)]
+    with torch.no_grad():
+        whole = model.gather(local)
+    return {"losses": losses,
+            "params": {k: v.detach().numpy() for k, v in flatten(whole)}}
+
+
+def dryrun_world(rank: int, world: int, cases: list) -> dict:
+    """Each ``(name, what, cfg, params, batch, mesh shape, build_ctx
+    kwargs)`` in order, ``what`` ``"collectives"`` (``recorded_step``) or
+    ``"adafactor"`` (``adafactor_steps``, its LR the kwargs' ``lr``);
+    ``{name: its record}``."""
+    torch.set_num_threads(1)
+    out, meshes = {}, {}
+    run = {"collectives": recorded_step, "adafactor": adafactor_steps}
+    for name, what, cfg, params, batch, shape, kw in cases:
+        if shape not in meshes:
+            meshes[shape] = make_data_model_mesh(*shape)
+        kw = dict(kw)
+        extra = {"lr": kw.pop("lr")} if "lr" in kw else {}
+        ctx = build_ctx(cfg, meshes[shape], **kw)
+        out[name] = run[what](cfg, ctx, params, batch, **extra)
+    return out
