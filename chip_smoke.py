@@ -6,6 +6,7 @@
     python3 chip_smoke.py --encdec-lr-witness
     python3 chip_smoke.py --model-axis
     python3 chip_smoke.py --dry-run
+    python3 chip_smoke.py --samplers
 
 Phases, each printed as one JSON line; any failure exits non-zero:
 
@@ -82,7 +83,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    materialize and captures, replays, the plan's copy, the epoch-end
    fetch; both: plan, refresh, ``evaluate``);
 8. engines: the host loop and the scanned engine from the same weights,
-   2 KAKURENBO epochs of the main path (phase 20 holds 3 under the
+   at N = 12,800 (``CHECK_N``: the time limit), 2 KAKURENBO epochs of
+   the main path (phase 20 holds 3 under the
    mesh; the time limit) and one epoch of each Table 2
    strategy, under the trainer's defaults (it runs its epochs with
    ``cudnn.deterministic``; the script sets no flag): losses, plans and
@@ -91,7 +93,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    first capture of an unweighted and of a weighted block, with their
    warm-up blocks, leaves a fresh trainer's state as it was, bit for bit
    (as in phase 14 for smollm-135m);
-9. restart: KAKURENBO and SB under the scanned engine crash before epoch 2
+9. restart (N = 12,800): KAKURENBO and SB under the scanned engine crash
+   before epoch 2
    and between two blocks of epoch 2; each restore into a trainer built
    from other weights and seeds ends bit-identical to the uninterrupted run;
 10. resilience, on the main path with the numeric guard
@@ -107,7 +110,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    run for the seven Table 2 strategies (scanned), Grad-Match at N =
    1,024 and KAKURENBO on the host loop, with the recovery's times; the
    host-observe path bit-identical to the fused one; AdamW, RMSProp and
-   Adafactor, one epoch, scanned = host loop.  Its launch counts, set to 0
+   Adafactor, one epoch, scanned = host loop (the crashes and the
+   optimizers at N = 12,800).  Its launch counts, set to 0
    before it, must hold B1 (forward and backward), the histogram-select
    and the rank-select (FORGET's prune);
 11. table 3: ``repro_torch.experiments.table3`` at full width, N = 1,024,
@@ -246,7 +250,15 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    (prefill of 2 x 256, 8 greedy steps) with the logits within 1e-5 of
    their max of one device's and the same tokens, and again under
    ``seq_parallel_kv`` (the cache's sequence over the model axis) within
-   1e-5 of the decode without it.
+   1e-5 of the decode without it.  A batch of 1, which divides no data
+   axis (every data rank takes it whole, as the reference's spec guard
+   replicates it): mamba2-130m at full depth and hymba-1.5b at 4 layers
+   served from a prompt of 2,048 with 32 greedy tokens (logits within
+   1e-5 of one device's, the same tokens, the cache whole on each rank)
+   and, at 4 layers, one SGD step at LR 0 on 1 x 256 with FSDP (loss and
+   per-sample loss within 1e-5, every gradient within 1e-4 of the leaf's
+   max: the data ranks' summed shares are one device's gradient); the
+   SSMs' ``a_log`` at U[0, 1) (``ssm_decay_control``).
 22. dry run (after phase 21, ``phase_dry_run``): qwen3-1.7b at full width
    and 28 layers, one AdamW step of 2 x 256 tokens on a (1, 1) mesh under
    NCCL with no remat, ``remat_policy`` ``"nothing"`` and ``"dots"``: the
@@ -264,7 +276,23 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    within 1e-4 of their max), with reduced qwen3's float32 and float64
    twins on the host's CPU (the float64 whole step within 1e-5); and
    ``python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape
-   train_4k --extrapolate`` on this host: status ``ok``, its seconds.
+   train_4k --extrapolate`` on this host: status ``ok``, its seconds; the
+   ``long_500k`` cells (batch 1 over 16 data ranks, replicated) of
+   hymba-1.5b and mamba2-130m on both production meshes ``ok``, and
+   internlm2-20b ``train_4k``'s probes' own FSDP decisions.
+23. samplers (after phase 5, ``phase_samplers``): the reference's
+   low-level sampler API at N = 1,281,167: ``ISWRSampler``,
+   ``ForgetSampler`` (warmup 1), ``InfoBatchSampler``,
+   ``KakurenboSampler`` (``"histogram_pallas"`` + DropTop 0.02) and
+   ``GradMatchSampler`` on the card and on the CPU from the same state and
+   the card's draws, an observation of N/2 ids (with repeats) before each
+   of 3 ``begin_epoch``s: indices, masks, pruned sets and InfoBatch's
+   weights bit for bit, ISWR's probabilities within 1e-6 relative and
+   its draws the CPU's inverse CDF over the card's probabilities, the
+   FORGET prune the stable-sort rank window through the rank-select
+   (launch counted); Grad-Match with a host reselection at N = 1,024;
+   ``SelectiveBackprop`` card = CPU over 8 batches; each card
+   ``begin_epoch``'s call ms beside the card's name and power limit.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -283,7 +311,8 @@ CPU run from weights changed by 1e-7.  ``--encdec-lr-witness`` runs phases
 through the kernels and through their plain versions (on the card), and
 through the kernels at 2 + 2 layers: per epoch loss and F*, how far the
 predictions depend on the input, beside the corpus' unigram loss.
-``--model-axis`` runs phases 1-2 and then phase 21 alone; ``--dry-run``
+``--model-axis`` runs phases 1-2 and then phase 21 alone, ``--samplers``
+phase 23 alone; ``--dry-run``
 phases 1-2 and then phase 22 alone (its Adafactor steps in the gloo world
 run inside phase 21's world, so not under ``--dry-run``).
 Without a CUDA device, or without the
@@ -1385,6 +1414,226 @@ def radix_plans(dev, st, st_cpu, perm, reps: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The low-level sampler API (phase 23)
+
+#: The samplers phase's epochs (``begin_epoch`` calls, observations
+#: between) and the share of N each epoch observes (ids drawn with
+#: repeats, as ISWR's draws repeat them).
+SAMPLER_EPOCHS = 3
+SAMPLER_OBSERVED = 0.5
+#: Grad-Match's reselection runs on the host (its OMP is quartic in a
+#: class's size): at Table 3's N, with 10 classes of 16-d features.
+SAMPLER_GM_N = 1024
+
+
+def smi_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit``'s line ("" without
+    one)."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return ""
+
+
+def recorded_draws(card, host, names: tuple[str, ...]) -> None:
+    """``card``'s ``draw_*`` methods record what they draw; ``host``'s
+    take the same numbers, copied to its device, in the same order."""
+    import collections as col
+    queue = col.deque()
+    for name in names:
+        def drawn(*a, _f=getattr(card, name)):
+            out = _f(*a)
+            queue.append(out)
+            return out
+        setattr(card, name, drawn)
+        setattr(host, name, lambda *a: queue.popleft().cpu())
+
+
+def sampler_observations(n: int, epochs: int, seed: int = 7) -> list:
+    """Per epoch ``SAMPLER_OBSERVED * n`` ids with repeats and their
+    (loss, PA, PC), as numpy."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    b = int(SAMPLER_OBSERVED * n)
+    return [(r.integers(0, n, b).astype(np.int64),
+             r.exponential(size=b).astype(np.float32), r.random(b) < 0.7,
+             r.random(b).astype(np.float32)) for _ in range(epochs)]
+
+
+def phase_samplers(dev, n: int = 1_281_167) -> collections.Counter:
+    """The reference's low-level sampler API at ImageNet-1K's N:
+    ``ISWRSampler``, ``ForgetSampler`` (warmup 1: it prunes at epoch 1
+    through the rank-select), ``InfoBatchSampler``, ``KakurenboSampler``
+    (``"histogram_pallas"`` + DropTop 0.02: the histogram-select) and
+    ``GradMatchSampler`` (at N and, with a reselection, at
+    ``SAMPLER_GM_N``) on the card and on the CPU (the plain versions),
+    from the same state and the card's draws (``recorded_draws``), an
+    observation before each of ``SAMPLER_EPOCHS`` ``begin_epoch``s and
+    after the last: the indices, masks, pruned sets and InfoBatch's
+    weights bit for bit; ISWR's probabilities within 1e-6 relative and
+    its draws equal to the CPU's inverse CDF over the card's
+    probabilities (its own draws' differences counted); the prune mask
+    the stable-sort rank window, with the rank-select launched; and
+    ``SelectiveBackprop`` on the card and the CPU, whose counter draws are
+    the same on both, over 8 batches of 1,024.  Each card
+    ``begin_epoch``'s call ms beside the card's name and power limit."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (ForgetConfig, ForgetSampler,
+                                  GradMatchConfig, GradMatchSampler,
+                                  InfoBatchConfig, InfoBatchSampler,
+                                  ISWRSampler, KakurenboConfig,
+                                  KakurenboSampler, SBConfig,
+                                  SelectiveBackprop, planops)
+    from repro_torch.kernels import backend
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    epochs = SAMPLER_EPOCHS
+    obs = sampler_observations(n, epochs + 1)
+    makers = {
+        "iswr": (lambda d: ISWRSampler(n, seed=0, device=d), ("draw_uniform",)),
+        "forget": (lambda d: ForgetSampler(n, ForgetConfig(0.3, 1), seed=0,
+                                           device=d), ("draw_permutation",)),
+        "infobatch": (lambda d: InfoBatchSampler(
+            n, InfoBatchConfig(total_epochs=epochs + 1), seed=0, device=d),
+            ("draw_uniform", "draw_permutation")),
+        "kakurenbo": (lambda d: KakurenboSampler(n, KakurenboConfig(
+            selection="histogram_pallas", drop_top_fraction=0.02), seed=0,
+            device=d), ("draw_permutation",)),
+        "gradmatch": (lambda d: GradMatchSampler(n, 10, seed=0, device=d),
+                      ("draw_permutation",))}
+    row = {"phase": "samplers", "n": n, "epochs": epochs,
+           "nvidia_smi": smi_line(), "samplers": {}}
+    launches = collections.Counter()
+    fails = []
+
+    def observe(s, e):
+        idx, loss, pa, pc = obs[e]
+        s.observe(idx, torch.from_numpy(loss).to(s.device),
+                  torch.from_numpy(pa).to(s.device),
+                  torch.from_numpy(pc).to(s.device), e)
+
+    for name, (make, draws) in makers.items():
+        card, host = make(dev), make(cpu)
+        recorded_draws(card, host, draws)
+        rec = {"begin_epoch_ms": [], "equal": []}
+        backend.reset_launches()
+        for e in range(epochs):
+            if name != "gradmatch":
+                observe(card, e)
+                observe(host, e)
+            sync(dev)
+            t1 = time.perf_counter()
+            got = card.begin_epoch() if name == "gradmatch" \
+                else card.begin_epoch(e)
+            sync(dev)
+            rec["begin_epoch_ms"].append((time.perf_counter() - t1) * 1e3)
+            want = host.begin_epoch() if name == "gradmatch" \
+                else host.begin_epoch(e)
+            if name == "iswr":
+                p, q = card.probs.cpu().double(), host.probs.double()
+                rel = float(((p - q).abs() / q).max())
+                u = planops.uniform(torch.Generator(device=dev).manual_seed(e),
+                                    n)
+                rec.setdefault("probs_rel_err", []).append(rel)
+                rec.setdefault("draws_differing", []).append(
+                    int((torch.from_numpy(got) != torch.from_numpy(want))
+                        .sum()))
+                # Given equal probabilities the draws are equal: the CPU's
+                # inverse CDF over the card's probabilities and uniforms.
+                same = torch.equal(
+                    planops.with_replacement(card.probs.cpu(), u.cpu()),
+                    planops.with_replacement(card.probs, u).cpu())
+                ok = rel <= 1e-6 and same
+            elif name == "forget":
+                ok = (np.array_equal(got, want)
+                      and torch.equal(card.pruned_mask.cpu(), host.pruned_mask)
+                      and card.should_restart == host.should_restart)
+                if e == 1:
+                    st = card.state
+                    scores = torch.where(st.pa | (st.forget_events > 0),
+                                         st.forget_events.float(), torch.inf)
+                    k = int(math.floor(0.3 * n))
+                    window = planops.stable_rank_order(scores) < k
+                    ok = ok and card.should_restart and torch.equal(
+                        card.pruned_mask, window) and int(
+                        card.pruned_mask.sum()) == k
+                    rec["pruned"] = int(card.pruned_mask.sum())
+            elif name == "infobatch":
+                ok = (np.array_equal(got[0], want[0])
+                      and np.array_equal(got[1], want[1])
+                      and card.weights.tobytes() == host.weights.tobytes())
+                rec.setdefault("pruned", []).append(len(got[1]))
+            elif name == "kakurenbo":
+                ok = all(np.array_equal(getattr(got, f), getattr(want, f))
+                         for f in ("visible_indices", "hidden_indices",
+                                   "moveback_indices")) and (
+                    got.hidden_fraction, got.lr_scale) == (
+                    want.hidden_fraction, want.lr_scale)
+                rec.setdefault("hidden", []).append(len(got.hidden_indices))
+            else:
+                ok = np.array_equal(got, want)
+            rec["equal"].append(bool(ok))
+            if not ok:
+                fails.append(f"{name} epoch {e}")
+        if name != "gradmatch":
+            observe(card, epochs)
+            observe(host, epochs)
+        rec["launches"] = dict(backend.LAUNCHES)
+        launches.update(backend.LAUNCHES)
+        row["samplers"][name] = rec
+        del card, host
+    # Grad-Match with a reselection (host OMP) at Table 3's N.
+    r = np.random.default_rng(8)
+    feats = r.normal(size=(SAMPLER_GM_N, 16)).astype(np.float32)
+    labels = np.arange(SAMPLER_GM_N) % 10
+    cfg = GradMatchConfig(interval=2)
+    card = GradMatchSampler(SAMPLER_GM_N, 10, cfg, seed=0, device=dev)
+    host = GradMatchSampler(SAMPLER_GM_N, 10, cfg, seed=0, device=cpu)
+    recorded_draws(card, host, ("draw_permutation",))
+    gm = {"n": SAMPLER_GM_N, "equal": []}
+    for e in range(epochs):
+        f = feats + np.float32(0.05 * e) * r.normal(size=feats.shape).astype(
+            np.float32)
+        card.maybe_reselect(e, f, labels)
+        host.maybe_reselect(e, f, labels)
+        ok = (card.subset.tobytes() == host.subset.tobytes()
+              and card.weights.tobytes() == host.weights.tobytes()
+              and np.array_equal(card.begin_epoch(), host.begin_epoch()))
+        gm["equal"].append(bool(ok))
+        if not ok:
+            fails.append(f"gradmatch (N={SAMPLER_GM_N}) epoch {e}")
+    gm["subset"], gm["omp_seconds"] = len(card.subset), card.omp_seconds
+    row["samplers"]["gradmatch_reselect"] = gm
+    # SelectiveBackprop: counter draws, the same numbers on both devices.
+    losses = np.random.default_rng(9).exponential(size=(8, 1024)).astype(
+        np.float32)
+    masks = [[s.select(x) for x in losses]
+             for s in (SelectiveBackprop(SBConfig(), seed=0, device=d)
+                       for d in (dev, cpu))]
+    ok = all(np.array_equal(a, b) for a, b in zip(*masks))
+    row["samplers"]["selective_backprop"] = {
+        "equal": ok, "kept": [float(m.mean()) for m in masks[0]]}
+    if not ok:
+        fails.append("selective_backprop")
+    row["launches"] = dict(launches)
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    require(not fails, f"samplers: card and CPU differ: {fails}")
+    if dev.type == "cuda":
+        require(row["samplers"]["forget"]["launches"].get("rank_select", 0)
+                > 0, "samplers: FORGET's prune never launched rank_select")
+        require(row["samplers"]["kakurenbo"]["launches"].get(
+            "histogram_select", 0) >= epochs,
+                "samplers: KAKURENBO's plans launched histogram_select "
+                f"{row['samplers']['kakurenbo']['launches']}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Training: the main path
 # ---------------------------------------------------------------------------
 
@@ -2141,6 +2390,11 @@ def restart_runs(trainer, root) -> dict:
 
 #: The poisoned samples of the resilience phase (NaN features).
 POISON_IDS = (7, 4_242, 31_337, 49_999)
+#: The main path's N in the phases that hold two runs of it to each other
+#: bit for bit (engines, restart, the supervised crashes and the
+#: optimizers): 100 batches of 128 where the train phase has 50,000 (the
+#: time limit; the contracts do not depend on N).
+CHECK_N = 12_800
 #: The reference's budget for the guard's cost on the scanned engine
 #: (benchmarks/step_throughput.py::guard_main).
 GUARD_BUDGET = 0.03
@@ -2253,13 +2507,14 @@ def supervised_crash(trainer, epochs: int, root, split_dev=None) -> dict:
 
 
 def phase_resilience(dev, n: int = 50_000, epochs: int = 2,
-                     guard_epochs: int = 2) -> dict:
+                     guard_epochs: int = 2, crash_n: int = CHECK_N) -> dict:
     """The resilient runtime on the main path (paper CNN, full width,
     ``SyntheticClassification(50_000)``, KAKURENBO ``"histogram_pallas"`` +
     DropTop 0.02, fused scoring), under the trainer's defaults (no cuDNN
     flag set here); the guard's, the host-observe path's and the poisoned
     runs over ``guard_epochs`` and the crash recoveries over ``epochs`` (2
-    each: the time limit):
+    each: the time limit), the crash recoveries and the optimizers at
+    ``crash_n`` samples:
 
     - the guard (``skip_update``) on a clean run, scanned and host loop:
       losses, plans and the whole train state bit-identical to the
@@ -2295,7 +2550,8 @@ def phase_resilience(dev, n: int = 50_000, epochs: int = 2,
     t_phase = time.perf_counter()
     root = ROOT / "build" / "chip_smoke_chaos"
     out = {"phase": "resilience", "model": CONFIG.name, "n": n,
-           "epochs": epochs, "guard_epochs": guard_epochs}
+           "crash_n": crash_n, "epochs": epochs,
+           "guard_epochs": guard_epochs}
 
     def model(seed=0):
         return CNN(CONFIG, torch.Generator().manual_seed(seed))
@@ -2435,7 +2691,7 @@ def phase_resilience(dev, n: int = 50_000, epochs: int = 2,
     for strategy in table2.STRATEGIES:
         def trainer(d, strategy=strategy):
             return main_trainer(
-                dev, strategy, n, 0, epochs, model(), engine="scan",
+                dev, strategy, crash_n, 0, epochs, model(), engine="scan",
                 guard_policy="skip_update",
                 forget=ForgetConfig(fraction=0.3, warmup_epochs=epochs - 1),
                 checkpoint_dir=str(d) if d else None,
@@ -2454,7 +2710,7 @@ def phase_resilience(dev, n: int = 50_000, epochs: int = 2,
         gm_trainer, epochs, root / "gradmatch", dev)
 
     def host_trainer(d):
-        return main_trainer(dev, "kakurenbo", n, 0, epochs, model(),
+        return main_trainer(dev, "kakurenbo", crash_n, 0, epochs, model(),
                             engine="host", guard_policy="skip_update",
                             checkpoint_dir=str(d) if d else None,
                             checkpoint_every=1 if d else 0)
@@ -2470,8 +2726,9 @@ def phase_resilience(dev, n: int = 50_000, epochs: int = 2,
     for name in ("adamw", "rmsprop", "adafactor"):
         got = {}
         for engine in ("scan", "host"):
-            tr = main_trainer(dev, "kakurenbo", n, 0, 1, model(), lr=1e-3,
-                              engine=engine, optimizer=name, optimizer_hp={})
+            tr = main_trainer(dev, "kakurenbo", crash_n, 0, 1, model(),
+                              lr=1e-3, engine=engine, optimizer=name,
+                              optimizer_hp={})
             hist = tr.run()
             got[engine] = (hist[0].train_loss, train_state(tr), tr.engine.name,
                            hist[0].wall_time, finite(tr))
@@ -2659,7 +2916,10 @@ def attention_fan_in(params: dict, cfg) -> dict:
     fan-in (d_model for wq, wk, wv; H.Dh for wo) the same draws give a
     model whose logits agree to ~1e-5 at any depth, so a comparison of two
     paths through it can tell right from wrong.  The encoder-decoder's
-    self-attention in both stacks and its cross-attention alike."""
+    self-attention in both stacks and its cross-attention alike.  A model
+    without attention (mamba2) is returned as it is."""
+    if not cfg.num_heads:
+        return params
     dh = cfg.resolved_head_dim
     blocks = ([params["layers"]["attn"]] if "layers" in params else
               [params["enc_layers"]["attn"], params["dec_layers"]["attn"],
@@ -4790,6 +5050,14 @@ AXIS_SERVE = (("qwen3-1.7b", None), ("phi3.5-moe-42b-a6.6b", 2),
               ("mamba2-130m", None))
 #: Greedy decode steps after each served prefill.
 AXIS_GEN = 8
+#: A batch of 1 in the gloo world: it divides no data axis of 2, so every
+#: data rank takes it whole, as the reference's spec guard replicates it.
+#: (arch, cut depth or None: full), served from a prompt of
+#: ``AXIS_B1_PROMPT`` tokens with ``AXIS_B1_GEN`` greedy tokens (hymba at
+#: the depth the world serves qwen3 at), and one train step on 1 x
+#: ``AXIS_SEQ`` at the world's training depth, ``AXIS_LAYERS``.
+AXIS_B1 = (("mamba2-130m", None), ("hymba-1.5b", AXIS_LAYERS))
+AXIS_B1_PROMPT, AXIS_B1_GEN = 2048, 32
 
 
 def axis_cfg(arch: str, full: bool, layers: int | None = None):
@@ -4815,6 +5083,13 @@ def axis_step(cfg, ctx, params: dict, batch: dict, dev, lr: float = 0.0,
         model, optimizer_for(cfg, leaves) if adamw else SGD(leaves))
     loss, metrics = step(local, batch, lr)
     return loss, metrics, local, model, step
+
+
+def b1_prompt(dev, full: bool) -> dict:
+    """The batch-1 prompt: ``AXIS_B1_PROMPT`` tokens of the example's
+    corpus (``AXIS_SEQ`` reduced)."""
+    return {"tokens": lm_batch(dev, 1, AXIS_B1_PROMPT if full
+                               else AXIS_SEQ)["tokens"]}
 
 
 def axis_family_batch(dev, cfg, n: int) -> dict:
@@ -4998,6 +5273,21 @@ def packed(tensors: list) -> dict:
             "shapes": [tuple(t.shape) for t in tensors]}
 
 
+def shared(tree):
+    """``tree`` (nested dicts) with each numpy array a CPU tensor: the
+    spawned ranks then receive it through shared memory, not inside the
+    pickled arguments.  A spawning parent writes those arguments into a
+    pipe that a rank reads while it imports torch, so large ones start the
+    ranks one after another."""
+    import numpy as np
+    import torch
+    if isinstance(tree, dict):
+        return {k: shared(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(tree))
+    return tree
+
+
 def unpacked(pack: dict) -> list:
     """``packed``'s tensors, views of its flat one."""
     sizes = [math.prod(s) for s in pack["shapes"]]
@@ -5007,18 +5297,37 @@ def unpacked(pack: dict) -> list:
 
 def axis_params(cfg, dev, dtype: str = "float32") -> dict:
     """The seed-0 draws of ``cfg`` on ``dev`` with every attention at its
-    input's fan-in (``attention_fan_in``): the gloo world's comparisons
-    across orders of float32 sums (at the reference's init seamless-m4t's
-    gradients part by ~1e-3 of their max between two correct orders);
-    in ``dtype``, the float32 draws cast."""
+    input's fan-in (``attention_fan_in``) and every SSM's ``a_log``
+    U[0, 1) (``ssm_decay_control``): the gloo world's comparisons across
+    orders of float32 sums (at the reference's init seamless-m4t's
+    gradients part by ~1e-3 of their max between two correct orders, and
+    mamba2's served logits at 24 layers by 2.6e-5 of their max); in
+    ``dtype``, the float32 draws cast."""
     import torch
     from repro_torch.dist.sharding import map_specs
     from repro_torch.models.model import build_model
-    params = attention_fan_in(build_model(cfg, device=dev).init(
-        torch.Generator(device=dev).manual_seed(0)), cfg)
+    params = ssm_decay_control(attention_fan_in(build_model(
+        cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0)),
+        cfg), dev)
     if dtype == "float32":
         return params
     return map_specs(lambda t: t.to(getattr(torch, dtype)), params)
+
+
+def ssm_decay_control(params: dict, dev) -> dict:
+    """Set, in place, every SSM layer's ``a_log`` to U[0, 1) draws (seed
+    1 on ``dev``), the CPU tests' control (``tests/
+    test_torch_mesh_serve.py::_params``): at the reference's init (log of
+    U[1, 16]) the decay within a chunk reaches about -1e3, where float32
+    sums in two correct orders part (ROADMAP C); the same draws on every
+    rank of the card.  A tree without an SSM is returned as it is."""
+    import torch
+    ssm = params.get("layers", {}).get("ssm")
+    if ssm is not None:
+        a = ssm["a_log"]
+        a.copy_(torch.rand(a.shape, generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev, dtype=a.dtype))
+    return params
 
 
 def host_or(dev, host: bool):
@@ -5091,6 +5400,26 @@ def axis_expectations(dev, full: bool) -> dict:
                      "tokens": got["tokens"].cpu().numpy()}
     del params, got
     free_memory()
+    for arch, layers in AXIS_B1:
+        cfg = axis_cfg(arch, full, layers)
+        params = axis_params(cfg, dev)
+        prompt = b1_prompt(dev, full)
+        got = axis_greedy(cfg, None, params, prompt, dev,
+                          prompt["tokens"].shape[1] + AXIS_B1_GEN,
+                          AXIS_B1_GEN)
+        del params
+        free_memory()
+        cfg = axis_cfg(arch, full, AXIS_LAYERS)
+        params = axis_params(cfg, dev)
+        loss, (lv, _, _), local, _, _ = axis_step(
+            cfg, None, params, lm_batch(dev, 1, AXIS_SEQ), dev)
+        want[("b1", arch)] = {
+            "logits": got["logits"].cpu().numpy(),
+            "tokens": got["tokens"].cpu().numpy(), "loss": float(loss),
+            "lv": lv.detach().cpu().numpy(),
+            "grads": packed([t.grad for _, t in flatten(local)])}
+        del params, got, local, _
+        free_memory()
     for arch, layers, width, host, dtype in ADAFACTOR_WORLD:
         want[("adafactor", arch, width, host, dtype)] = adafactor_expectation(
             host_or(dev, host), arch, layers, width and full, dtype)
@@ -5136,7 +5465,7 @@ def axis_world_family(dev, rank: int, mesh, arch: str, layers: int,
               for t, g, sp in zip(leaves, unpacked(want["grads"]),
                                   model.leaf_specs(local)))
     errs = torch.tensor([err, abs(float(loss) - want["loss"]),
-                         float((lv.cpu() - torch.from_numpy(want["lv"]))
+                         float((lv.cpu() - torch.as_tensor(want["lv"]))
                                .abs().max())], device=dev)
     torch.distributed.all_reduce(errs, op=torch.distributed.ReduceOp.MAX)
     out = {"arch": cfg.name, "layers": cfg.num_layers, "layout": layout,
@@ -5170,7 +5499,7 @@ def axis_world_serve(dev, rank: int, mesh, want: dict, full: bool) -> dict:
     cfg = axis_cfg("qwen3-1.7b", full, AXIS_LAYERS)
     batch = {"tokens": lm_batch(dev, 2, AXIS_SEQ)["tokens"]}
     params = axis_params(cfg, dev)
-    ref = torch.from_numpy(want["logits"])
+    ref = torch.as_tensor(want["logits"])
     scale = float(ref.abs().max())
     out, logits = {}, {}
     for name, sp in (("plain", False), ("seq_parallel_kv", True)):
@@ -5187,7 +5516,7 @@ def axis_world_serve(dev, rank: int, mesh, want: dict, full: bool) -> dict:
             "seconds": time.perf_counter() - t0,
             "logits_rel_err": float((logits[name] - ref).abs().max()) / scale,
             "tokens_equal": bool(np.array_equal(got["tokens"].cpu().numpy(),
-                                                want["tokens"])),
+                                                np.asarray(want["tokens"]))),
             "local_k": got["local_k"], "collective_bytes": dict(moved),
             "launches": dict(backend.LAUNCHES)}
         del got
@@ -5276,7 +5605,7 @@ def axis_world_arch(dev, rank: int, mesh, arch: str, full: bool,
                 for t, g, sp in zip(leaves, unpacked(ref["grads"]),
                                     model.leaf_specs(local)))
             errs = torch.tensor([err, abs(float(loss) - ref["loss"]),
-                                 float((lv.cpu() - torch.from_numpy(
+                                 float((lv.cpu() - torch.as_tensor(
                                      ref["lv"])).abs().max())],
                                 device=dev)
             torch.distributed.all_reduce(errs,
@@ -5300,6 +5629,86 @@ def axis_world_arch(dev, rank: int, mesh, arch: str, full: bool,
     del local, model, step, leaves
     free_memory()
     return out
+
+
+def axis_world_b1(dev, rank: int, mesh, arch: str, layers: int | None,
+                  want: dict, full: bool) -> dict:
+    """In one rank of the gloo world: a batch of 1 on the (2, 2) mesh,
+    which each data rank takes whole.  ``arch`` at ``layers``
+    (``axis_params``) served with its weights over the model axis only
+    (``axis_greedy`` of ``b1_prompt``, ``AXIS_B1_GEN`` greedy steps): the
+    logits relative to their max against ``want``'s one-device logits,
+    the tokens against one device's, the gathered cache's rows (1:
+    nothing gathered); then at ``AXIS_LAYERS`` one SGD step at LR 0 with
+    FSDP on 1 x ``AXIS_SEQ``: the loss and per-sample loss against one
+    device's and this rank's block of every gradient (the data ranks'
+    shares summed, ``ParallelCtx.dp_share``) relative to the leaf's max
+    |g|.  Each error the max over the ranks."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.kernels import backend
+    from repro_torch.launch.train import build_ctx, make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import SGD
+    cfg = axis_cfg(arch, full, layers)
+    params = axis_params(cfg, dev)
+    prompt = b1_prompt(dev, full)
+    s = prompt["tokens"].shape[1]
+    ctx = build_ctx(cfg, mesh, fsdp=False)
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    got = axis_greedy(cfg, ctx, params, prompt, dev, s + AXIS_B1_GEN,
+                      AXIS_B1_GEN)
+    sync(dev)
+    t1 = time.perf_counter()
+    ref = torch.as_tensor(want["logits"])
+    serve_err = float((got["logits"].cpu() - ref).abs().max()) / float(
+        ref.abs().max())
+    tokens_equal = bool(np.array_equal(got["tokens"].cpu().numpy(),
+                                       np.asarray(want["tokens"])))
+    serve_layers = cfg.num_layers
+    serve = {"seconds": t1 - t0, "split": ctx.splits_batch(1),
+             "cache_rows": sorted({int(v.shape[1]) for k, v in
+                                   got["cache"].items() if k != "len"}),
+             "launches": dict(backend.LAUNCHES)}
+    del got, params
+    free_memory()
+    cfg = axis_cfg(arch, full, AXIS_LAYERS)
+    params = axis_params(cfg, dev)
+    ctx = build_ctx(cfg, mesh, fsdp=True)
+    model = build_model(cfg, ctx, device=dev)
+    local = model.shard(params)
+    del params
+    free_memory()
+    leaves = [t.requires_grad_(True) for _, t in flatten(local)]
+    backend.reset_launches()
+    t2 = time.perf_counter()
+    loss, (lv, _, _) = make_train_step(model, SGD(leaves))(
+        local, lm_batch(dev, 1, AXIS_SEQ), 0.0)
+    sync(dev)
+    t3 = time.perf_counter()
+    err = max(float((t.grad - ctx.local_shard(g, sp)).abs().max())
+              / max(float(g.abs().max()), 1e-30)
+              for t, g, sp in zip(leaves, unpacked(want["grads"]),
+                                  model.leaf_specs(local)))
+    errs = torch.tensor([serve_err, float(not tokens_equal), err,
+                         abs(float(loss) - want["loss"]),
+                         float((lv.detach().cpu()
+                                - torch.as_tensor(want["lv"])).abs().max())],
+                        device=dev)
+    torch.distributed.all_reduce(errs, op=torch.distributed.ReduceOp.MAX)
+    serve.update(logits_rel_err=float(errs[0]),
+                 tokens_equal=bool(errs[1] == 0))
+    train = {"seconds": t3 - t2, "loss": float(loss), "lv": lv.tolist(),
+             "grad_rel_err": float(errs[2]), "loss_err": float(errs[3]),
+             "lv_err": float(errs[4]), "fsdp": ctx.fsdp,
+             "launches": dict(backend.LAUNCHES)}
+    del local, model, leaves
+    free_memory()
+    return {"arch": cfg.name, "serve_layers": serve_layers,
+            "train_layers": cfg.num_layers, "prompt": s, "gen": AXIS_B1_GEN,
+            "mesh": list(AXIS_WORLD), "serve": serve, "train": train}
 
 
 def model_axis_rank(rank: int, world: int, device_type: str, full: bool,
@@ -5327,6 +5736,9 @@ def model_axis_rank(rank: int, world: int, device_type: str, full: bool,
                           want[(arch, lay)], full)
         for arch, layers, layouts in AXIS_FAMILIES for lay in layouts]
     out["serve"] = axis_world_serve(dev, rank, mesh, want["serve"], full)
+    out["batch_one"] = [
+        axis_world_b1(dev, rank, mesh, arch, layers, want[("b1", arch)],
+                      full) for arch, layers in AXIS_B1]
     out["adafactor"] = [
         axis_world_adafactor(host_or(dev, host), rank, mesh, arch, layers,
                              width and full, dtype,
@@ -5391,7 +5803,7 @@ def phase_model_axis(dev, full: bool = True, gloo_device: str = "cuda"
         launches.update(r["launches"])
     row["unit_mesh_seconds"] = time.perf_counter() - t0
     t1 = time.perf_counter()
-    want = axis_expectations(dev, full)
+    want = shared(axis_expectations(dev, full))
     row["expectations_seconds"] = time.perf_counter() - t1
     t1, spawned_at = time.perf_counter(), time.time()
     ranks = mesh_lib.spawn(model_axis_rank, math.prod(AXIS_WORLD), "gloo",
@@ -5413,6 +5825,7 @@ def phase_model_axis(dev, full: bool = True, gloo_device: str = "cuda"
                          "archs": {a: ranks[0][a] for a in AXIS_ARCHS},
                          "families": ranks[0]["families"],
                          "serve": ranks[0]["serve"],
+                         "batch_one": ranks[0]["batch_one"],
                          "adafactor": ranks[0]["adafactor"]}
     for r in ranks:
         for a in AXIS_ARCHS:
@@ -5421,6 +5834,9 @@ def phase_model_axis(dev, full: bool = True, gloo_device: str = "cuda"
             launches.update(f["launches"])
         for name in ("plain", "seq_parallel_kv"):
             launches.update(r["serve"][name]["launches"])
+        for b in r["batch_one"]:
+            launches.update(b["serve"]["launches"])
+            launches.update(b["train"]["launches"])
     row["gloo_world"]["ranks_agree"] = all(
         r[a]["step_losses"] == ranks[0][a]["step_losses"]
         for r in ranks for a in AXIS_ARCHS) and all(
@@ -5510,6 +5926,30 @@ def phase_model_axis(dev, full: bool = True, gloo_device: str = "cuda"
         require(sv[name]["launches"].get("flash_attention", 0) > 0,
                 f"model axis: the mesh prefill ({name}) launched "
                 f"flash_attention {sv[name]['launches']}")
+    b1_kernels = {"mamba2-130m": ("ssd_scan",),
+                  "hymba-1.5b": ("flash_attention", "ssd_scan")}
+    for b in ranks[0]["batch_one"]:
+        sv1, tr1 = b["serve"], b["train"]
+        require(not sv1["split"] and sv1["cache_rows"] == [1],
+                f"model axis: batch 1 of {b['arch']} split over the data "
+                f"ranks: {sv1['split']}, cache rows {sv1['cache_rows']}")
+        require(sv1["logits_rel_err"] <= 1e-5 and sv1["tokens_equal"],
+                f"model axis: batch 1 of {b['arch']} served vs one device "
+                f"{sv1['logits_rel_err']}, tokens equal "
+                f"{sv1['tokens_equal']}")
+        require(tr1["loss_err"] <= 1e-5 and tr1["lv_err"] <= 1e-5
+                and tr1["grad_rel_err"] <= 1e-4,
+                f"model axis: batch 1 of {b['arch']} trained vs one device: "
+                f"loss {tr1['loss_err']}, per-sample {tr1['lv_err']}, "
+                f"gradient {tr1['grad_rel_err']} of its max")
+        for k in b1_kernels[b["arch"]]:
+            require(sv1["launches"].get(k, 0) > 0,
+                    f"model axis: batch 1 of {b['arch']} served, {k} "
+                    f"launched {sv1['launches'].get(k, 0)} times")
+        for k in ("loss_confidence", "loss_confidence_bwd"):
+            require(tr1["launches"].get(k, 0) > 0,
+                    f"model axis: batch 1 of {b['arch']} trained, {k} "
+                    f"launched {tr1['launches'].get(k, 0)} times")
     require(sv["sp_vs_plain_rel_err"] <= 1e-5,
             f"model axis: sequence-parallel decode vs plain "
             f"{sv['sp_vs_plain_rel_err']}")
@@ -5575,6 +6015,32 @@ cfg = get_arch(arch) if full else get_arch(arch).reduced()
 rec = run_cell(cfg, ShapeSpec("card", seq, batch, "train"), mesh_shape=(1, 1),
                dtype=torch.float32)
 print(json.dumps(rec))
+"""
+
+#: Run after ``DRY_RUN_CELL`` in its process (one start and warm-up of
+#: the dry run): the cells of a batch that does not divide the data axes
+#: (``long_500k``, batch 1 over 16 data ranks) on both production meshes,
+#: and internlm2-20b ``train_4k`` by its L = 2 and 4 probes, each deciding
+#: FSDP for its own depth; one JSON line after the cell's.
+DRY_RUN_PROBES = """
+import json, types
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch.dryrun import run_cell, run_cell_extrapolated
+from repro_torch.launch.train import build_ctx
+keys = ("status", "error", "fsdp", "probe_fsdp", "memory", "total_s")
+out = {"long_500k": {}}
+for arch in ("hymba-1.5b", "mamba2-130m"):
+    for mp in (False, True):
+        rec = run_cell(arch, "long_500k", multi_pod=mp)
+        out["long_500k"][arch + " " + rec["mesh"]] = {
+            k: rec.get(k) for k in keys}
+rec = run_cell_extrapolated("internlm2-20b", "train_4k")
+out["internlm2_train_4k"] = {k: rec.get(k) for k in keys}
+mesh = types.SimpleNamespace(shape={"data": 16, "model": 16},
+                             axis_names=("data", "model"))
+out["internlm2_train_4k"]["full_depth_fsdp"] = build_ctx(
+    get_arch("internlm2-20b"), mesh).fsdp
+print(json.dumps(out))
 """
 
 
@@ -5856,7 +6322,12 @@ def phase_dry_run(dev, full: bool = True) -> collections.Counter:
       without a context (phase 21's gloo world holds the sharded update,
       and qwen3-1.7b's at ``AXIS_LAYERS`` layers, against one device);
     - ``python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape
-      train_4k --extrapolate`` on this host: status ``ok``.
+      train_4k --extrapolate`` on this host: status ``ok``;
+    - ``DRY_RUN_PROBES``, after the same step's dry run in its process:
+      the four ``long_500k`` cells (batch 1, replicated over the data
+      axes) ``ok``, and internlm2-20b ``train_4k``'s L = 2 and 4 probes
+      each deciding FSDP for its own depth (no FSDP: under the threshold)
+      where the full depth shards.
 
     The two host processes run while the card works."""
     import os
@@ -5872,7 +6343,7 @@ def phase_dry_run(dev, full: bool = True) -> collections.Counter:
     out_dir = tempfile.mkdtemp(prefix="dryrun_")
     procs = {
         "witness": subprocess.Popen(
-            [sys.executable, "-c", DRY_RUN_CELL,
+            [sys.executable, "-c", DRY_RUN_CELL + DRY_RUN_PROBES,
              json.dumps([REMAT_ARCH, full, REMAT_BATCH, AXIS_SEQ])],
             cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True),
@@ -5926,9 +6397,11 @@ def phase_dry_run(dev, full: bool = True) -> collections.Counter:
     launches.update(unit["launches"])
     row["adafactor_unit_mesh"] = unit
     witness, cell = outs["witness"], outs["production"]
-    rec = json.loads(witness[0].strip().splitlines()[-1]) \
-        if procs["witness"].returncode == 0 else {"status": "failed",
-                                                  "stderr": witness[1][-2000:]}
+    failed = {"status": "failed", "stderr": witness[1][-2000:]}
+    lines = (witness[0].strip().splitlines()
+             if procs["witness"].returncode == 0 else [])
+    rec = json.loads(lines[-2]) if len(lines) >= 2 else failed
+    row["probes"] = json.loads(lines[-1]) if len(lines) >= 2 else failed
     nothing = runs["nothing"]
     tensors = nothing["tensors"] + len(batch)
     requested = nothing["requested_bytes"] + batch_requested
@@ -5957,6 +6430,15 @@ def phase_dry_run(dev, full: bool = True) -> collections.Counter:
     row["launches"] = dict(launches)
     row["seconds"] = time.perf_counter() - t0
     emit(row)
+    cells = row["probes"].get("long_500k", {})
+    require(len(cells) == 4 and all(c["status"] == "ok"
+                                    for c in cells.values()),
+            f"dry run: the long_500k cells {cells or row['probes']}")
+    intern = row["probes"].get("internlm2_train_4k", {})
+    require(intern.get("status") == "ok"
+            and intern.get("probe_fsdp") == [False, False]
+            and intern.get("full_depth_fsdp") is True,
+            f"dry run: internlm2-20b train_4k's probes {intern}")
     for name, r in runs.items():
         require(all(r["equal"].values()),
                 f"dry run: remat {name} differs from no remat: {r['equal']}")
@@ -6031,10 +6513,12 @@ def main(argv: list[str]) -> int:
     witnesses = {"--hymba-lr-witness": witness_hymba_lr,
                  "--encdec-lr-witness": witness_encdec_lr,
                  "--model-axis": phase_model_axis,
-                 "--dry-run": phase_dry_run}
+                 "--dry-run": phase_dry_run,
+                 "--samplers": phase_samplers}
     if not (argv == [] or (len(argv) == 1 and argv[0] in witnesses)):
         print("usage: chip_smoke.py [--hymba-lr-witness | "
-              "--encdec-lr-witness | --model-axis | --dry-run]",
+              "--encdec-lr-witness | --model-axis | --dry-run | "
+              "--samplers]",
               file=sys.stderr)
         return 2
     try:
@@ -6082,12 +6566,13 @@ def main(argv: list[str]) -> int:
         zoo_rows.setdefault(name, []).extend(extra)
     phase_plan(dev)
     launches = collections.Counter(phase_train(dev))
+    launches.update(phase_samplers(dev))
     launches.update(phase_table2(dev))
     phase_train_step(dev)
     for engine in ("host", "scan"):
         emit(epoch_split(dev, engine))
-    phase_engines(dev, epochs=2)
-    phase_restart(dev)
+    phase_engines(dev, n=CHECK_N, epochs=2)
+    phase_restart(dev, n=CHECK_N)
     launches.update(phase_resilience(dev))
     launches.update(phase_table3(dev))
     phase_card_vs_cpu(dev)

@@ -48,7 +48,7 @@ class BaselineStrategy(SampleStrategy):
                 "host": {}}
 
     def load_state_dict(self, state: dict) -> None:
-        planops.load_generator_state(self._gen, state["arrays"]["rng_key"])
+        planops.restore_generator(self._gen, state, self.seed, "baseline")
 
 
 @torch.no_grad()
@@ -94,5 +94,6 @@ class RandomStrategy(KakurenboStrategy):
     def load_state_dict(self, state: dict) -> None:
         a = state["arrays"]
         self._inner.rows.load(self._inner.state, a["state"])
-        planops.load_generator_state(self._inner._gen, a["inner_key"])
-        planops.load_generator_state(self._gen, a["rng_key"])
+        planops.restore_generator(self._inner._gen, state, self.seed,
+                                  "kakurenbo", leaf="inner_key")
+        planops.restore_generator(self._gen, state, self.seed, "random")

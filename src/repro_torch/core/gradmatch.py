@@ -13,21 +13,23 @@ operation (``_omp_select``).  Its cost grows fast with the budget: each of
 the ``budget`` picks of a class re-solves a ridge system over the picks so
 far, so a class of c samples costs about the sum of k^3 for k up to
 0.7 c, quartic in c.  The epoch shuffle of the frozen subset is a device
-permutation from the strategy's own ``torch.Generator``
+permutation from the sampler's own ``torch.Generator``
 (``draw_permutation``, which the parity tests replace to inject the
-reference's).
+reference's).  ``GradMatchSampler`` holds the plan (the reference's
+low-level API) and ``GradMatchStrategy`` wraps it.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Iterator
 
 import numpy as np
 import torch
 
 from repro_torch.core import planops
 from repro_torch.core.strategy import (EpochPlan, FeatsFn, SampleStrategy,
-                                       register_strategy)
+                                       inner_attr, register_strategy)
 from repro_torch.kernels.backend import resolve_device
 
 
@@ -91,11 +93,60 @@ def reselect(grad_feats: np.ndarray, labels: np.ndarray, num_classes: int,
     return subset, weights
 
 
+class GradMatchSampler:
+    """The Grad-Match plan: ``maybe_reselect`` runs the OMP every R epochs
+    on the host, ``begin_epoch`` shuffles the frozen subset."""
+
+    def __init__(self, num_samples: int, num_classes: int,
+                 config: GradMatchConfig | None = None, seed: int = 0,
+                 device: str | torch.device | None = None):
+        self.config = config or GradMatchConfig()
+        self.n = num_samples
+        self.num_classes = num_classes
+        self.device = resolve_device(device)
+        self._gen = planops.make_generator(seed, "gradmatch", self.device)
+        self.subset = np.arange(num_samples)
+        self.weights = np.ones(num_samples, np.float32)
+        #: Host seconds spent in the OMP over the run (Table 3 reports it).
+        self.omp_seconds = 0.0
+
+    def maybe_reselect(self, epoch: int, grad_feats: np.ndarray,
+                       labels: np.ndarray) -> bool:
+        """Reselect at every R-th epoch from the (N, d) last-layer gradient
+        proxies ``grad_feats`` (``p - onehot(y)``); whether it did."""
+        if epoch % self.config.interval != 0:
+            return False
+        t0 = time.perf_counter()
+        self.subset, self.weights = reselect(grad_feats, labels,
+                                             self.num_classes, self.config)
+        self.omp_seconds += time.perf_counter() - t0
+        return True
+
+    def draw_permutation(self) -> torch.Tensor:
+        """This epoch's shuffle of the subset's positions, on the device."""
+        return planops.device_permutation(self._gen, len(self.subset))
+
+    def begin_epoch(self) -> np.ndarray:
+        """The subset, shuffled (host)."""
+        order = self.draw_permutation().cpu().numpy()   # the epoch's crossing
+        return self.subset[order]
+
+    def batches(self, epoch_indices: np.ndarray,
+                batch_size: int) -> Iterator[np.ndarray]:
+        for start in range(0, len(epoch_indices) - batch_size + 1, batch_size):
+            yield epoch_indices[start : start + batch_size]
+
+
 @register_strategy("gradmatch")
 class GradMatchStrategy(SampleStrategy):
-    """OMP subset selection; the features arrive through ``prepare``."""
+    """OMP subset selection over ``GradMatchSampler``; the features arrive
+    through ``prepare``."""
 
     config_cls, config_field = GradMatchConfig, "gradmatch"
+    subset = inner_attr()
+    weights = inner_attr()
+    omp_seconds = inner_attr()
+    draw_permutation = inner_attr()
 
     def __init__(self, num_samples: int, config: GradMatchConfig | None = None,
                  seed: int = 0, num_classes: int | None = None,
@@ -105,12 +156,8 @@ class GradMatchStrategy(SampleStrategy):
         # builds, runs without features); prepare() requires it the moment
         # features arrive, since a one-class OMP would change the method.
         self.num_classes = num_classes
-        self.device = resolve_device(device)
-        self._gen = planops.make_generator(seed, "gradmatch", self.device)
-        self.subset = np.arange(num_samples)
-        self.weights = np.ones(num_samples, np.float32)
-        #: Host seconds spent in the OMP over the run (Table 3 reports it).
-        self.omp_seconds = 0.0
+        self._inner = GradMatchSampler(num_samples, num_classes or 1,
+                                       self.config, seed, device)
 
     def prepare(self, epoch: int, feats_fn: FeatsFn | None = None) -> None:
         if feats_fn is None or epoch % self.config.interval != 0:
@@ -120,35 +167,28 @@ class GradMatchStrategy(SampleStrategy):
                 "gradmatch needs num_classes for its per-class OMP: pass "
                 "num_classes to make_strategy or the Trainer")
         feats, labels = feats_fn()
-        t0 = time.perf_counter()
-        self.subset, self.weights = reselect(feats, labels, self.num_classes,
-                                             self.config)
-        self.omp_seconds += time.perf_counter() - t0
-
-    def draw_permutation(self) -> torch.Tensor:
-        """This epoch's shuffle of the subset's positions, on the device."""
-        return planops.device_permutation(self._gen, len(self.subset))
+        self._inner.maybe_reselect(epoch, feats, labels)
 
     def plan(self, epoch: int) -> EpochPlan:
-        order = self.draw_permutation().cpu().numpy()   # the epoch's crossing
-        return EpochPlan(epoch=epoch, visible_indices=self.subset[order],
+        return EpochPlan(epoch=epoch, visible_indices=self._inner.begin_epoch(),
                          host_syncs=1)
 
     def batch_weights(self, indices: np.ndarray) -> np.ndarray:
-        return self.weights[indices]
+        return self._inner.weights[indices]
 
     def state_dict(self) -> dict:
         # The subset shrinks at a reselection; a checkpoint's leaves keep
         # their shape, so it is stored padded with -1 to N.
+        inner = self._inner
         subset = np.full(self.num_samples, -1, np.int64)
-        subset[:len(self.subset)] = self.subset
-        return {"arrays": {"subset": subset, "weights": self.weights,
-                           "rng_key": planops.generator_state(self._gen)},
+        subset[:len(inner.subset)] = inner.subset
+        return {"arrays": {"subset": subset, "weights": inner.weights,
+                           "rng_key": planops.generator_state(inner._gen)},
                 "host": {}}
 
     def load_state_dict(self, state: dict) -> None:
-        a = state["arrays"]
+        inner, a = self._inner, state["arrays"]
         subset = np.asarray(a["subset"], np.int64)
-        self.subset = subset[subset >= 0]
-        self.weights = np.array(a["weights"], np.float32)
-        planops.load_generator_state(self._gen, a["rng_key"])
+        inner.subset = subset[subset >= 0]
+        inner.weights = np.array(a["weights"], np.float32)
+        planops.restore_generator(inner._gen, state, self.seed, "gradmatch")

@@ -213,5 +213,5 @@ class KakurenboStrategy(SampleStrategy):
 
     def load_state_dict(self, state: dict) -> None:
         self._inner.rows.load(self._inner.state, state["arrays"]["state"])
-        planops.load_generator_state(self._inner._gen,
-                                     state["arrays"]["rng_key"])
+        planops.restore_generator(self._inner._gen, state, self.seed,
+                                  "kakurenbo")

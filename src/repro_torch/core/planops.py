@@ -69,6 +69,48 @@ def load_generator_state(gen: torch.Generator, arr) -> None:
     gen.set_state(torch.as_tensor(np.asarray(arr, np.uint8)).cpu())
 
 
+def legacy_words(host_state) -> np.ndarray | None:
+    """Two uint32 words drawn from a numpy bit-generator state (the legacy
+    checkpoints' ``host["rng"]``), or None for an unreadable payload."""
+    try:
+        g = np.random.default_rng(0)
+        g.bit_generator.state = host_state
+        return g.integers(0, 2 ** 32, size=2, dtype=np.int64).astype(np.uint32)
+    except (KeyError, TypeError, ValueError):
+        return None
+
+
+def migrate_legacy_rng(gen: torch.Generator, host_state, seed: int,
+                       name: str) -> None:
+    """Seed ``gen`` from a legacy numpy ``Generator`` state: with the two
+    uint32 words ``legacy_words`` draws from it, the same checkpoint always
+    giving the same stream; on an unreadable payload, by the seed
+    convention (``strategy_seed``).  The numpy stream itself is retired, as
+    in the reference: a migrated run resumes deterministically, on the
+    generator's stream."""
+    words = legacy_words(host_state)
+    gen.manual_seed(strategy_seed(seed, name) if words is None
+                    else (int(words[0]) << 32) | int(words[1]))
+
+
+def restore_generator(gen: torch.Generator, state: dict, seed: int,
+                      name: str, leaf: str = "rng_key") -> None:
+    """Restore ``gen`` in place from a strategy ``state_dict``, current or
+    legacy format (the reference's ``restore_key``): ``arrays[leaf]``
+    (``generator_state``), else a legacy ``host["rng"]`` through
+    ``migrate_legacy_rng``; a dict with neither raises."""
+    arrays = state.get("arrays") or {}
+    host = state.get("host") or {}
+    if leaf in arrays:
+        load_generator_state(gen, arrays[leaf])
+    elif "rng" in host:
+        migrate_legacy_rng(gen, host["rng"], seed, name)
+    else:
+        raise ValueError(
+            f"state dict for {name!r} has neither arrays[{leaf!r}] nor a "
+            "legacy host['rng'] entry: cannot restore the plan generator")
+
+
 def device_permutation(gen: torch.Generator, n: int) -> torch.Tensor:
     """Uniform permutation of ``range(n)`` on ``gen``'s device: the epoch
     shuffle."""

@@ -89,3 +89,9 @@ def kakurenbo_lr(base_lr: torch.Tensor, hidden_fraction: torch.Tensor
     f = torch.clamp(torch.as_tensor(hidden_fraction, dtype=torch.float32),
                     0.0, 0.95)
     return base_lr / (1.0 - f)
+
+
+def linear_scaling_rule(base_lr_per_worker: float, num_workers: int) -> float:
+    """Goyal et al. [34]'s linear scaling rule (App. B.3), used by the
+    paper's ResNet-50 (A): the per-worker LR times the worker count."""
+    return base_lr_per_worker * num_workers

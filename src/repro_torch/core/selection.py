@@ -31,6 +31,9 @@ import torch
 from repro_torch.core import planops
 from repro_torch.core.state import SampleState, gather_state
 
+#: Histogram resolution of the threshold paths.
+HIST_BINS = planops.HIST_BINS
+
 #: Methods accepted by ``select_hidden`` / ``KakurenboConfig.selection``.
 SELECTION_METHODS = ("sort", "histogram", "histogram_pallas")
 
@@ -40,6 +43,27 @@ def _eligible(state: SampleState, tau: float, moveback: bool) -> torch.Tensor:
     if not moveback:
         return state.seen >= 0
     return state.pa & (state.pc >= tau) & (state.seen >= 0)
+
+
+def histogram_threshold(loss: torch.Tensor, valid: torch.Tensor, num_hide,
+                        lo, hi, bins: int = HIST_BINS) -> torch.Tensor:
+    """Loss threshold t with about ``num_hide`` valid losses below it, from
+    the histogram CDF: the right edge of the first bin whose CDF reaches
+    ``num_hide``.  Plain PyTorch, as the reference's is plain jnp (the
+    histogram paths above take their masks from ``planops.histogram_masks``
+    instead)."""
+    lo = torch.as_tensor(lo, dtype=torch.float32, device=loss.device)
+    hi = torch.as_tensor(hi, dtype=torch.float32, device=loss.device)
+    span = torch.clamp(hi - lo, min=1e-12)
+    idx = torch.clamp(((loss - lo) / span * bins).to(torch.int32), 0,
+                      bins - 1)
+    hist = torch.zeros(bins, dtype=torch.int32, device=loss.device)
+    hist.index_add_(0, idx.long(), valid.to(torch.int32))
+    cdf = torch.cumsum(hist, 0)
+    need = torch.as_tensor(num_hide, dtype=cdf.dtype, device=loss.device)
+    b = torch.clamp(torch.searchsorted(cdf, need.reshape(1), side="left")[0],
+                    0, bins - 1)
+    return lo + (b.to(torch.float32) + 1.0) * span / bins
 
 
 def select_hidden_sort(state: SampleState, max_fraction, tau: float = 0.7,
@@ -57,7 +81,7 @@ def select_hidden_sort(state: SampleState, max_fraction, tau: float = 0.7,
 
 
 def select_hidden_histogram(state: SampleState, max_fraction,
-                            tau: float = 0.7, bins: int = planops.HIST_BINS,
+                            tau: float = 0.7, bins: int = HIST_BINS,
                             drop_top_fraction: float = 0.0,
                             moveback: bool = True,
                             use_kernel: bool = False, ctx=None) -> torch.Tensor:

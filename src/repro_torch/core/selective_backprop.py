@@ -19,12 +19,14 @@ the next step draws what the held one drew, as the held key does.
 Under a data-parallel group (``ctx``) the selection state is replicated,
 as the reference's (``selective_backprop.py:115``): the trainer gathers
 the batch's forward-only loss, every rank runs the same select on it and
-takes its rows of the weights.
+takes its rows of the weights.  ``SelectiveBackprop`` is the host API over
+the same select (the reference's low-level one).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpoint import copy_into
@@ -86,6 +88,34 @@ def select_step(state: dict, loss: torch.Tensor, u: torch.Tensor, *,
     return weights, state
 
 
+class SelectiveBackprop:
+    """The host API over ``select_step`` (the reference's low-level
+    ``SelectiveBackprop``): ``select`` takes a batch's losses and returns
+    the backward mask, updating the history."""
+
+    def __init__(self, config: SBConfig | None = None, seed: int = 0,
+                 device: str | torch.device | None = None):
+        self.config = config or SBConfig()
+        self.device = resolve_device(device)
+        self._state = init_select_state(self.config, self.device, seed)
+
+    def draw_uniform(self, b: int) -> torch.Tensor:
+        """The ``b`` uniforms of the draw counter's current value."""
+        st = self._state
+        return planops.counter_uniform(st["key"], st["draws"], b)
+
+    def select(self, batch_loss) -> np.ndarray:
+        """(B,) float32 0/1 backward mask for the batch's losses (host)."""
+        c = self.config
+        loss = torch.as_tensor(np.asarray(batch_loss, np.float32),
+                               device=self.device)
+        u = self.draw_uniform(loss.shape[0])
+        self._state["draws"].add_(1)
+        w, _ = select_step(self._state, loss, u, beta=c.beta, floor=c.floor,
+                           bootstrap=c.bootstrap)
+        return (w > 0).to(torch.float32).cpu().numpy()
+
+
 @register_strategy("sb")
 class SBStrategy(SampleStrategy):
     """Forward-then-mask selection as the in-step ``fused_select`` hook."""
@@ -132,5 +162,23 @@ class SBStrategy(SampleStrategy):
 
     def load_state_dict(self, state: dict) -> None:
         a = state["arrays"]
-        copy_into(self._sel, {k: a[k] for k in self._sel})
-        planops.load_generator_state(self._gen, a["rng_key"])
+        if "rng_key" in a:
+            copy_into(self._sel, {k: a[k] for k in self._sel})
+        else:
+            # The legacy format, as the reference migrates it: a growing
+            # host history and numpy generator states.  The stored losses
+            # fill the ring buffer and the draws' key comes from the
+            # selection generator's state (two uint32 words).
+            h = self.config.history
+            old = np.asarray(a["hist"], np.float32)[-h:]
+            buf = np.full(h, np.inf, np.float32)
+            buf[:len(old)] = old
+            words = planops.legacy_words((state.get("host") or {}).get(
+                "inner_rng", {}))
+            key = (planops.counter_key(self.seed, "sb", self.device)
+                   if words is None else
+                   torch.tensor([int(w) for w in words], dtype=torch.int64))
+            copy_into(self._sel, {"hist": buf, "count": len(old),
+                                  "ptr": len(old) % h, "key": key,
+                                  "draws": 0})
+        planops.restore_generator(self._gen, state, self.seed, "sb-plan")

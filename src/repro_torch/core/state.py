@@ -262,3 +262,25 @@ class RowLayout:
         if isinstance(whole, dict):
             return {k: self._rows_of(v) for k, v in whole.items()}
         return self.ctx.shard_rows(whole)
+
+
+def with_hidden(state: SampleState, hidden: torch.Tensor) -> SampleState:
+    """``state`` with ``hidden`` as its hidden mask (a new ``SampleState``
+    sharing the other tensors)."""
+    return dataclasses.replace(state, hidden=hidden)
+
+
+def state_summary(state: SampleState, ctx: ParallelCtx | None = None
+                  ) -> dict[str, Any]:
+    """Host summary for logs and checkpoint checksums: the sample count,
+    the hidden and seen counts and the mean over every sample of the loss
+    where seen (0 elsewhere).  Syncs to the host.  Under a group the state
+    is gathered whole first."""
+    state = gather_state(state, ctx)
+    seen = state.seen >= 0
+    return {
+        "num_samples": int(state.num_samples),
+        "num_hidden": int(state.hidden.sum()),
+        "mean_loss_seen": float(torch.where(seen, state.loss, 0.0).mean()),
+        "num_seen": int(seen.sum()),
+    }

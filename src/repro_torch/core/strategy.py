@@ -200,3 +200,36 @@ def make_strategy(name: str, num_samples: int, cfg: Any = None,
     params = inspect.signature(cls.__init__).parameters
     kw = {k: v for k, v in extras.items() if k in params}
     return cls(num_samples, cfg_obj, seed=seed, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Shared helpers for strategy implementations
+
+
+def rng_state(rng: np.random.Generator) -> dict:
+    """A numpy generator's bit-generator state (JSON-able)."""
+    return rng.bit_generator.state
+
+
+def set_rng_state(rng: np.random.Generator, state: dict) -> None:
+    rng.bit_generator.state = state
+
+
+class inner_attr:
+    """An attribute a strategy forwards to its sampler (``self._inner``),
+    for reading and for setting: ``strategy.draw_uniform = f`` replaces the
+    sampler's draw, which its ``begin_epoch`` calls."""
+
+    def __init__(self, name: str | None = None):
+        self.name = name
+
+    def __set_name__(self, owner, name: str) -> None:
+        self.name = self.name or name
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return self
+        return getattr(obj._inner, self.name)
+
+    def __set__(self, obj, value) -> None:
+        setattr(obj._inner, self.name, value)

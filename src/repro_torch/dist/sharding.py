@@ -50,10 +50,14 @@ an all-reduce and a slice.
 
 Beyond logical specs the context keeps the row helpers of the
 data-parallel trainer over the data group (``group``): ``shard_rows``,
-``gather_rows``, ``all_reduce``, ``replicate``.  ``ParallelCtx(group=g)``
-is the trainer's 1-D ``("data",)`` axis (no ``mesh``); ``ParallelCtx()``
-is one process, every helper the identity, as the reference's
-``ParallelCtx(mesh=None)``.
+``gather_rows``, ``all_reduce``, ``replicate``; and the batch rule of the
+model's inputs (``splits_batch``, ``shard_batch``, ``gather_batch``): a
+batch that divides the data ranks is split over them, any other is taken
+whole by every data rank, as the reference's spec guard replicates it,
+with ``dp_share`` on the loss so the summed gradients stay one device's.
+``ParallelCtx(group=g)`` is the trainer's 1-D ``("data",)`` axis (no
+``mesh``); ``ParallelCtx()`` is one process, every helper the identity,
+as the reference's ``ParallelCtx(mesh=None)``.
 
 The collectives run with ``async_op=False`` on the calling stream's order:
 under NCCL they are stream work, so a captured train step holds them.
@@ -157,6 +161,19 @@ class _SumPartials(torch.autograd.Function):
         g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
         return g, None
+
+
+class _ShareGrad(torch.autograd.Function):
+    """Identity forward; the gradient times ``factor`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
 
 
 class _TPGather(torch.autograd.Function):
@@ -414,6 +431,15 @@ class ParallelCtx:
             return x
         return _SumPartials.apply(x, self.group)
 
+    def dp_share(self, x: torch.Tensor) -> torch.Tensor:
+        """Identity forward; the gradient divided by the data ranks: a loss
+        every data rank computes whole (a replicated batch), whose
+        parameters' gradients the data ranks then sum (``launch/train.py``,
+        FSDP's scatter), so that the sums are one device's gradient."""
+        if self.dp_size == 1:
+            return x
+        return _ShareGrad.apply(x, 1.0 / self.dp_size)
+
     def gather_fsdp_tree(self, tree: Any, specs: Any) -> Any:
         """``tree`` (local shards) with every dim sharded over the data axes
         gathered (``fsdp_gather``): the model-parallel local weights."""
@@ -426,6 +452,32 @@ class ParallelCtx:
             if axes and set(axes) <= dp:
                 tree = self.fsdp_gather(tree, dim, axes)
         return tree
+
+    # -- model inputs: a batch split over the data ranks or replicated -----
+
+    def splits_batch(self, n: int) -> bool:
+        """Whether a batch of ``n`` rows is split over the data ranks: when
+        ``n`` divides ``dp_size``.  Otherwise every data rank takes the
+        whole batch, as the reference's spec guard replicates a dim that
+        does not divide (``spec(dims=)``).  Per-sample state does not take
+        this rule: ``check_rows`` refuses it."""
+        return self.group is not None and n % self.dp_size == 0
+
+    def batch_rows(self, n: int) -> tuple[int, int]:
+        """``[start, stop)`` of this rank's rows of a batch of ``n``: its
+        split, or all of them."""
+        return self.rows(n) if self.splits_batch(n) else (0, n)
+
+    def shard_batch(self, x):
+        """This rank's rows of a global batch (a view): ``shard_rows`` when
+        the batch splits, else ``x`` itself."""
+        return self.shard_rows(x) if self.splits_batch(x.shape[0]) else x
+
+    def gather_batch(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """The global batch's rows from this rank's result ``x`` for a
+        batch of ``n``: every rank's gathered where the batch splits, ``x``
+        itself where each rank took it whole (no ``dp_size`` copies)."""
+        return self.gather_rows(x) if self.splits_batch(n) else x
 
     # -- row sharding helpers (SampleState / per-sample arrays) ------------
 

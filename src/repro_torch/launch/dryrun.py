@@ -62,7 +62,6 @@ import math
 import os
 import time
 import traceback
-import types
 import weakref
 
 import torch
@@ -162,8 +161,8 @@ def _local_inputs_bytes(model: Model, shape: ShapeSpec, dtype) -> int:
 
 
 def _step(model: Model, cfg: ArchConfig, shape: ShapeSpec, dtype):
-    """(the step as a thunk, the tensors of its arguments): rank 0's
-    shards, its optimizer (train) and the inputs."""
+    """(the step as a thunk, the tensors of its arguments beside the
+    inputs): rank 0's shards and its optimizer (train)."""
     local = model.shard(model.abstract_params(dtype))
     inputs = model.input_specs(shape, dtype)
     leaves = [t for _, t in flatten(local)]
@@ -181,8 +180,8 @@ def _step(model: Model, cfg: ArchConfig, shape: ShapeSpec, dtype):
     cache = model.init_cache(shape.global_batch, shape.seq_len, dtype,
                              ring=ring)
     cache["len"] = shape.seq_len - 1
-    args = leaves + [t for t in cache.values() if isinstance(t, torch.Tensor)]
-    return (lambda: model.decode_step(local, inputs["token"], cache)), args
+    # The cache is an input: ``_local_inputs_bytes`` counts its block.
+    return (lambda: model.decode_step(local, inputs["token"], cache)), leaves
 
 
 def _analyze(flops: float, chips: int, coll: dict, memory: dict,
@@ -293,11 +292,13 @@ def run_cell_extrapolated(arch: str | ArchConfig, shape: str | ShapeSpec,
     loop is Python, so a full-depth meta run (``run_cell``) gives the same
     numbers exactly; the probes are quicker for the deep configs.  The
     peak of temporaries is extrapolated too, which holds while one layer's
-    work sets it (``temp_size_in_bytes``).  The probes take the full
-    depth's FSDP decision (``build_ctx`` on the config itself); the
-    reference's probes decide for their own depth, so a config over the
-    FSDP threshold whose probes are under it extrapolates unsharded
-    parameters there."""
+    work sets it (``temp_size_in_bytes``).  Unless ``fsdp`` is given,
+    each probe decides FSDP for its own depth (``build_ctx`` on the
+    scaled config), as the reference's do, and the record keeps both
+    decisions (``probe_fsdp``): a config over the FSDP threshold whose
+    probes are under it extrapolates unsharded parameters, as the
+    reference does (``run_cell`` at full depth decides for the config
+    itself)."""
     cfg = get_arch(arch) if isinstance(arch, str) else arch
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     ok, reason = shape_applicable(cfg, shape)
@@ -311,9 +312,6 @@ def run_cell_extrapolated(arch: str | ArchConfig, shape: str | ShapeSpec,
         base.update(status="skip", reason=reason)
         return base
     t0 = time.perf_counter()
-    if kw.get("fsdp") is None:
-        kw = dict(kw, fsdp=build_ctx(cfg, _stand_in(kw),
-                                     dp_only=kw.get("dp_only", False)).fsdp)
     recs = {}
     for n in (2, 4):
         recs[n] = run_cell(_scale_layers(cfg, n), shape, **kw)
@@ -330,7 +328,8 @@ def run_cell_extrapolated(arch: str | ArchConfig, shape: str | ShapeSpec,
         outside = m2 - 2.0 * per_layer
         return max(outside + L * per_layer, 0.0)
 
-    rec = dict(base, fsdp=recs[4]["fsdp"])
+    rec = dict(base, fsdp=recs[4]["fsdp"],
+               probe_fsdp=[recs[2]["fsdp"], recs[4]["fsdp"]])
     coll = {k: extrap(lambda r, k=k: float(r["collective_bytes"][k]))
             for k in recs[2]["collective_bytes"]}
     memory = {k: extrap(lambda r, k=k: float(r["memory"][k]))
@@ -341,19 +340,6 @@ def run_cell_extrapolated(arch: str | ArchConfig, shape: str | ShapeSpec,
     rec["status"] = "ok"
     rec["total_s"] = time.perf_counter() - t0
     return rec
-
-
-def _stand_in(kw: dict):
-    """A stand-in of the cell's mesh (axis sizes only, no group)."""
-    mesh_shape = kw.get("mesh_shape")
-    if mesh_shape:
-        shape, names = mesh_shape, ("data", "model")
-    elif kw.get("multi_pod"):
-        shape, names = (2, 16, 16), ("pod", "data", "model")
-    else:
-        shape, names = (16, 16), ("data", "model")
-    return types.SimpleNamespace(shape=dict(zip(names, shape)),
-                                 axis_names=names)
 
 
 def _chips(kw: dict) -> int:

@@ -19,7 +19,9 @@ the global batch, runs this rank's data rows through the family's
 a masked mean over the global batch) and the global per-sample metrics;
 ``prefill`` and ``decode_step`` take the global batch (or token) too,
 return the global logits and keep this rank's block of the cache (the
-reference's decode layout, ``input_logical``); ``gather`` and
+reference's decode layout, ``input_logical``); a batch that does not
+divide the data ranks is taken whole by each of them, as the reference's
+spec guard replicates it (``ParallelCtx.splits_batch``); ``gather`` and
 ``gather_cache`` give the global tree and the one-device cache back.
 Every family runs on the model axis: expert parallelism for the MoE in
 both FSDP layouts, and the sequence-parallel decode under
@@ -81,18 +83,25 @@ def loss_and_metrics(cfg: ArchConfig, params: dict, batch: dict,
     ranks; an MoE's aux term averaged over them), the per-sample metrics
     are gathered in batch order.  The gradient of the scalar on a rank is
     its share's; ``launch/train.py`` sums the replicated leaves' over the
-    data ranks, FSDP's gathers sum the sharded ones'."""
-    local = batch
-    if specs is not None:
+    data ranks, FSDP's gathers sum the sharded ones'.  A batch that does
+    not divide the data ranks is not split (``ParallelCtx.splits_batch``):
+    every data rank runs it whole, the scalar and metrics are one
+    device's, and ``dp_share`` divides the scalar's gradient by the data
+    ranks, so the sums are one device's gradient."""
+    local, n = batch, batch["labels"].shape[0]
+    split = specs is not None and ctx.splits_batch(n)
+    if split:
         local = {k: ctx.shard_rows(v) for k, v in batch.items()}
     logits, mask, aux = family_module(cfg).forward(cfg, params, local, ctx,
                                                    specs)
     scalar, (loss, pa, pc) = _mean_and_metrics(cfg, logits, mask, local)
-    if specs is None:
+    if not split:
         if cfg.moe is not None:
             scalar = scalar + cfg.moe.router_aux_weight * aux
-        return scalar, (loss, pa, pc)
-    scalar = scalar * (loss.shape[0] / batch["labels"].shape[0])
+        # One device, or a batch every data rank took whole.
+        return (scalar if specs is None else ctx.dp_share(scalar),
+                (loss, pa, pc))
+    scalar = scalar * (loss.shape[0] / n)
     if cfg.moe is not None:
         scalar = scalar + cfg.moe.router_aux_weight * aux / ctx.dp_size
     scalar = ctx.dp_sum(scalar)
@@ -132,6 +141,9 @@ class Model:
         self.device = resolve_device(device)
         self._mod = family_module(cfg)
         self._local_specs = None
+        #: The global batch of the last ``prefill`` or ``init_cache`` on a
+        #: mesh: whether ``gather_cache`` gathers rows.
+        self.batch: int | None = None
 
     @property
     def sharded(self) -> bool:
@@ -228,10 +240,11 @@ class Model:
         if not self.sharded:
             return self._mod.prefill(self.cfg, params, batch, max_len)
         ctx = self.ctx
-        local = {k: ctx.shard_rows(v) for k, v in batch.items()}
+        self.batch = n = next(iter(batch.values())).shape[0]
+        local = {k: ctx.shard_batch(v) for k, v in batch.items()}
         logits, cache = self._mod.prefill(self.cfg, params, local, max_len,
                                           ctx, self.local_specs())
-        return ctx.gather_rows(logits), cache
+        return ctx.gather_batch(logits, n), cache
 
     def decode_step(self, params, token, cache):
         """(logits (B, 1, V), the cache after the step).  On a mesh
@@ -241,9 +254,9 @@ class Model:
             return self._mod.decode_step(self.cfg, params, token, cache)
         ctx = self.ctx
         logits, cache = self._mod.decode_step(
-            self.cfg, params, ctx.shard_rows(token), cache, ctx,
+            self.cfg, params, ctx.shard_batch(token), cache, ctx,
             self.local_specs())
-        return ctx.gather_rows(logits), cache
+        return ctx.gather_batch(logits, token.shape[0]), cache
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    ring: bool = False):
@@ -253,7 +266,8 @@ class Model:
         the sequence under ``seq_parallel_kv``)."""
         ctx = self.ctx
         if self.sharded:
-            start, stop = ctx.rows(batch)
+            self.batch = batch
+            start, stop = ctx.batch_rows(batch)
             batch = stop - start
         shards = transformer.seq_shards(ctx)
         if self.cfg.family == "encdec":
@@ -267,17 +281,20 @@ class Model:
     @torch.no_grad()
     def gather_cache(self, cache: dict) -> dict:
         """The one-device cache from every rank's block: each (L, B, ...)
-        entry's rows all-gathered over the data axes, ``k`` and ``v``'s
-        sequence over "model" under ``seq_parallel_kv``.  Off-mesh: the
-        cache itself."""
+        entry's rows all-gathered over the data axes where the batch of
+        this model's last ``prefill`` or ``init_cache`` split over them (a
+        replicated batch's cache is whole on every rank), ``k`` and
+        ``v``'s sequence over "model" under ``seq_parallel_kv``.  Off-mesh:
+        the cache itself."""
         if not self.sharded:
             return cache
         ctx = self.ctx
+        split = self.batch is None or ctx.splits_batch(self.batch)
         out = dict(cache)
         for name, x in cache.items():
             if name == "len":
                 continue
-            if ctx.dp_size > 1:
+            if split and ctx.dp_size > 1:
                 x = gather_dim(x, 1, ctx.group, ctx.dp_size)
             if name in ("k", "v") and transformer.seq_shards(ctx) > 1:
                 x = gather_dim(x, 2, ctx.tp_group, ctx.tp_size)

@@ -18,6 +18,11 @@ accounting (``launch/hlo_analysis.py``) and Adafactor on sharded leaves.
   what the reference's ``abstract_train_state`` specs and shapes give one
   device (with its inputs' blocks and the LR), and ``model_flops``,
   ``hlo_bytes`` and the skip reasons equal the reference's;
+- the whole matrix on both production meshes (``--extrapolate``): 64
+  cells ``ok``, 16 ``skip``, none ``error``, each probe's FSDP decision the
+  reference's ``build_ctx`` on the scaled config; the ``long_500k`` cells
+  (batch 1, replicated over the data axes) at the reference's argument
+  bytes;
 - Adafactor on sharded leaves: three steps of ``dense-d`` (FSDP, LR
   1e-2) and ``moe-d`` (LR 1e-3) at (2, 4) and (1, 8), gathered, within
   1e-5 of the port on one device (``moe-d`` at (2, 4) in the ``"partial"`` layout, which
@@ -30,6 +35,7 @@ leaves it after each test.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import threading
@@ -265,16 +271,38 @@ def test_extrapolation_is_exact_at_six_layers():
             full["memory"]["argument_size_in_bytes"]
 
 
-def _stub():
-    return types.SimpleNamespace(shape={"data": 16, "model": 16},
-                                 axis_names=("data", "model"))
+#: The production meshes' axis sizes: (16, 16), and with ``multi_pod``
+#: (2, 16, 16).
+MESHES = {False: {"data": 16, "model": 16},
+          True: {"pod": 2, "data": 16, "model": 16}}
 
 
-def _local_bytes(abstract, specs) -> int:
+def _stub(multi_pod: bool = False):
+    sizes = MESHES[multi_pod]
+    return types.SimpleNamespace(shape=sizes, axis_names=tuple(sizes))
+
+
+def _scaled(jcfg, n: int):
+    """The reference's L = n probe of ``jcfg`` (its ``_scale_layers``)."""
+    return dataclasses.replace(
+        jcfg, num_layers=n,
+        num_encoder_layers=n if jcfg.num_encoder_layers else 0)
+
+
+@pytest.fixture(scope="module")
+def matrix():
+    """The dry run's matrix (``--all --both-meshes --extrapolate``): every
+    arch and shape on both production meshes, each cell from its own L = 2
+    and 4 probes; ``{(arch, shape, multi_pod): record}``."""
+    return {(a, s, mp): dryrun.run_cell_extrapolated(a, s, multi_pod=mp)
+            for mp in (False, True) for a in sorted(JARCHS)
+            for s in JSHAPES}
+
+
+def _local_bytes(abstract, specs, sizes=MESHES[False]) -> int:
     """One device's bytes of a reference tree of shape/dtype structs under
-    its ``PartitionSpec``s on the (16, 16) mesh."""
+    its ``PartitionSpec``s on a mesh of ``sizes`` (default (16, 16))."""
     from jax.sharding import PartitionSpec as P
-    sizes = {"data": 16, "model": 16}
     total = 0
     leaves = jax.tree.leaves(abstract)
     spec_leaves = jax.tree.leaves(specs, is_leaf=lambda x: isinstance(x, P))
@@ -289,17 +317,22 @@ def _local_bytes(abstract, specs) -> int:
     return total
 
 
-def test_production_train_cells_match_the_reference():
+def test_production_train_cells_match_the_reference(matrix):
     """Every arch at (16, 16) ``train_4k`` (the L = 2 and 4 probes): the
     argument bytes a device holds, the model FLOPs and the analytic HBM
     bytes equal the reference's; ``long_500k`` skips for the same archs
-    with the same reason."""
+    with the same reason.  The probes take their own FSDP decisions, as
+    the reference's do; the argument bytes are held at the full depth's
+    decision (passed as ``fsdp``) where the probes' differ from it."""
     shape = JSHAPES["train_4k"]
     for name in sorted(JARCHS):
         jcfg = JARCHS[name]
-        rec = dryrun.run_cell_extrapolated(name, "train_4k")
+        rec = matrix[name, "train_4k", False]
         assert rec["status"] == "ok", (name, rec.get("error"))
         jctx = jtrain.build_ctx(jcfg, _stub())
+        if rec["probe_fsdp"] != [jctx.fsdp] * 2:
+            rec = dryrun.run_cell_extrapolated(name, "train_4k",
+                                               fsdp=jctx.fsdp)
         jm = JModel(jcfg, jctx)
         pa, oa, ps, os_ = jtrain.abstract_train_state(
             jm, jtrain.optimizer_for(jcfg), jnp.bfloat16)
@@ -317,6 +350,50 @@ def test_production_train_cells_match_the_reference():
         if not ok:
             skip = dryrun.run_cell(name, "long_500k")
             assert (skip["status"], skip["reason"]) == ("skip", reason)
+
+
+def test_matrix_runs_every_applicable_cell(matrix):
+    """64 cells ``ok``, the 16 the reference skips ``skip``, none
+    ``error``; every cell's probes decide FSDP as the reference's
+    ``build_ctx`` does on the scaled config at the cell's mesh."""
+    counts = collections.Counter(r["status"] for r in matrix.values())
+    assert counts == {"ok": 64, "skip": 16}, [
+        (k, r.get("error")) for k, r in matrix.items()
+        if r["status"] == "error"]
+    for (name, shape, mp), rec in matrix.items():
+        jcfg = JARCHS[name]
+        ok, _ = jshape_applicable(jcfg, JSHAPES[shape])
+        assert rec["status"] == ("ok" if ok else "skip"), (name, shape, mp)
+        if ok:
+            want = [jtrain.build_ctx(_scaled(jcfg, n), _stub(mp)).fsdp
+                    for n in (2, 4)]
+            assert rec["probe_fsdp"] == want, (name, shape, mp)
+    # internlm2-20b train_4k: over the threshold at full depth, under it
+    # at L = 2 and 4, so its probes extrapolate unsharded parameters.
+    rec = matrix["internlm2-20b", "train_4k", False]
+    assert rec["probe_fsdp"] == [False, False]
+    assert jtrain.build_ctx(JARCHS["internlm2-20b"], _stub()).fsdp
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_long_500k_cells_hold_the_reference_argument_bytes(multi_pod):
+    """Batch 1 over 16 data ranks: the cache and the token are replicated
+    over the data axes, as the reference's spec guard replicates a dim
+    that does not divide; the full-depth cell's argument bytes are the
+    reference's parameters and inputs on one device."""
+    sizes = MESHES[multi_pod]
+    shape = JSHAPES["long_500k"]
+    for name in ("hymba-1.5b", "mamba2-130m"):
+        rec = dryrun.run_cell(name, "long_500k", multi_pod=multi_pod)
+        assert rec["status"] == "ok", (name, rec.get("error"))
+        jm = JModel(JARCHS[name], jtrain.build_ctx(JARCHS[name],
+                                                   _stub(multi_pod)))
+        want = (_local_bytes(jm.abstract_params(jnp.bfloat16),
+                             jm.param_specs(), sizes)
+                + _local_bytes(jm.input_specs(shape, jnp.bfloat16),
+                               jm.input_shardings(shape, jnp.bfloat16),
+                               sizes))
+        assert rec["memory"]["argument_size_in_bytes"] == want, name
 
 
 # ---------------------------------------------------------------------------

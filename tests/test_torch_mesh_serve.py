@@ -30,6 +30,13 @@ the window), a windowed arch decodes its whole cache there: hymba under
 one, and ``attention.decode_attend_sp`` over 8 ranks' spans is JAX's
 ``decode_attend`` with no window.  A world of one serves every model at
 (1, 1): bit for bit the port without a context.
+
+A batch of 1 divides no data axis: on blocks of the world as (2, 1) and
+(2, 2) meshes, ``dense-d`` and ``ssm-d`` serve it (prefill of 32, 4
+greedy steps) and take one LR-0 train step on it, every data rank
+running the whole batch, as the reference's spec guard replicates it:
+the logits and cache, and the loss, metrics and gradients, one
+device's.
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.launch.mesh import spawn
 
 import torch_mesh_serve_scenarios as sc
+from torch_model_axis_scenarios import grads_step, random_batch
 
 B, S, STEPS = 8, 32, 4
 DENSE = dict(name="dense-d", family="dense", num_layers=2, d_model=64,
@@ -99,6 +107,11 @@ RUNS = [("dense-d-2x4", "dense-d", (2, 4), dict(fsdp=True)),
         ("seamless-2x4", SEAMLESS, (2, 4), dict(fsdp=True))]
 SP_RUNS = [("dense-d-2x4-sp", "dense-d", (2, 4)),
            ("dense-d-1x8-sp", "dense-d", (1, 8))]
+#: A batch of 1, which divides no data axis of 2: every data rank takes it
+#: whole (the reference's spec guard replicates it).  (model, mesh shape)
+#: of the serve and train runs, on blocks of the world of 8.
+B1_RUNS = [(name, shape) for name in ("dense-d", "ssm-d")
+           for shape in ((2, 1), (2, 2))]
 UNIT = [("dense-d", dict(fsdp=True)), ("ssm-d", dict(fsdp=True)),
         (HYMBA, dict(fsdp=True)), ("moe-d", dict(fsdp=True)),
         ("moe-d", PARTIAL), (LLAVA, dict(fsdp=True)),
@@ -130,18 +143,18 @@ def _params(jcfg, seed: int = 0) -> dict:
     return params
 
 
-def _batch(cfg, s: int, seed: int = 1) -> dict:
-    """A prompt batch of ``B`` rows: tokens, and the family's inputs
+def _batch(cfg, s: int, seed: int = 1, b: int = B) -> dict:
+    """A prompt batch of ``b`` rows: tokens, and the family's inputs
     (llava's patch embeddings, seamless-m4t's frames)."""
     rng = np.random.default_rng(seed)
-    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, s)).astype(
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
         np.int32)}
     if cfg.family == "vlm":
         batch["patch_embeds"] = rng.normal(
-            size=(B, cfg.num_patch_tokens, 1024)).astype(np.float32)
+            size=(b, cfg.num_patch_tokens, 1024)).astype(np.float32)
     if cfg.family == "encdec":
         batch["frames"] = rng.normal(
-            size=(B, S, cfg.encoder_input_dim)).astype(np.float32)
+            size=(b, S, cfg.encoder_input_dim)).astype(np.float32)
     return batch
 
 
@@ -200,11 +213,27 @@ def worlds():
     cases.append(("hymba-2x4-sp", hy["cfg"], hy["params"], hy["batch"],
                   (2, 4), dict(fsdp=True, seq_parallel_kv=True), hy_max,
                   STEPS))
+    train_cases = []
+    for name, shape in B1_RUNS:
+        m = models[name]
+        b1 = _batch(m["cfg"], S, seed=3, b=1)
+        case = f"{name}-b1-{shape[0]}x{shape[1]}"
+        cases.append((case, m["cfg"], m["params"], b1, shape,
+                      dict(fsdp=True), m["max_len"], STEPS))
+        if f"{name}-b1" not in refs:
+            refs[f"{name}-b1"] = sc.greedy(m["cfg"], None, m["params"], b1,
+                                           m["max_len"], STEPS)
+            refs[f"{name}-b1-train"] = grads_step(
+                m["cfg"], None, m["params"], random_batch(m["cfg"], 1, S))
+        train_cases.append((f"{case}-train", m["cfg"], m["params"],
+                            random_batch(m["cfg"], 1, S), shape,
+                            dict(fsdp=True)))
     rng = np.random.default_rng(5)
     attend = (rng.normal(size=(2, 1, 8, 16)).astype(np.float32),
               rng.normal(size=(2, 64, 4, 16)).astype(np.float32),
               rng.normal(size=(2, 64, 4, 16)).astype(np.float32), 45)
-    ranks = spawn(sc.serve_world, 8, "gloo", "cpu", (cases, attend))
+    ranks = spawn(sc.serve_world, 8, "gloo", "cpu",
+                  (cases, attend, train_cases))
     units = [(f"{name}{'-partial' if kw.get('moe_fsdp_mode') else ''}",
               models[name]["cfg"], models[name]["params"],
               models[name]["batch"], kw, models[name]["max_len"], STEPS)
@@ -312,3 +341,42 @@ def test_decode_attend_sp_is_the_unwindowed_decode(worlds):
 def test_unit_mesh_serving_is_one_device_bit_for_bit(worlds, name):
     got = worlds[3][name]
     assert got == {"logits": True, "tokens": True, "cache": True}, got
+
+
+@pytest.mark.parametrize("name,shape", B1_RUNS,
+                         ids=[f"{n}-{d}x{m}" for n, (d, m) in B1_RUNS])
+def test_batch_one_serves_as_one_device(worlds, name, shape):
+    """A batch of 1 on (2, 1) and (2, 2): each data rank prefills and
+    decodes it whole, as the reference's spec guard replicates a batch
+    that does not divide the data axes.  The logits within 1e-5 of one
+    device's, the same tokens on every rank, and the cache whole on each
+    rank (``gather_cache`` gathers no rows: batch 1, not 2)."""
+    _, refs, ranks, _, _ = worlds
+    case = f"{name}-b1-{shape[0]}x{shape[1]}"
+    want = refs[f"{name}-b1"]
+    assert ranks[0][case]["tokens"].shape == (1, STEPS)
+    _check_serving(ranks, case, want)
+
+
+@pytest.mark.parametrize("name,shape", B1_RUNS,
+                         ids=[f"{n}-{d}x{m}" for n, (d, m) in B1_RUNS])
+def test_batch_one_trains_as_one_device(worlds, name, shape):
+    """One LR-0 train step of a batch of 1 on (2, 1) and (2, 2) with FSDP:
+    the loss and the per-sample loss, PA and PC are one device's, and
+    every gradient, summed over the data ranks by the train step and
+    FSDP's scatter, is one device's (``dp_share`` divides each rank's
+    share), within 1e-5 of its leaf's largest magnitude; the same loss on
+    every rank."""
+    _, refs, ranks, _, _ = worlds
+    case = f"{name}-b1-{shape[0]}x{shape[1]}-train"
+    got, want = ranks[0][case], refs[f"{name}-b1-train"]
+    assert all(r[case]["loss"] == got["loss"] for r in ranks)
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-6, abs=0)
+    assert got["lv"].shape == (1,)
+    np.testing.assert_allclose(got["lv"], want["lv"], rtol=1e-6)
+    np.testing.assert_array_equal(got["pa"], want["pa"])
+    np.testing.assert_allclose(got["pc"], want["pc"], rtol=1e-6)
+    assert got["grads"].keys() == want["grads"].keys()
+    for k, w in want["grads"].items():
+        assert got["grads"][k].shape == w.shape, k
+        assert _rel(got["grads"][k], w) <= 1e-5, k

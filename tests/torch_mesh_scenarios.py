@@ -2,7 +2,8 @@
 gloo world on the CPU (``tests/test_torch_mesh.py``,
 ``tests/test_torch_mesh_plan.py``).
 
-A world is spawned once per test module (``repro_torch.launch.mesh.spawn``:
+``tests/test_torch_samplers.py`` runs the samplers with row-sharded state
+here too (``sampler_world``).  A world is spawned once per test module (``repro_torch.launch.mesh.spawn``:
 one process a rank, a ``FileStore`` in a temporary directory, no network);
 its ranks run every scenario of that module in the same order and each
 returns its records, which the tests compare across ranks, world sizes and
@@ -306,6 +307,67 @@ def fold_step(world: int, init: dict, images: np.ndarray, labels: np.ndarray,
     return {"loss": float(scalar),
             "grads": {k: p.grad.numpy().copy()
                       for k, p in tr.model.named_parameters()}}
+
+
+# ---------------------------------------------------------------------------
+# The samplers with row-sharded state (test_torch_samplers.py)
+
+SAMPLER_N = 512
+
+
+def drive_samplers(ctx, observations: list) -> dict:
+    """``ISWRSampler``, ``ForgetSampler``, ``InfoBatchSampler`` and
+    ``KakurenboSampler`` on ``ctx`` (None: one process), each from its own
+    generator, over ``SAMPLER_N`` samples: per epoch ``begin_epoch`` then
+    ``observe`` of that epoch's ``(indices, loss, pa, pc)``.  Each
+    plan's host arrays (ISWR's unbiasing weights, FORGET's whole prune
+    mask, InfoBatch's weights too) and the final ``state_summary``."""
+    from repro_torch.core import (ForgetSampler, InfoBatchConfig,
+                                  InfoBatchSampler, ISWRConfig, ISWRSampler,
+                                  KakurenboSampler, state_summary)
+    n, kw = SAMPLER_N, dict(seed=0, device="cpu", ctx=ctx)
+    samplers = {
+        "iswr": ISWRSampler(n, ISWRConfig(unbiased=True), **kw),
+        "forget": ForgetSampler(n, ForgetConfig(0.3, 1), **kw),
+        "infobatch": InfoBatchSampler(n, InfoBatchConfig(total_epochs=4),
+                                      **kw),
+        "kakurenbo": KakurenboSampler(n, KakurenboConfig(
+            selection="histogram", drop_top_fraction=0.02), **kw)}
+    out = {}
+    for name, s in samplers.items():
+        plans = []
+        for epoch, (idx, loss, pa, pc) in enumerate(observations):
+            plan = s.begin_epoch(epoch)
+            if name == "iswr":
+                plans.append((plan, s.sample_weights(plan)))
+            elif name == "forget":
+                plans.append((plan, s.rows.gather(s.pruned_mask).numpy(),
+                              s.should_restart))
+            elif name == "infobatch":
+                plans.append((*plan, s.weights.copy()))
+            else:
+                plans.append((plan.visible_indices, plan.hidden_indices,
+                              plan.moveback_indices))
+            s.observe(idx, torch.from_numpy(loss), torch.from_numpy(pa),
+                      torch.from_numpy(pc), epoch)
+        out[name] = {"plans": plans, "summary": state_summary(s.state, ctx)}
+    return out
+
+
+def sampler_world(rank: int, world: int, observations: list) -> dict:
+    """``drive_samplers`` on the world's data group, and whether a sampler
+    of a count the group does not divide is refused (``rows``: the
+    message)."""
+    from repro_torch.core import ISWRSampler
+    _setup(rank)
+    ctx = ParallelCtx(torch.distributed.group.WORLD)
+    out = drive_samplers(ctx, observations)
+    try:
+        ISWRSampler(SAMPLER_N + 1, device="cpu", ctx=ctx)
+        out["rows"] = None
+    except ValueError as e:
+        out["rows"] = str(e)
+    return out
 
 
 def spawn_world(fn, world: int, *args) -> list:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.dist.sharding import ParallelCtx
 from repro_torch.launch.mesh import make_data_model_mesh
@@ -51,20 +52,47 @@ def greedy(cfg, ctx, params: dict, batch: dict, max_len: int, steps: int,
                       for k, v in whole.items()}}
 
 
-def serve_world(rank: int, world: int, cases: list, attend: tuple) -> dict:
+def mesh_of(shape: tuple[int, int]):
+    """The ``(data, model)`` mesh of ``shape``: over the whole world, or,
+    where it is smaller, over this rank's block of ``data * model``
+    consecutive ranks (the world split into copies of the mesh, each
+    running the same case)."""
+    data, model = shape
+    world = dist.get_world_size()
+    if data * model == world:
+        return make_data_model_mesh(data, model)
+    from torch.distributed.device_mesh import init_device_mesh
+    mesh = init_device_mesh("cpu", (world // (data * model), data, model),
+                            mesh_dim_names=("copy", "data", "model"))
+    return mesh["data", "model"]
+
+
+def serve_world(rank: int, world: int, cases: list, attend: tuple,
+                train_cases: list = ()) -> dict:
     """Every ``(name, cfg, params, batch, mesh shape, build_ctx kwargs,
     max_len, steps)`` case in order (``greedy``'s record on rank 0, the
-    tokens on the others), and ``attention.decode_attend_sp`` of
-    ``attend`` = (q, k, v, cache_len) over the 8 ranks of a (1, 8) mesh,
-    each rank its span of the sequence."""
+    tokens on the others), ``attention.decode_attend_sp`` of ``attend`` =
+    (q, k, v, cache_len) over the 8 ranks of a (1, 8) mesh, each rank its
+    span of the sequence, and every ``(name, cfg, params, batch, mesh
+    shape, build_ctx kwargs)`` of ``train_cases``: one LR-0 train step's
+    loss, metrics and gathered gradients (``torch_model_axis_scenarios.
+    grads_step``).  A mesh smaller than the world runs on blocks of it
+    (``mesh_of``)."""
+    from torch_model_axis_scenarios import grads_step
     torch.set_num_threads(1)
     out, meshes = {}, {}
     for name, cfg, params, batch, shape, kw, max_len, steps in cases:
         if shape not in meshes:
-            meshes[shape] = make_data_model_mesh(*shape)
+            meshes[shape] = mesh_of(shape)
         got = greedy(cfg, build_ctx(cfg, meshes[shape], **kw), params, batch,
                      max_len, steps)
         out[name] = got if rank == 0 else {"tokens": got["tokens"]}
+    for name, cfg, params, batch, shape, kw in train_cases:
+        if shape not in meshes:
+            meshes[shape] = mesh_of(shape)
+        got = grads_step(cfg, build_ctx(cfg, meshes[shape], **kw), params,
+                         batch)
+        out[name] = got if rank == 0 else {"loss": got["loss"]}
     if (1, 8) not in meshes:
         meshes[(1, 8)] = make_data_model_mesh(1, 8)
     ctx = ParallelCtx(mesh=meshes[(1, 8)])
