@@ -129,7 +129,15 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    (3e-3), one prefill and one decode step under the profiler, and at 2
    layers the card's prefill (the kernel) against the CPU's (its plain
    version: logits and every cache tensor within 1e-4) and their greedy
-   tokens.  The kernels themselves are held against their plain versions
+   tokens.  ``serve()`` decodes through one captured CUDA graph a step
+   (``launch/serve.py::capture_decode``); one more call at the same
+   settings decodes eagerly (``graph=False``): the row's ``decode`` holds
+   both ms a token, the capture's seconds and its pool's bytes beside
+   ``nvidia-smi``'s name and power limit, and ``captured_vs_eager`` the
+   32 greedy steps from copies of one prefill's cache through the graph
+   and through ``model.decode_step``: every step's logits, the tokens and
+   the final cache bit for bit, and one replay's device time under the
+   profiler.  The kernels themselves are held against their plain versions
    in phase 3, with B1 also on rows a poisoned sample gives (NaN ce and
    pmax where the plain version has them);
 14. LM training, ``examples/torch_lm_train.py --full`` at its defaults
@@ -163,6 +171,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    16; 28; 4; 2), prefill and one decode step against the forward (the
    MoE at a capacity no expert overflows), one prefill and one decode
    step profiled, card vs CPU at 2 layers and 4 prompts of 128 tokens;
+   decode captured (and once eager) and held captured against eager bit
+   for bit as in phase 13, and for hymba also from a ring cache of its
+   window's 1,024 slots set 4 short of its wrap, 8 steps across it;
    B7 at these prefill shapes and kimi-k2's (4, 2048, 64, 8, 112), B6 at
    hymba's and B1 at their vocabularies are held in phase 3
    (``zoo_kernel_checks``);
@@ -3053,6 +3064,85 @@ def serve_card_vs_cpu(dev, small, p_dev, p_cpu, ids, pe, max_len: int,
             "card_s": runs["card"][3], "cpu_s": runs["cpu"][3]}, failed
 
 
+def captured_vs_eager(dev, model, params, token, cache: dict,
+                      gen: int) -> tuple[dict, list]:
+    """``gen`` greedy decode steps from copies of ``cache``, ``token`` (B,
+    1) first, through ``launch/serve.py::capture_decode`` (one CUDA graph)
+    and through ``model.decode_step`` (eager), in turns: every step's
+    logits, the greedy tokens and the final cache (k, v, the SSM state,
+    the conv buffer, ``len``) must be equal bit for bit, and the captured
+    step must refuse the eager run's cache.  Then one replay of the
+    captured step under the profiler (the fullest of three traces): its
+    device time.  Returns
+    the row's entry and the checks that failed."""
+    import torch
+    from repro_torch.launch.serve import capture_decode
+    eager = {k: v.clone() for k, v in cache.items()}
+    graphed = {k: v.clone() for k, v in cache.items()}
+    step = capture_decode(model, params, token, graphed)
+    apart, toks_e, toks_g = [], [], []
+    tok_e = tok_g = token
+    with torch.no_grad():
+        for i in range(gen):
+            lg_e, eager = model.decode_step(params, tok_e, eager)
+            lg_g, graphed = step(params, tok_g, graphed)
+            if not torch.equal(lg_e, lg_g):
+                apart.append([i, float((lg_e - lg_g).abs().max())])
+            tok_e, tok_g = lg_e[:, -1:].argmax(-1), lg_g[:, -1:].argmax(-1)
+            toks_e.append(tok_e)
+            toks_g.append(tok_g)
+    same_tokens = torch.equal(torch.cat(toks_e, 1), torch.cat(toks_g, 1))
+    cache_equal = {k: torch.equal(eager[k], graphed[k]) for k in sorted(eager)}
+    failed = []
+    if apart:
+        failed.append(f"captured decode logits part from eager ones at "
+                      f"(step, max abs diff) {apart[:4]}")
+    if not same_tokens:
+        failed.append("captured and eager greedy tokens differ")
+    if not all(cache_equal.values()):
+        failed.append("captured and eager final caches differ in "
+                      f"{[k for k, ok in cache_equal.items() if not ok]}")
+    try:                      # a cache it was not captured on is refused
+        step(params, tok_g, eager)
+        refused = False
+    except ValueError:
+        refused = True
+    if not refused:
+        failed.append("the captured step ran on a cache it was not "
+                      "captured on")
+    # Replays past the checked steps write on: the cache clamps the write.
+    # A trace can lose device activities, and a replay's one host call
+    # cannot show it (``profiled``'s check): keep the fullest of three.
+    with torch.no_grad():
+        traces = [device_breakdown(dev, lambda: step(params, tok_g, graphed))
+                  for _ in range(3)]
+    replay = max(traces, key=lambda t: t["device_kernels"])
+    row = {"steps": gen, "start_len": int(cache["len"]),
+           "logits_equal_steps": gen - len(apart), "tokens_equal": same_tokens,
+           "cache_equal": cache_equal, "refuses_other_cache": refused,
+           "capture_s": step.capture_s,
+           "pool_bytes": step.pool_bytes,
+           "replay_device_busy_ms": replay["device_busy_ms"],
+           "replay_traces_kernels": [t["device_kernels"] for t in traces],
+           "replay_breakdown": replay}
+    del step, eager, graphed
+    return row, failed
+
+
+def serve_timings(stats: dict, eager: dict) -> dict:
+    """The decode's time a token captured (``stats``, ``serve()``'s
+    default on the card) and eager (``eager``, ``graph=False``) and the
+    capture's seconds, beside the card's name and power limit (the
+    graph's pool: ``captured_vs_eager``'s ``pool_bytes``)."""
+    return {"nvidia_smi": smi_line(),
+            "decode_ms_per_token_captured": stats["decode_per_token_ms"],
+            "decode_ms_per_token_eager": eager["decode_per_token_ms"],
+            "decode_capture_s": stats.get("decode_capture_s"),
+            "eager_prefill_ms": eager["prefill_s"] * 1e3,
+            "same_tokens": bool((stats["generated"]
+                                 == eager["generated"]).all())}
+
+
 def phase_serve(dev, arch: str = "mamba2-130m", batch: int = 4,
                 prompt: int = 2048, gen: int = 32, cpu_layers: int = 2,
                 cpu_gen: int = 16) -> dict:
@@ -3072,10 +3162,14 @@ def phase_serve(dev, arch: str = "mamba2-130m", batch: int = 4,
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_arch(arch)
     kernel = SERVE_KERNEL[arch]
-    # A first, short call warms cuBLAS and the caching allocator at these
-    # shapes; the second is the one measured and counted.
-    serve(cfg.name, reduced=False, batch=batch, prompt_len=prompt,
-          gen_tokens=2, seed=0, verbose=False, device=dev)
+    # The call decoding eagerly, one PyTorch call at a time, comes first:
+    # it also warms cuBLAS and the caching allocator at these shapes for
+    # the second, the one measured and counted (decoding captured).
+    t1 = time.perf_counter()
+    eager = serve(cfg.name, reduced=False, batch=batch, prompt_len=prompt,
+                  gen_tokens=gen, seed=0, verbose=False, device=dev,
+                  graph=False)
+    eager_s = time.perf_counter() - t1
 
     backend.reset_launches()
     t0 = time.perf_counter()
@@ -3100,7 +3194,8 @@ def phase_serve(dev, arch: str = "mamba2-130m", batch: int = 4,
            "decode_tok_per_s": stats["decode_tok_per_s"],
            "kernel": kernel, "kernel_launches": launches.get(kernel, 0),
            "launches": launches, "sample_tokens": toks[0, :8].tolist(),
-           "wall_s": wall}
+           "wall_s": wall, "decode": serve_timings(stats, eager),
+           "eager_wall_s": eager_s}
 
     # Prefill matches forward (tests/test_arch_smoke.py:81), at full width
     # and depth.  The dense family's checks draw the same seeded weights
@@ -3142,7 +3237,12 @@ def phase_serve(dev, arch: str = "mamba2-130m", batch: int = 4,
         row["prefill_breakdown"]["kernel_ms_by_cuda_events"] = kernel_share(
             dev, prefill, kernel)
         row["decode_breakdown"] = device_breakdown(dev, step)
-    del full, cache, params
+        # The captured decode against the eager one, from one prefill.
+        lg, cache = model.prefill(params, {"tokens": ids[:, :prompt]},
+                                  max_len=prompt + gen)
+    row["captured_vs_eager"], failed_graph = captured_vs_eager(
+        dev, model, params, lg[:, -1:].argmax(-1), cache, gen)
+    del full, cache, params, lg
 
     # Card (the kernel) against CPU (its plain version), full width, cut
     # depth: the prefill logits and every cache tensor.
@@ -3155,6 +3255,7 @@ def phase_serve(dev, arch: str = "mamba2-130m", batch: int = 4,
         dev, small, tree_to(p_cpu, dev), p_cpu, ids, None, prompt + cpu_gen,
         cpu_gen)
     emit(row)
+    failed += failed_graph
     require(not failed, "; ".join(failed))
     return launches
 
@@ -3970,8 +4071,12 @@ def phase_zoo_serve(dev, arch: str, layers: int | None, expected: dict,
         cfg = cut_depth(cfg, layers)
     kw = dict(reduced=not full, batch=batch, prompt_len=prompt, seed=0,
               verbose=False, device=dev, num_layers=layers)
+    # The call decoding eagerly, one PyTorch call at a time, comes first:
+    # it also warms cuBLAS and the allocator for the one measured and
+    # counted (decoding captured).
     t0 = time.perf_counter()
-    serve(arch, gen_tokens=2, **kw)           # warms cuBLAS and the allocator
+    eager = serve(arch, gen_tokens=gen, graph=False, **kw)
+    eager_s = time.perf_counter() - t0
     free_memory()
     backend.reset_launches()
     t1 = time.perf_counter()
@@ -3996,7 +4101,8 @@ def phase_zoo_serve(dev, arch: str, layers: int | None, expected: dict,
            / stats["prefill_s"],
            "layer_kernel_launches": got, "expected": want,
            "launches": launches, "sample_tokens": toks[0, :8].tolist(),
-           "wall_s": wall}
+           "wall_s": wall, "decode": serve_timings(stats, eager),
+           "eager_wall_s": eager_s}
     require(got == want, f"{arch} serve launched {got}, not {want}")
     require(toks.shape == (batch, gen) and bool(
         ((toks >= 0) & (toks < cfg.vocab_size)).all()),
@@ -4022,11 +4128,27 @@ def phase_zoo_serve(dev, arch: str, layers: int | None, expected: dict,
     require(ok1, f"{arch}: prefill logits differ from the forward's by {d1}")
     require(ok2, f"{arch}: decode logits differ from the forward's by {d2}")
 
-    # Where the time goes: the served config's prefill and decode step.
+    # The captured decode against the eager one from one prefill (sized
+    # as serve() sizes it), then where the time goes: the served config's
+    # prefill and decode step.
     served = build_model(cfg, device=dev)
     with torch.no_grad():
-        _, cache = served.prefill(params, with_inputs(ids[:, :prompt], pe),
-                                  max_len=npatch + prompt + 1)
+        lg, cache = served.prefill(params, with_inputs(ids[:, :prompt], pe),
+                                   max_len=npatch + prompt + gen)
+    row["captured_vs_eager"], failed_graph = captured_vs_eager(
+        dev, served, params, lg[:, -1:].argmax(-1), cache, gen)
+    del lg
+    if cfg.family == "hybrid" and cfg.attn_window is not None:
+        # A ring cache of the window's slots, 4 slots short of its wrap.
+        ring = served.init_cache(batch, cfg.attn_window + 16, torch.float32,
+                                 ring=True)
+        ring["len"].fill_(cfg.attn_window - 4)
+        row["ring"], failed_ring = captured_vs_eager(
+            dev, served, params, ids[:, prompt:], ring, 8)
+        row["ring"]["slots"] = ring["k"].shape[2]
+        failed_graph += [f"ring: {f}" for f in failed_ring]
+        del ring
+    with torch.no_grad():
 
         def prefill():
             return served.prefill(params, with_inputs(ids[:, :prompt], pe))
@@ -4062,6 +4184,7 @@ def phase_zoo_serve(dev, arch: str, layers: int | None, expected: dict,
     del p_dev
     free_memory()
     emit(row)
+    failed += failed_graph
     require(not failed, f"{arch}: " + "; ".join(failed))
     return launches
 

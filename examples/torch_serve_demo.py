@@ -4,8 +4,10 @@ registry arch (the counterpart of ``examples/serve_demo.py``).
     PYTHONPATH=src python examples/torch_serve_demo.py --arch mamba2-130m
     PYTHONPATH=src python examples/torch_serve_demo.py --device cpu --layers 2
 
-On the card by default (``--device cpu`` runs the kernels' plain versions);
-``--full`` serves the published widths, ``--layers`` cuts the depth.
+On the card by default, decoding through one captured CUDA graph a step
+(``launch/serve.py::capture_decode``; ``--device cpu`` runs the kernels'
+plain versions and decodes eagerly); ``--full`` serves the published
+widths, ``--layers`` cuts the depth.
 """
 from repro_torch.launch.serve import main
 

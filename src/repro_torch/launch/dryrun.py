@@ -179,7 +179,8 @@ def _step(model: Model, cfg: ArchConfig, shape: ShapeSpec, dtype):
             and cfg.sub_quadratic)
     cache = model.init_cache(shape.global_batch, shape.seq_len, dtype,
                              ring=ring)
-    cache["len"] = shape.seq_len - 1
+    cache["len"] = torch.full((), shape.seq_len - 1, dtype=torch.int32,
+                              device=cache["len"].device)
     # The cache is an input: ``_local_inputs_bytes`` counts its block.
     return (lambda: model.decode_step(local, inputs["token"], cache)), leaves
 

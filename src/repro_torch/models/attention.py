@@ -20,8 +20,11 @@ and whose backward recomputes B7's plain version from the saved q, k and v
 and differentiates it, the gradient the reference takes through its jnp
 ``attend``; training, the no-grad selection pass and the refresh all see
 the kernel's forward.  ``decode_attend`` is plain PyTorch, as the
-reference's is plain jnp.  ``update_cache`` writes in place (a ring cache's
-index wrapped by the caller, ``models/transformer.py``).  ``cross_attend``
+reference's is plain jnp; its ``cache_len`` is the cache's 0-d int32
+device tensor (or a Python int), so a decode step reads nothing back to
+the host and can be captured.  ``update_cache`` writes in place at a
+device index (a ring cache's index wrapped by the caller,
+``models/transformer.py``).  ``cross_attend``
 (the encoder-decoder's, ``models/encdec.py``: queries and keys of different
 lengths, no mask, no rope) is plain PyTorch on every device, as the
 reference's is plain jnp.  Under a model axis the local heads go through
@@ -145,11 +148,12 @@ def cross_attend(q: torch.Tensor, k: torch.Tensor,
 
 
 def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
-                  v_cache: torch.Tensor, cache_len: int, *,
+                  v_cache: torch.Tensor, cache_len: torch.Tensor | int, *,
                   window: int | None = None,
                   is_global: bool = True) -> torch.Tensor:
     """One-token attention against a (B, S_max, Hkv, Dh) cache whose first
-    ``cache_len`` positions are valid."""
+    ``cache_len`` positions are valid (a 0-d tensor on the cache's device,
+    or an int): the masks are tensor comparisons."""
     k_cache = k_cache.to(q.dtype)
     v_cache = v_cache.to(q.dtype)
     b, _, hq, dh = q.shape
@@ -167,7 +171,8 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def decode_attend_sp(q: torch.Tensor, k_loc: torch.Tensor,
-                     v_loc: torch.Tensor, cache_len: int, start: int,
+                     v_loc: torch.Tensor, cache_len: torch.Tensor | int,
+                     start: int,
                      ctx) -> torch.Tensor:
     """One-token attention of q (B, 1, Hq, Dh), every head, against this
     model rank's span of a cache whose sequence dim is split over
@@ -194,21 +199,23 @@ def decode_attend_sp(q: torch.Tensor, k_loc: torch.Tensor,
 
 
 def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 k_new: torch.Tensor, v_new: torch.Tensor, idx: int):
+                 k_new: torch.Tensor, v_new: torch.Tensor,
+                 idx: torch.Tensor | int):
     """Write the new positions at ``idx`` along axis 1, in place and in the
     caches' dtype (the reference returns new arrays; here the caches given
     are the ones written, and are returned).
 
-    The start is placed as the reference's
+    The start is placed on the device, as the reference's
     ``lax.dynamic_update_slice_in_dim`` places it: a negative ``idx``
     counts from the end (``idx + S_max``), then the start is clamped into
     ``[0, S_max - n]``, so a write that would run past the end overwrites
-    the last ``n`` slots."""
+    the last ``n`` slots.  ``idx`` is a 0-d integer tensor (the decode
+    step's, on the caches' device: nothing is read back to the host) or a
+    Python int."""
     n, s_max = k_new.shape[1], k_cache.shape[1]
-    start = int(idx)
-    if start < 0:
-        start += s_max
-    start = min(max(start, 0), s_max - n)
-    k_cache[:, start:start + n] = k_new
-    v_cache[:, start:start + n] = v_new
+    idx = torch.as_tensor(idx, device=k_cache.device)
+    start = torch.where(idx < 0, idx + s_max, idx).clamp(0, s_max - n)
+    rows = start.long() + torch.arange(n, device=k_cache.device)
+    k_cache.index_copy_(1, rows, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, rows, v_new.to(v_cache.dtype))
     return k_cache, v_cache

@@ -212,14 +212,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, enc_len: int,
     """Zero caches on ``device`` (None: CUDA): the self-attention's ``k``
     and ``v`` (L, B, max_len / seq_shards, Hkv, Dh: one model rank's span
     under ``seq_parallel_kv``), the cross-attention's ``xk`` and ``xv``
-    (L, B, enc_len, Hkv, Dh)."""
+    (L, B, enc_len, Hkv, Dh); ``len``, the reference's 0-d int32 tensor on
+    ``device``, 0."""
     dev = resolve_device(device)
     L, hkv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
     if max_len % seq_shards:
         raise ValueError(
             f"seq_parallel_kv: a cache of {max_len} positions does not split "
             f"over {seq_shards} model ranks")
-    cache: dict[str, Any] = {"len": 0}
+    cache: dict[str, Any] = {"len": torch.zeros((), dtype=torch.int32,
+                                                device=dev)}
     for name, s in (("k", max_len // seq_shards), ("v", max_len // seq_shards),
                     ("xk", enc_len), ("xv", enc_len)):
         cache[name] = torch.zeros((L, batch, s, hkv, dh), dtype=dtype,
@@ -250,7 +252,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict,
         tf.write_prompt(cache, i, emit["k"], emit["v"], ctx)
         cache["xk"][i] = emit["xk"]
         cache["xv"][i] = emit["xv"]
-    cache["len"] = s
+    cache["len"] = torch.full((), s, dtype=torch.int32, device=x.device)
     x = rms_norm(x[:, -1:], top["out_norm"], cfg.norm_eps)
     return tf.logits_fn(cfg, top, x, ctx), cache
 
@@ -259,9 +261,11 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor,
                 cache: dict, ctx=None,
                 specs: dict | None = None) -> tuple[torch.Tensor, dict]:
     """One decode step.  token: (B, 1).  Returns (logits (B, 1, V), the
-    cache with ``len`` + 1): its ``k`` and ``v`` are written in place (the
-    new cache holds the same tensors).  On a mesh the cross-attention is
-    head-parallel: the local q heads against the KV heads they read."""
+    cache with ``len`` + 1, a new 0-d tensor): its ``k`` and ``v`` are
+    written in place (the new cache holds the same tensors), the old
+    cache's ``len`` is not modified, and nothing is read back to the
+    host.  On a mesh the cross-attention is head-parallel: the local q
+    heads against the KV heads they read."""
     top = tf.gather_fsdp(ctx, _top(params), specs)
     x = _embed(cfg, top, token, _cdtype(top), ctx)
     n = cache["len"]

@@ -263,7 +263,8 @@ class Model:
         """Zero caches for a global batch of ``batch``; the encdec's
         encoder length is ``max_len // DEC_FRACTION``, as the reference
         sizes it.  On a mesh: this rank's block (its rows; its span of
-        the sequence under ``seq_parallel_kv``)."""
+        the sequence under ``seq_parallel_kv``).  ``len`` is a 0-d int32
+        tensor on the model's device, as the reference's."""
         ctx = self.ctx
         if self.sharded:
             self.batch = batch
@@ -284,8 +285,9 @@ class Model:
         entry's rows all-gathered over the data axes where the batch of
         this model's last ``prefill`` or ``init_cache`` split over them (a
         replicated batch's cache is whole on every rank), ``k`` and
-        ``v``'s sequence over "model" under ``seq_parallel_kv``.  Off-mesh:
-        the cache itself."""
+        ``v``'s sequence over "model" under ``seq_parallel_kv``; ``len``
+        (the same 0-d tensor value on every rank) as it is.  Off-mesh: the
+        cache itself."""
         if not self.sharded:
             return cache
         ctx = self.ctx

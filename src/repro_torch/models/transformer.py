@@ -47,7 +47,11 @@ heads whole (k and v from split KV heads gathered over "model" before the
 write), and under ``seq_parallel_kv`` the sequence split over "model":
 a decode step's write goes to the rank that owns the position, and the
 attention is ``attention.decode_attend_sp`` over every head, no ring and
-no window (the reference's branch comes before both).
+no window (the reference's branch comes before both).  The cache's
+``len`` is the reference's 0-d int32 tensor, on the cache's device: a
+decode step takes its positions, ring slot and masks from it on the
+device and reads nothing back to the host, so that one step can be
+captured as a CUDA graph (``launch/serve.py::capture_decode``).
 
 ``token_metrics`` and ``per_sample_metrics`` are KAKURENBO's sequence-level
 signals (reference ``transformer.py:199-231``), the per-token triple from
@@ -518,10 +522,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     ``attn_window``: a ring buffer, every layer attending its window.
     ``seq_shards``: the number of model ranks the sequence is split over
     (``seq_parallel_kv``); k and v hold one rank's S_cache / seq_shards
-    positions."""
+    positions.  ``len`` is a 0-d int32 tensor on ``device``, 0."""
     dev = resolve_device(device)
     L = cfg.num_layers
-    cache: dict[str, Any] = {"len": 0}
+    cache: dict[str, Any] = {"len": torch.zeros((), dtype=torch.int32,
+                                                device=dev)}
     if cfg.family != "ssm" and cfg.num_heads:
         s_cache = max_len
         if ring:
@@ -580,19 +585,23 @@ def _ssm_step(cfg: ArchConfig, p: dict, h: torch.Tensor, layer_cache: dict,
 
 
 def decode_attention(cfg: ArchConfig, p: dict, h: torch.Tensor,
-                     layer_cache: dict, cache_len: int, is_global: bool,
-                     ctx=None) -> torch.Tensor:
+                     layer_cache: dict, cache_len: torch.Tensor,
+                     is_global: bool, ctx=None) -> torch.Tensor:
     """One decode step's self-attention of the normed ``h`` (B, 1, d):
     the new k and v written into ``layer_cache``'s (this rank's block of
     the layer's cache, in place), the output projection returned.
 
-    Under a model axis that splits the q heads, the local heads attend the
-    KV heads they read (``select_kv``) and ``wo`` is row-parallel.  Under
-    ``seq_parallel_kv`` the position's owner writes it, and every rank
-    attends all heads over its span (``attention.decode_attend_sp``), then
-    keeps its heads' slice: as in the reference this branch comes before
-    the ring and the window, so neither applies."""
-    positions = torch.full((h.shape[0], 1), cache_len, device=h.device)
+    ``cache_len`` is the cache's 0-d int32 tensor: the position, the ring
+    slot (``torch.remainder``) and the valid counts are device values, and
+    no branch reads them.  Under a model axis that splits the q heads, the
+    local heads attend the KV heads they read (``select_kv``) and ``wo`` is
+    row-parallel.  Under ``seq_parallel_kv`` the position's owner writes it
+    (every rank writes its clamped slot, the others their own values back),
+    and every rank attends all heads over its span
+    (``attention.decode_attend_sp``), then keeps its heads' slice: as in
+    the reference this branch comes before the ring and the window, so
+    neither applies."""
+    positions = cache_len.expand(h.shape[0], 1).long()  # as prefill's arange
     q, k, v = attn.project_qkv(p, h, positions, cfg.rope_theta,
                                cfg.qk_norm, cfg.norm_eps)
     k, v = _whole_kv(cfg, k, v, ctx)
@@ -601,13 +610,18 @@ def decode_attention(cfg: ArchConfig, p: dict, h: torch.Tensor,
     s_loc = layer_cache["k"].shape[1]
     s_cache = s_loc * shards
     ring = cfg.attn_window is not None and s_cache <= cfg.attn_window
-    idx = cache_len % s_cache if ring else cache_len
+    idx = torch.remainder(cache_len, s_cache) if ring else cache_len
     if shards > 1:
-        # The write clamped into the cache, as update_cache places it.
+        # The write clamped into the cache, as update_cache places it, on
+        # the rank whose span holds the slot; the others rewrite theirs.
+        kc, vc = layer_cache["k"], layer_cache["v"]
         start = ctx.tp_rank * s_loc
-        at = min(idx, s_cache - 1) - start
-        if 0 <= at < s_loc:
-            attn.update_cache(layer_cache["k"], layer_cache["v"], k, v, at)
+        at = idx.clamp(max=s_cache - 1) - start
+        mine = (at >= 0) & (at < s_loc)
+        slot = at.clamp(0, s_loc - 1).long().reshape(1)
+        k_old, v_old = kc.index_select(1, slot), vc.index_select(1, slot)
+        attn.update_cache(kc, vc, torch.where(mine, k.to(kc.dtype), k_old),
+                          torch.where(mine, v.to(vc.dtype), v_old), slot)
         a = attn.decode_attend_sp(ctx.tp_gather(q, 2) if split else q,
                                   layer_cache["k"], layer_cache["v"],
                                   cache_len + 1, start, ctx)
@@ -622,7 +636,8 @@ def decode_attention(cfg: ArchConfig, p: dict, h: torch.Tensor,
         if ring:
             # Every slot written lies inside the window: mask only the
             # unwritten.
-            a = attn.decode_attend(q, kc, vc, min(cache_len + 1, s_cache))
+            a = attn.decode_attend(q, kc, vc,
+                                   torch.clamp(cache_len + 1, max=s_cache))
         else:
             a = attn.decode_attend(q, kc, vc, cache_len + 1,
                                    window=cfg.attn_window,
@@ -632,7 +647,7 @@ def decode_attention(cfg: ArchConfig, p: dict, h: torch.Tensor,
 
 
 def _decode_block(cfg: ArchConfig, p: dict, x: torch.Tensor, layer_cache: dict,
-                  cache_len: int, is_global: bool,
+                  cache_len: torch.Tensor, is_global: bool,
                   ctx=None) -> tuple[torch.Tensor, dict]:
     """One layer of one decode step.  Writes k and v into ``layer_cache``'s
     (views of the stacked cache) in place; returns (x, the SSM's new state
@@ -662,8 +677,10 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor,
     """One decode step. token: (B, 1). Returns (logits (B,1,V), new cache).
 
     The attention cache's k and v are written in place (the new cache
-    holds the same tensors); the SSM state and conv buffer are new
-    tensors, the old cache's are not modified.  On a mesh (``ctx``,
+    holds the same tensors); the SSM state, the conv buffer and ``len``
+    (the 0-d int32 position, + 1) are new tensors, the old cache's are not
+    modified.  Nothing is read back to the host: one step can be captured
+    (``launch/serve.py::capture_decode``).  On a mesh (``ctx``,
     ``specs`` as ``forward``'s) ``params`` are this rank's shards, and
     ``token`` and ``cache`` this data rank's rows; the logits are whole
     over the vocab."""
@@ -714,7 +731,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict,
     if states:
         cache["ssm_state"] = torch.stack(states)
         cache["conv_buf"] = torch.stack(bufs).to(cache["conv_buf"].dtype)
-    cache["len"] = s
+    cache["len"] = torch.full((), s, dtype=torch.int32, device=x.device)
     logits = logits_fn(cfg, top,
                        rms_norm(x[:, -1:], top["out_norm"], cfg.norm_eps), ctx)
     return logits, cache

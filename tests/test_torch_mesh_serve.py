@@ -23,7 +23,11 @@ argmax.  Each must give:
 ``seq_parallel_kv`` splits the cache's sequence over the model axis:
 ``dense-d`` at (2, 4) and (1, 8), a prompt of 33 and 4 steps into a cache
 of 64 (37 positions filled: the ranks' spans are full, partial and empty),
-within 1e-5 of the decode without it.  As in the reference
+within 1e-5 of the decode without it; at (2, 2) a prompt of 30 and 4
+steps write positions 30-33, across the edge of model rank 0's span of
+32 into rank 1's (the owner's write masked on the device: no rank reads
+the position on the host), its tokens and logits one device's.  As in
+the reference
 (``transformer.py``'s sequence-parallel branch comes before the ring and
 the window), a windowed arch decodes its whole cache there: hymba under
 ``seq_parallel_kv`` gives the decode with no window, not the windowed
@@ -75,6 +79,9 @@ HYMBA_S = 40
 PARTIAL = dict(fsdp=True, moe_fsdp_mode="partial")
 #: The sequence-parallel runs: a prompt of 33 and 4 steps in a cache of 64.
 SP_S, SP_MAX = 33, 64
+#: The sequence-parallel run at (2, 2) whose decode crosses from model rank
+#: 0's span of 32 positions into rank 1's.
+SP_CROSS_S = 30
 
 
 def _configs() -> dict:
@@ -203,6 +210,12 @@ def worlds():
     for case, name, shape in SP_RUNS:
         cases.append((case, dense["cfg"], dense["params"], sp_batch, shape,
                       dict(fsdp=True, seq_parallel_kv=True), SP_MAX, STEPS))
+    cross_batch = _batch(dense["cfg"], SP_CROSS_S, seed=4)
+    refs["sp_cross"] = sc.greedy(dense["cfg"], None, dense["params"],
+                                 cross_batch, SP_MAX, STEPS)
+    cases.append(("dense-d-2x2-sp-cross", dense["cfg"], dense["params"],
+                  cross_batch, (2, 2), dict(fsdp=True, seq_parallel_kv=True),
+                  SP_MAX, STEPS))
     hy = models[HYMBA]
     hy_max = 48                         # 12 positions a rank at (2, 4)
     refs["hymba_no_window"] = sc.greedy(
@@ -299,6 +312,21 @@ def test_sequence_parallel_decode_matches_plain_decode(worlds, case):
     assert got["cache"]["len"] == SP_S + STEPS == 37
     assert 37 % s_loc != 0 and 37 < SP_MAX - s_loc
     _check_serving(ranks, case, refs["sp"])
+
+
+def test_sequence_parallel_decode_crosses_a_span(worlds):
+    """At (2, 2) under ``seq_parallel_kv`` the cache's 64 positions are two
+    spans of 32: a prompt of 30 and 4 greedy steps write positions 30-33,
+    from model rank 0's span into rank 1's, each step's owner picked on the
+    device.  The tokens one device's on every rank, the logits and the
+    gathered cache within 1e-5."""
+    _, refs, ranks, _, _ = worlds
+    got = ranks[0]["dense-d-2x2-sp-cross"]
+    s_loc = got["local_k"][2]
+    assert s_loc == SP_MAX // 2
+    assert SP_CROSS_S < s_loc < SP_CROSS_S + STEPS
+    assert got["cache"]["len"] == SP_CROSS_S + STEPS
+    _check_serving(ranks, "dense-d-2x2-sp-cross", refs["sp_cross"])
 
 
 def test_sequence_parallel_decode_ignores_the_window(worlds):
