@@ -78,7 +78,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 7. train step and epoch: ``Trainer.train_step`` timed and profiled (paper
    CNN; the wide-head model) and one replay of the scanned engine's 8-step
    graph under the profiler (device activities, busy vs wall); one
-   KAKURENBO epoch split on the host under each engine (the host loop:
+   KAKURENBO epoch split on the host under each engine, and one baseline
+   epoch under the scanned engine (the host loop:
    ``get``, ``to_device``, ``train_step``; the scanned engine: the one-time
    materialize and captures, replays, the plan's copy, the epoch-end
    fetch; both: plan, refresh, ``evaluate``);
@@ -110,8 +111,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    run for the seven Table 2 strategies (scanned), Grad-Match at N =
    1,024 and KAKURENBO on the host loop, with the recovery's times; the
    host-observe path bit-identical to the fused one; AdamW, RMSProp and
-   Adafactor, one epoch, scanned = host loop (the crashes and the
-   optimizers at N = 12,800).  Its launch counts, set to 0
+   Adafactor, one epoch, scanned = host loop (every run at N = 12,800,
+   ``CHECK_N``).  Its launch counts, set to 0
    before it, must hold B1 (forward and backward), the histogram-select
    and the rank-select (FORGET's prune);
 11. table 3: ``repro_torch.experiments.table3`` at full width, N = 1,024,
@@ -187,7 +188,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    layer; one eager step of each profiled by group (GEMMs, the MoE's
    routing, expert products and dispatch/combine, B6/B7 and their plain
    backward, AdamW).  Each phase frees its models before the next;
-17. compression (after phase 12): the main path with
+17. compression (after phase 12): the main path at N = 12,800 with
    ``grad_compression=True`` (8-bit error feedback, ``dist/compression.py``):
    host loop = scanned engine bit for bit, the residual included; a crash
    between two blocks of epoch 2 restored (its ``"ef"``) into a trainer
@@ -304,6 +305,26 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    (launch counted); Grad-Match with a host reselection at N = 1,024;
    ``SelectiveBackprop`` card = CPU over 8 batches; each card
    ``begin_epoch``'s call ms beside the card's name and power limit.
+24. paper (after phase 11, ``phase_paper``): the paper's remaining
+   experiments through ``repro_torch.experiments.{table5,table6,fig2,
+   fig4}``.  First Fig. 2's and Fig. 4's rows from phase 5's baseline and
+   KAKURENBO histories (N = 50,000, no training), each strategy's wall
+   seconds with and without epoch 0 (its graph captures), Fig. 2's
+   ``bwd_reduction`` = 1 - the backward samples' ratio, above 0.  Then
+   Table 5 (tau 0.5/0.7/0.9), Table 6 (baseline, v1000-v1111), Fig. 2
+   and Fig. 4 at the paper CNN's full width and the reference's sizes
+   (N = 1,024, test 512, 16 epochs, batch 128) and configs (``"sort"``,
+   no DropTop, PA by argmax: no kernel launch, and none counted), every
+   row and every run's history: finite losses, accuracies in [0, 1]; the
+   three baseline runs alike bit for bit (loss, accuracy, F*, samples,
+   LR), Fig. 2's and Fig. 4's KAKURENBO runs alike, every KAKURENBO run's
+   epoch 0 alike with nothing hidden; Table 5's epoch-1 hidden sets
+   nested (tau 0.5 over 0.7 over 0.9); Table 6 without move-back: no
+   candidate (the lowest-loss ``floor(F_e N)``) returned to training and
+   the hidden count the fraction schedule's from epoch 1 (constant
+   without RF); without LR the baseline's LR bit for bit, with it the
+   schedule's times the plan's Eq. 8 factor.  And epoch 4 of the baseline
+   and of KAKURENBO (Fig. 2's) split on the host as in phase 7.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -1731,6 +1752,8 @@ def train(dev, strategy: str, n: int, n_test: int, epochs: int, model,
 
 
 def phase_train(dev, n: int = 50_000, n_test: int = 10_000, epochs: int = 3):
+    """The main path's baseline and KAKURENBO runs; returns the kernel
+    launches and each strategy's history."""
     import torch
     from repro_torch.configs.paper_cnn import CONFIG
     from repro_torch.kernels import backend
@@ -1743,11 +1766,7 @@ def phase_train(dev, n: int = 50_000, n_test: int = 10_000, epochs: int = 3):
         hist[strategy] = train(dev, strategy, n, n_test, epochs, model,
                                checks=checks if strategy == "kakurenbo" else None)
         for h in hist[strategy]:
-            emit({"phase": "train", "strategy": strategy, "epoch": h.epoch,
-                  "train_loss": h.train_loss, "test_acc": h.test_acc,
-                  "F_star": h.hidden_fraction, "fwd_samples": h.fwd_samples,
-                  "bwd_samples": h.bwd_samples, "lr": h.lr,
-                  "wall_s": h.wall_time})
+            emit({"phase": "train", "strategy": strategy, **epoch_record(h)})
     launches = dict(backend.LAUNCHES)
     for s, hs in hist.items():
         require(all(math.isfinite(h.train_loss) for h in hs), f"{s}: non-finite loss")
@@ -1769,7 +1788,7 @@ def phase_train(dev, n: int = 50_000, n_test: int = 10_000, epochs: int = 3):
           "final_test_acc": {s: hs[-1].test_acc for s, hs in hist.items()},
           "fraction_checks": checks, "launches": launches,
           "seconds": time.perf_counter() - t0})
-    return launches
+    return launches, hist
 
 
 # ---------------------------------------------------------------------------
@@ -1972,53 +1991,63 @@ class HostSplit:
         return timed
 
 
-def epoch_split(dev, engine: str, n: int = 50_000,
-                n_test: int = 10_000) -> dict:
-    """The paper CNN's KAKURENBO epoch (the main path's trainer) under
-    ``engine``: epochs 0 and 1 as they run, then epoch 2 with its parts
-    wrapped by ``HostSplit`` (here, never in the package).  The host loop:
-    the dataset's ``get``, ``Trainer.to_device``, ``train_step``, the plan,
-    the refresh and ``evaluate`` (its ``get`` inside it).  The scanned
-    engine: the one-time ``materialize`` (``Trainer.device_data``, at epoch
-    0) and captures (epoch 0, ``first_epoch_s``), then the plan, the
-    plan's copy to the device, the replays (a sync after each), the
-    epoch-end fetch, the refresh and ``evaluate``."""
-    import torch
-    from repro_torch.configs.paper_cnn import CONFIG
-    from repro_torch.models.cnn import CNN
-    tr = main_trainer(dev, "kakurenbo", n, n_test, 3,
-                      CNN(CONFIG, torch.Generator().manual_seed(0)),
-                      engine=engine)
+def split_epoch(dev, tr, epoch: int = 2) -> dict:
+    """``tr``'s epochs before ``epoch`` as they run, then ``epoch`` with
+    its parts wrapped by ``HostSplit`` (here, never in the package).  The
+    host loop: the dataset's ``get``, ``Trainer.to_device``,
+    ``train_step``, the plan, the refresh and ``evaluate`` (its ``get``
+    inside it).  The scanned engine: the one-time ``materialize``
+    (``Trainer.device_data``, at epoch 0) and captures (epoch 0,
+    ``first_epoch_s``), then the plan, the plan's copy to the device, the
+    replays (a sync after each), the epoch-end fetch, the refresh and
+    ``evaluate``."""
     split, first = HostSplit(dev), {}
-    if engine == "scan":
+    if tr.engine.name == "scan":
         eng = tr.engine
         tr.device_data = split.wrap("materialize", tr.device_data)
         eng._capture = split.wrap("capture", eng._capture)
         walls = [tr.run_epoch(0).wall_time]
         first = dict(split.seconds)
-        split.seconds.clear()
-        walls.append(tr.run_epoch(1).wall_time)
+        walls += [tr.run_epoch(e).wall_time for e in range(1, epoch)]
         eng._dispatch = split.wrap("replays", eng._dispatch)
         eng._fetch = split.wrap("fetch", eng._fetch)
         eng._place = split.wrap("plan_to_device", eng._place)
     else:
-        walls = [tr.run_epoch(e).wall_time for e in range(2)]
+        walls = [tr.run_epoch(e).wall_time for e in range(epoch)]
         tr.pipeline.get_fn = split.wrap("get", tr.pipeline.get_fn)
         tr.to_device = split.wrap("to_device", tr.to_device)
         tr.train_step = split.wrap("train_step", tr.train_step)
+    # Only the split epoch's own seconds (a capture in an epoch before it,
+    # as a new visible count brings, stays out).
+    split.seconds.clear()
+    split.calls.clear()
     tr.strategy.plan = split.wrap("plan", tr.strategy.plan)
     tr.strategy.on_epoch_end = split.wrap("refresh", tr.strategy.on_epoch_end)
     tr.evaluate = split.wrap("evaluate", tr.evaluate)
-    st = tr.run_epoch(2)
+    st = tr.run_epoch(epoch)
     sec = dict(split.seconds)
     sec["other"] = st.wall_time - sum(sec.values())
-    return {"phase": "epoch_split", "engine": tr.engine.name,
-            "model": CONFIG.name, "n": n, "n_test": n_test,
-            "strategy": "kakurenbo", "fused_scoring": True,
-            "epoch_wall_s": walls, "first_epoch_s": first, "split_epoch": 2,
-            "split_epoch_wall_s": st.wall_time, "hidden_fraction": st.hidden_fraction,
-            "train_steps": st.bwd_samples // 128,
+    return {"engine": tr.engine.name, "epoch_wall_s": walls,
+            "first_epoch_s": first, "split_epoch": epoch,
+            "split_epoch_wall_s": st.wall_time,
+            "hidden_fraction": st.hidden_fraction,
+            "train_steps": st.bwd_samples // tr.cfg.batch_size,
             "seconds": sec, "calls": dict(split.calls)}
+
+
+def epoch_split(dev, engine: str, n: int = 50_000, n_test: int = 10_000,
+                strategy: str = "kakurenbo") -> dict:
+    """``split_epoch`` of epoch 2 of the main path's trainer (paper CNN,
+    fused scoring) under ``engine``."""
+    import torch
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.models.cnn import CNN
+    tr = main_trainer(dev, strategy, n, n_test, 3,
+                      CNN(CONFIG, torch.Generator().manual_seed(0)),
+                      engine=engine)
+    return {"phase": "epoch_split", "model": CONFIG.name, "n": n,
+            "n_test": n_test, "strategy": strategy, "fused_scoring": True,
+            **split_epoch(dev, tr)}
 
 
 def watch_table2(tr, log: dict) -> None:
@@ -2399,13 +2428,14 @@ def restart_runs(trainer, root) -> dict:
 # The resilient runtime: guard, host-observe path, supervisor, optimizers
 # ---------------------------------------------------------------------------
 
-#: The poisoned samples of the resilience phase (NaN features).
-POISON_IDS = (7, 4_242, 31_337, 49_999)
 #: The main path's N in the phases that hold two runs of it to each other
-#: bit for bit (engines, restart, the supervised crashes and the
-#: optimizers): 100 batches of 128 where the train phase has 50,000 (the
-#: time limit; the contracts do not depend on N).
+#: bit for bit (engines, restart, resilience, compression): 100 batches of
+#: 128 where the train phase has 50,000 (the time limit; the contracts do
+#: not depend on N).
 CHECK_N = 12_800
+#: The poisoned samples of the resilience and compression phases (NaN
+#: features), the last sample of ``CHECK_N`` among them.
+POISON_IDS = (7, 4_242, 9_001, 12_799)
 #: The reference's budget for the guard's cost on the scanned engine
 #: (benchmarks/step_throughput.py::guard_main).
 GUARD_BUDGET = 0.03
@@ -2517,15 +2547,14 @@ def supervised_crash(trainer, epochs: int, root, split_dev=None) -> dict:
     return row
 
 
-def phase_resilience(dev, n: int = 50_000, epochs: int = 2,
-                     guard_epochs: int = 2, crash_n: int = CHECK_N) -> dict:
+def phase_resilience(dev, n: int = CHECK_N, epochs: int = 2,
+                     guard_epochs: int = 2) -> dict:
     """The resilient runtime on the main path (paper CNN, full width,
-    ``SyntheticClassification(50_000)``, KAKURENBO ``"histogram_pallas"`` +
+    ``SyntheticClassification(n)``, KAKURENBO ``"histogram_pallas"`` +
     DropTop 0.02, fused scoring), under the trainer's defaults (no cuDNN
     flag set here); the guard's, the host-observe path's and the poisoned
     runs over ``guard_epochs`` and the crash recoveries over ``epochs`` (2
-    each: the time limit), the crash recoveries and the optimizers at
-    ``crash_n`` samples:
+    each: the time limit), all at ``n`` samples (``CHECK_N``):
 
     - the guard (``skip_update``) on a clean run, scanned and host loop:
       losses, plans and the whole train state bit-identical to the
@@ -2561,8 +2590,7 @@ def phase_resilience(dev, n: int = 50_000, epochs: int = 2,
     t_phase = time.perf_counter()
     root = ROOT / "build" / "chip_smoke_chaos"
     out = {"phase": "resilience", "model": CONFIG.name, "n": n,
-           "crash_n": crash_n, "epochs": epochs,
-           "guard_epochs": guard_epochs}
+           "epochs": epochs, "guard_epochs": guard_epochs}
 
     def model(seed=0):
         return CNN(CONFIG, torch.Generator().manual_seed(seed))
@@ -2702,7 +2730,7 @@ def phase_resilience(dev, n: int = 50_000, epochs: int = 2,
     for strategy in table2.STRATEGIES:
         def trainer(d, strategy=strategy):
             return main_trainer(
-                dev, strategy, crash_n, 0, epochs, model(), engine="scan",
+                dev, strategy, n, 0, epochs, model(), engine="scan",
                 guard_policy="skip_update",
                 forget=ForgetConfig(fraction=0.3, warmup_epochs=epochs - 1),
                 checkpoint_dir=str(d) if d else None,
@@ -2721,7 +2749,7 @@ def phase_resilience(dev, n: int = 50_000, epochs: int = 2,
         gm_trainer, epochs, root / "gradmatch", dev)
 
     def host_trainer(d):
-        return main_trainer(dev, "kakurenbo", crash_n, 0, epochs, model(),
+        return main_trainer(dev, "kakurenbo", n, 0, epochs, model(),
                             engine="host", guard_policy="skip_update",
                             checkpoint_dir=str(d) if d else None,
                             checkpoint_every=1 if d else 0)
@@ -2737,7 +2765,7 @@ def phase_resilience(dev, n: int = 50_000, epochs: int = 2,
     for name in ("adamw", "rmsprop", "adafactor"):
         got = {}
         for engine in ("scan", "host"):
-            tr = main_trainer(dev, "kakurenbo", crash_n, 0, 1, model(),
+            tr = main_trainer(dev, "kakurenbo", n, 0, 1, model(),
                               lr=1e-3, engine=engine, optimizer=name,
                               optimizer_hp={})
             hist = tr.run()
@@ -2807,6 +2835,210 @@ def phase_table3(dev, n: int = 1024, n_test: int = 512, epochs: int = 16):
           "epochs": epochs, "kakurenbo": dataclasses.asdict(kcfg), "rows": out,
           "launches": launches, "seconds": time.perf_counter() - t0})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The paper's experiments: Table 5, Table 6, Fig. 2, Fig. 4
+# ---------------------------------------------------------------------------
+
+def run_summary(hist) -> dict:
+    """``table2.run_strategy``'s summary of a history, its wall seconds the
+    sum of its epochs'."""
+    return {"history": hist, "wall_s": sum(h.wall_time for h in hist),
+            "best_acc": max(h.test_acc for h in hist if h.test_acc == h.test_acc),
+            "fwd": sum(h.fwd_samples for h in hist),
+            "bwd": sum(h.bwd_samples for h in hist)}
+
+
+def epoch_record(h) -> dict:
+    return {"epoch": h.epoch, "train_loss": h.train_loss,
+            "test_acc": h.test_acc, "F_star": h.hidden_fraction,
+            "fwd_samples": h.fwd_samples, "bwd_samples": h.bwd_samples,
+            "lr": h.lr, "wall_s": h.wall_time}
+
+
+def derived(row: str) -> dict:
+    """The ``key=value`` fields of a CSV row's derived column."""
+    return dict(kv.split("=", 1) for kv in row.split(",", 2)[2].split(";"))
+
+
+def recorded_trainers(runs: list):
+    """Within the block, each trainer ``table2.make_trainer`` builds is
+    recorded in ``runs``: its LR schedule, its KAKURENBO config, each plan,
+    and for KAKURENBO without move-back each epoch's candidates (the
+    lowest-loss ``floor(F_e N)`` of the seen samples, the paper's sort) that
+    the plan returned to training."""
+    from repro_torch.core import planops
+    from repro_torch.experiments import table2
+    make = table2.make_trainer
+
+    def recording(strategy, **kw):
+        tr = make(strategy, **kw)
+        cfg = kw.get("kakurenbo")
+        rec = {"lr": tr.cfg.lr, "kakurenbo": cfg, "plans": [], "returned": []}
+        plan = tr.strategy.plan
+        tr.strategy.plan = lambda e: (lambda p: rec["plans"].append(p) or p)(
+            plan(e))
+        if strategy == "kakurenbo" and cfg is not None and not cfg.moveback:
+            inner = tr.strategy._inner
+            begin = inner.begin_epoch
+
+            def checked(epoch):
+                st = inner.state
+                cand = planops.sort_low_mask(
+                    st.loss, float(inner._fraction_schedule(epoch))) & (st.seen >= 0)
+                p = begin(epoch)
+                rec["returned"].append(int((cand & ~inner.state.hidden).sum()))
+                return p
+            inner.begin_epoch = checked
+        runs.append(rec)
+        return tr
+
+    return patched_attr(table2, "make_trainer", recording)
+
+
+def phase_paper(dev, train_hist: dict, train_n: int = 50_000, n: int = 1024,
+                n_test: int = 512, epochs: int = 16) -> None:
+    """The paper's remaining experiments (``repro_torch.experiments``):
+
+    (a) Fig. 2's and Fig. 4's rows from the train phase's baseline and
+    KAKURENBO histories (the paper CNN at N = 50,000, the main path), no
+    training; each strategy's wall seconds with and without epoch 0 (its
+    graph captures); Fig. 2's ``bwd_reduction`` = 1 - the KAKURENBO run's
+    backward samples over the baseline's, above 0;
+    (b) Table 5, Table 6, Fig. 2 and Fig. 4 through their modules at the
+    paper CNN's full width and the reference's sizes (N = 1,024, test 512,
+    16 epochs, batch 128) and configs (``"sort"``, no DropTop, PA by
+    argmax: no hand-written kernel runs), every row and every run's
+    history, held to: finite losses, accuracies in [0, 1]; the three
+    baseline runs alike bit for bit, Fig. 2's and Fig. 4's KAKURENBO runs
+    alike, every KAKURENBO run's epoch 0 alike (nothing hidden, one seed);
+    Table 5's epoch-1 hidden sets nested in tau (0.5 over 0.7 over 0.9);
+    Table 6 without move-back: no candidate returned, the hidden count the
+    fraction schedule's (constant without RF); without LR the baseline's
+    LR bit for bit, with it the schedule's times the plan's Eq. 8 factor.
+    Then epoch 4 of the baseline and of KAKURENBO at these sizes split on
+    the host (``split_epoch``)."""
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.core.schedule import FractionSchedule
+    from repro_torch.experiments import fig2, fig4, table2, table5, table6
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.threshold_select import fraction_count
+
+    # (a) The main path's runs, as the paper plots them.
+    t0 = time.perf_counter()
+    base, kk = (run_summary(train_hist[s]) for s in ("baseline", "kakurenbo"))
+    main_epochs = len(train_hist["baseline"])
+    rows = {"fig2": fig2.rows(base, kk, main_epochs), "fig4": fig4.rows(base, kk)}
+    want = 1 - kk["bwd"] / base["bwd"]
+    got = derived(rows["fig2"][1])["bwd_reduction"]
+    require(want > 0 and got == f"{want:.3f}",
+            f"Fig. 2 at N = 50,000: bwd_reduction {got} against {want}")
+    walls = {s: {"wall_s": r["wall_s"],
+                 "wall_s_after_epoch0": r["wall_s"] - r["history"][0].wall_time}
+             for s, r in (("baseline", base), ("kakurenbo", kk))}
+    emit({"phase": "paper_main_path", "model": CONFIG.name,
+          "n": train_n, "epochs": main_epochs,
+          "rows": rows, "bwd_reduction": want, "wall": walls,
+          "seconds": time.perf_counter() - t0})
+
+    # (b) The reference's sizes, through the sections' modules.
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    kw = dict(model_cfg=CONFIG, n=n, n_test=n_test, epochs=epochs, device=dev)
+    runs = []
+    with recorded_trainers(runs):
+        t5 = table5.run_table(**kw)
+        t6_base, t6 = table6.run_table(**kw)
+        f2 = fig2.run_figure(**kw)
+        f4 = fig4.run_figure(**kw)
+    launches = dict(backend.LAUNCHES)
+    seconds = time.perf_counter() - t0
+    # Where an epoch's time goes, once KAKURENBO hides (F = 0.3 to epoch
+    # 5), against the baseline's.
+    splits = {s: split_epoch(dev, table2.make_trainer(s, **kw), epoch=4)
+              for s in ("baseline", "kakurenbo")}
+    rows = {"table5": table5.rows(t5, epochs),
+            "table6": table6.rows(t6_base, t6, epochs),
+            "fig2": fig2.rows(*f2, epochs), "fig4": fig4.rows(*f4)}
+    results = ([(f"table5/tau={tau}", r) for tau, r in t5]
+               + [("table6/baseline", t6_base)]
+               + [(f"table6/{tag}", r) for tag, r in t6]
+               + [("fig2/baseline", f2[0]), ("fig2/kakurenbo", f2[1]),
+                  ("fig4/baseline", f4[0]), ("fig4/kakurenbo", f4[1])])
+    require(len(runs) == len(results) == 16,
+            f"paper: {len(runs)} trainers for {len(results)} runs")
+    recs = dict(zip((name for name, _ in results), runs))
+    hists = {name: r["history"] for name, r in results}
+    for name, hist in hists.items():
+        require(all(math.isfinite(h.train_loss) and 0.0 <= h.test_acc <= 1.0
+                    for h in hist), f"{name}: a non-finite loss or an "
+                f"accuracy outside [0, 1]")
+    require(not launches, f"paper: kernels launched under 'sort' {launches}")
+
+    def numbers(hist, upto=None):
+        return [(h.train_loss, h.test_acc, h.hidden_fraction, h.fwd_samples,
+                 h.bwd_samples, h.lr) for h in hist[:upto]]
+
+    checks = {}
+    bases = ("table6/baseline", "fig2/baseline", "fig4/baseline")
+    checks["baselines_alike"] = all(numbers(hists[b]) == numbers(hists[bases[0]])
+                                    for b in bases)
+    checks["fig_kakurenbo_alike"] = (numbers(hists["fig2/kakurenbo"])
+                                     == numbers(hists["fig4/kakurenbo"]))
+    kakurenbo = [name for name in hists
+                 if name.startswith(("table5/", "table6/v", "fig2/k", "fig4/k"))]
+    checks["epoch0_alike"] = all(
+        numbers(hists[k], 1) == numbers(hists[kakurenbo[0]], 1)
+        and hists[k][0].hidden_fraction == 0.0 for k in kakurenbo)
+    require(all(checks.values()), f"paper: runs that should be alike differ "
+            f"{checks}")
+
+    # Table 5: one epoch-0 state, so a higher tau only moves back more.
+    hidden1 = [set(recs[f"table5/tau={tau}"]["plans"][1].hidden_indices.tolist())
+               for tau in table5.TAUS]
+    checks["table5_epoch1_hidden"] = [len(h) for h in hidden1]
+    require(hidden1[0] >= hidden1[1] >= hidden1[2],
+            f"Table 5: epoch 1's hidden sets not nested in tau "
+            f"{checks['table5_epoch1_hidden']}")
+
+    # Table 6: the components.
+    variants = {}
+    for tag, mb, rf, lr_on in table6.VARIANTS:
+        rec, hist = recs[f"table6/{tag}"], hists[f"table6/{tag}"]
+        c = rec["kakurenbo"]
+        hidden = [len(p.hidden_indices) for p in rec["plans"]]
+        row = {"hidden": hidden,
+               "left_hidden_set": [len(p.moveback_indices) for p in rec["plans"]],
+               "lr_scale": [p.lr_scale for p in rec["plans"]]}
+        if not mb:
+            sched = FractionSchedule(
+                max_fraction=c.max_fraction,
+                alphas=c.fraction_alphas if rf else (1.0,) * len(c.fraction_alphas),
+                milestones=c.fraction_milestones)
+            row["schedule_count"] = [int(fraction_count(sched(e), n, "cpu"))
+                                     for e in range(epochs)]
+            row["candidates_returned"] = rec["returned"]
+            require(not any(rec["returned"])
+                    and hidden[1:] == row["schedule_count"][1:]
+                    and (rf or len(set(hidden[1:])) == 1),
+                    f"Table 6 {tag} (MB off): {row}")
+        if lr_on:
+            want_lr = [float(rec["lr"](h.epoch)) * p.lr_scale
+                       for h, p in zip(hist, rec["plans"])]
+        else:
+            want_lr = [h.lr for h in hists["table6/baseline"]]
+        require([h.lr for h in hist] == want_lr,
+                f"Table 6 {tag}: LR {[h.lr for h in hist]} against {want_lr}")
+        variants[tag] = row
+    checks["table6"] = variants
+    emit({"phase": "paper", "model": CONFIG.name, "n": n, "n_test": n_test,
+          "epochs": epochs, "rows": rows,
+          "histories": {name: [epoch_record(h) for h in hist]
+                        for name, hist in hists.items()},
+          "wall_s": {name: r["wall_s"] for name, r in results},
+          "checks": checks, "epoch_split": splits, "launches": launches,
+          "seconds": seconds})
 
 
 # ---------------------------------------------------------------------------
@@ -4555,9 +4787,9 @@ def witness_encdec_lr(dev, lr: float = 1e-2, full: bool = True) -> dict:
     return out
 
 
-def phase_compression(dev, n: int = 50_000, epochs: int = 3) -> dict:
+def phase_compression(dev, n: int = CHECK_N, epochs: int = 3) -> dict:
     """Error-feedback gradient compression (``grad_compression=True``) on
-    the main path (paper CNN, ``SyntheticClassification(50_000)``,
+    the main path (paper CNN, ``SyntheticClassification(n)``, ``CHECK_N``,
     KAKURENBO ``"histogram_pallas"`` + DropTop 0.02, fused scoring):
 
     - the scanned engine = the host loop, losses, plans and the whole train
@@ -6688,16 +6920,19 @@ def main(argv: list[str]) -> int:
     for name, extra in encdec_kernel_checks(dev).items():
         zoo_rows.setdefault(name, []).extend(extra)
     phase_plan(dev)
-    launches = collections.Counter(phase_train(dev))
+    train_launches, train_hist = phase_train(dev)
+    launches = collections.Counter(train_launches)
     launches.update(phase_samplers(dev))
     launches.update(phase_table2(dev))
     phase_train_step(dev)
     for engine in ("host", "scan"):
         emit(epoch_split(dev, engine))
+    emit(epoch_split(dev, "scan", strategy="baseline"))
     phase_engines(dev, n=CHECK_N, epochs=2)
     phase_restart(dev, n=CHECK_N)
     launches.update(phase_resilience(dev))
     launches.update(phase_table3(dev))
+    phase_paper(dev, train_hist)
     phase_card_vs_cpu(dev)
     launches.update(phase_compression(dev))
     launches.update(phase_mesh(dev))

@@ -1,9 +1,10 @@
 """PyTorch port, isolation and device rules.
 
 - the port imports ``torch`` and numpy, never ``jax`` and nothing of the
-  JAX package ``repro`` — checked in a fresh interpreter that imports every
-  ``repro_torch`` module (and ``chip_smoke``), and statically over the
-  sources;
+  JAX package ``repro`` or of the reference's ``benchmarks`` — checked in a
+  fresh interpreter that imports every ``repro_torch`` module (and
+  ``chip_smoke``), and statically over the sources and the port's
+  examples;
 - ``device=None`` means CUDA: without a CUDA device every entry point
   raises instead of carrying on on the CPU;
 - the kernel build raises, with a reason, when nvcc is missing, and never
@@ -12,6 +13,8 @@
 from __future__ import annotations
 
 import ast
+import importlib
+import importlib.util
 import os
 import subprocess
 import sys
@@ -73,7 +76,8 @@ def test_sources_name_no_jax_or_repro():
                 roots = [(node.module or "").split(".")[0]]
             else:
                 continue
-            assert not {"jax", "jaxlib", "repro"} & set(roots), (path, roots)
+            assert not {"jax", "jaxlib", "repro", "benchmarks"} & set(roots), (
+                path, roots)
 
 
 def _no_cuda():
@@ -158,6 +162,27 @@ def test_encdec_and_compression_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(TrainConfig(grad_compression=True), model, None, ds,
                 logits_fn=lambda m, b: m(b["images"]))
+
+
+@pytest.mark.parametrize("section", ["table5", "table6", "fig2", "fig4",
+                                     "driver"])
+def test_paper_sections_default_to_cuda(section):
+    """The paper's sections (``repro_torch.experiments``) and
+    ``examples/torch_paper_reproduction.py`` run on CUDA without
+    ``--device``, and raise without a card."""
+    _no_cuda()
+    if section == "driver":
+        spec = importlib.util.spec_from_file_location(
+            "torch_paper_reproduction",
+            ROOT / "examples" / "torch_paper_reproduction.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main(["--list-strategies"])
+    else:
+        mod = importlib.import_module(f"repro_torch.experiments.{section}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main([])
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
